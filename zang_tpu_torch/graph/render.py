@@ -1,0 +1,148 @@
+"""Chunked offline renderer (port of zang_tpu/graph/render.py).
+
+The JAX package renders the piece as one lax.scan over chunks; here it is a
+host loop over chunks that carries the per-voice state (filter l/b). Each
+chunk's program slices go to the device as the chunk is rendered, and the
+audio lands in one preallocated device tensor [C, n_chunks * chunk].
+
+An Instrument provides:
+  plan(timelines, sample_rate) -> program dict (host, numpy); SegProgram
+      leaves get sliced per chunk, other numpy leaves go to the device once
+  init_state(num_voices, device) -> state (dict of tensors, or ())
+  render(state, prog, ctx) -> (state', audio [V, n])
+      prog has SegProgram leaves replaced by tiled chunk slices
+      {"tb": [V, nt, S], name: [V, nt, S]} on the device.
+Only the tiled chunk format is supported (chunk_size % 512 == 0).
+"""
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import require_device
+from ..ops.segprog import SegProgram, chunkify_tiled
+
+TILE = 512
+
+
+@dataclass(frozen=True)
+class RenderCtx:
+    sample_rate: float
+    t_idx: torch.Tensor  # int32 [n] absolute frame indices of this chunk
+    t0: int  # t_idx[0]
+    n: int  # chunk length
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    if a.dtype == np.uint32:  # u32 rides int64 (ops/scan.py)
+        a = a.astype(np.int64)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+class Performance:
+    """A set of (instrument, timelines) rendered into one mono mix.
+
+    programs, if given, replaces planning: the per-part program dicts
+    (convert.from_jax_performance passes the JAX package's plans)."""
+
+    def __init__(
+        self,
+        parts: Sequence[Tuple[object, list]],
+        sample_rate: float,
+        programs: Optional[List[dict]] = None,
+    ) -> None:
+        self.parts = list(parts)
+        self.sample_rate = float(sample_rate)
+        self.num_channels = 1
+        self.programs = programs if programs is not None else [
+            inst.plan(tls, self.sample_rate) for inst, tls in self.parts
+        ]
+
+    def init_state(self, device):
+        return [inst.init_state(len(tls), device) for inst, tls in self.parts]
+
+    def chunk_xs(self, total_frames: int, chunk_size: int, tile: int = TILE):
+        """Host: per-chunk tiled slices of every SegProgram ([n_chunks, ...]
+        arrays); other leaves become () and are merged back per chunk."""
+        if chunk_size % tile or chunk_size < tile:
+            raise ValueError(
+                f"chunk_size {chunk_size} must be a multiple of {tile}: "
+                "only the tiled chunk format is ported")
+        n_chunks = -(-total_frames // chunk_size)
+
+        def walk(prog):
+            if isinstance(prog, SegProgram):
+                return chunkify_tiled(prog, chunk_size, n_chunks, total_frames, tile)
+            if isinstance(prog, dict):
+                return {k: walk(v) for k, v in prog.items()}
+            if isinstance(prog, (list, tuple)):
+                return type(prog)(walk(v) for v in prog)
+            return ()
+
+        return [walk(p) for p in self.programs], n_chunks
+
+    def merge_chunk(self, prog, xs_chunk):
+        """Merge chunk-local seg slices into the static program structure."""
+        if isinstance(prog, SegProgram):
+            return xs_chunk
+        if isinstance(prog, dict):
+            return {k: self.merge_chunk(v, xs_chunk[k]) for k, v in prog.items()}
+        if isinstance(prog, (list, tuple)):
+            return type(prog)(self.merge_chunk(v, x) for v, x in zip(prog, xs_chunk))
+        return prog
+
+    def render_chunk(self, state, chunk_progs, ctx: RenderCtx, programs=None):
+        """One chunk: each part renders [V, n]; voices are summed into the
+        mono mix. programs: the static programs with numpy leaves already
+        on the device (render_performance passes them). Returns
+        (state', audio [1, n])."""
+        mix = torch.zeros((ctx.n,), dtype=torch.float32, device=ctx.t_idx.device)
+        new_states = []
+        for (inst, _), static_prog, xs_chunk, st in zip(
+            self.parts, programs if programs is not None else self.programs,
+            chunk_progs, state
+        ):
+            st2, audio = inst.render(st, self.merge_chunk(static_prog, xs_chunk), ctx)
+            mix = mix + audio.sum(dim=0)
+            new_states.append(st2)
+        return new_states, mix[None, :]
+
+
+def _map_arrays(tree, fn):
+    if isinstance(tree, np.ndarray):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_arrays(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_arrays(v, fn) for v in tree)
+    return tree
+
+
+def render_performance(
+    perf: Performance,
+    total_frames: int,
+    chunk_size: int = 65536,
+    *,
+    device,
+    state=None,
+) -> torch.Tensor:
+    """Render the piece on `device`; returns f32 [num_channels, total_frames]
+    on that device. state: the initial per-part state (default
+    perf.init_state(device))."""
+    dev = require_device(device)
+    xs, n_chunks = perf.chunk_xs(total_frames, chunk_size)
+    static = [_map_arrays(p, lambda a: _to_device(a, dev)) for p in perf.programs]
+    if state is None:
+        state = perf.init_state(dev)
+    out = torch.empty((perf.num_channels, n_chunks * chunk_size),
+                      dtype=torch.float32, device=dev)
+    base = torch.arange(chunk_size, dtype=torch.int32, device=dev)
+    for i in range(n_chunks):
+        c0 = i * chunk_size
+        ctx = RenderCtx(perf.sample_rate, base + c0, c0, chunk_size)
+        chunk_progs = _map_arrays(xs, lambda a, i=i: _to_device(a[i], dev))
+        state, audio = perf.render_chunk(state, chunk_progs, ctx, static)
+        out[:, c0:c0 + chunk_size] = audio
+    return out[:, :total_frames]

@@ -1,0 +1,94 @@
+"""The Bach Toccata & Fugue song on the port (zang_tpu/host/song.py).
+
+Three instruments driven by zang_tpu/data/bach_toccata.npz:
+
+  Pedal        = PMOscInstrument(release 0.4), freq * 0.5, polyphony 3
+  RegularOrgan = NiceInstrument(color 0.25),               polyphony 10
+  WeirdOrgan   = NiceInstrument(color 0.1),                polyphony 4
+
+The two organs merge into one 14-voice part with a per-voice color, as in
+the JAX package. Offline render config: 48 kHz, mono, 385 s, mixdown
+volume 0.25, s16.
+"""
+
+import os
+from typing import List
+
+import numpy as np
+import torch
+
+from zang_tpu.core.notes import SongEvent
+from zang_tpu.core.timeline import compile_timelines
+
+from ..core.mixdown import mixdown_s16
+from ..device import require_device
+from ..graph.render import Performance, render_performance
+from . import instruments as ti
+
+F32 = np.float32
+
+SAMPLE_RATE = 48000.0
+NUM_SECONDS = 6 * 60 + 25  # 385 (write_wav.zig:7)
+MIX_VOLUME = 0.25
+
+_DATA = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "zang_tpu", "data", "bach_toccata.npz")
+
+PEDAL, REGULAR, WEIRD = 0, 1, 2
+POLYPHONY = {PEDAL: 3, REGULAR: 10, WEIRD: 4}
+
+
+def load_song() -> List[List[SongEvent]]:
+    """Per-instrument chronological SongEvent lists."""
+    z = np.load(_DATA)
+    return [
+        [
+            SongEvent({"freq": float(f), "note_on": bool(on)}, t=float(t),
+                      note_id=int(nid))
+            for t, nid, f, on in zip(z[f"t_{i}"], z[f"id_{i}"], z[f"freq_{i}"],
+                                     z[f"on_{i}"])
+        ]
+        for i in range(3)
+    ]
+
+
+def pedal_freq(p) -> F32:
+    # example_song.zig:36: freq * 0.5 in f32
+    return F32(F32(p["freq"]) * F32(0.5))
+
+
+def build_performance(total_frames: int, song=None) -> Performance:
+    """Host: timelines and plans of the song over [0, total_frames)."""
+    song = song or load_song()
+    tls = [
+        compile_timelines(song[i], POLYPHONY[i], SAMPLE_RATE, total_frames)
+        for i in range(3)
+    ]
+    organ_colors = np.array(
+        [0.25] * POLYPHONY[REGULAR] + [0.1] * POLYPHONY[WEIRD], np.float32
+    )
+    return Performance(
+        [
+            (ti.PMOscInstrument(0.4, freq_fn=pedal_freq), tls[PEDAL]),
+            (ti.NiceInstrument(organ_colors), tls[REGULAR] + tls[WEIRD]),
+        ],
+        SAMPLE_RATE,
+    )
+
+
+def render_song(seconds: float = NUM_SECONDS, chunk_size: int = 65536, *,
+                device) -> torch.Tensor:
+    """Render the song on `device` -> f32 [total] mix (pre-mixdown), on
+    that device."""
+    dev = require_device(device)  # before planning: fail fast
+    total = int(seconds * SAMPLE_RATE)
+    perf = build_performance(total)
+    return render_performance(perf, total, chunk_size=chunk_size, device=dev)[0]
+
+
+def render_song_s16(seconds: float = NUM_SECONDS, chunk_size: int = 65536, *,
+                    device) -> np.ndarray:
+    """Render and mix down on `device`; returns int16 [total] on the host."""
+    return mixdown_s16(render_song(seconds, chunk_size, device=device),
+                       MIX_VOLUME).cpu().numpy()

@@ -1,0 +1,73 @@
+"""Build the CUDA sources in csrc/ with nvcc into a shared library with a
+plain C interface, and load it with ctypes.
+
+The library is built at first use into zang_tpu_torch/build/ (listed in
+.gitignore) and rebuilt when the source or the flags change: the file name
+carries their hash. A failed build raises with nvcc's stderr; there is no
+fallback.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+
+# --fmad=false: the SVF step is held to the reference in exact f32 order
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_loaded = {}  # source name -> ctypes.CDLL, one load per process
+build_seconds = {}  # source name -> seconds spent in nvcc (0.0 if cached)
+
+
+def nvcc_path() -> str:
+    """nvcc under $CUDA_HOME, else /usr/local/cuda, else on PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home:
+            cand = os.path.join(home, "bin", "nvcc")
+            if os.access(cand, os.X_OK):
+                return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found ($CUDA_HOME/bin, /usr/local/cuda/bin or PATH): "
+            "the CUDA kernels of zang_tpu_torch cannot be built")
+    return found
+
+
+def library(name: str) -> ctypes.CDLL:
+    """Load csrc/<name>.cu as a shared library, building it if needed."""
+    if name in _loaded:
+        return _loaded[name]
+    src = os.path.join(SRC_DIR, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    build_seconds[name] = 0.0
+    if not os.path.exists(so):
+        nvcc = nvcc_path()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        t = time.perf_counter()
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        build_seconds[name] = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
+                f"{proc.stderr}")
+        if proc.stderr.strip():  # warnings
+            sys.stderr.write(proc.stderr)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    _loaded[name] = lib
+    return lib

@@ -1,0 +1,130 @@
+"""SVF state-variable filter (port of zang_tpu/ops/filters.py).
+
+svf_filter is the plain version: the reference's per-sample recurrence
+(Filter.zig:96-151) is linear time-varying, so each sample's affine map is
+probed on basis states and composed with an associative scan. It runs on
+any device and is what the CPU uses.
+
+svf_filter_table takes the cutoff as per-tile boundary tables (the tiled
+segment-program format). For a CPU tensor it is svf_filter_table_ref;
+for a CUDA tensor it launches the hand-written kernel (ops/svf_cuda.py),
+with no fallback.
+"""
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from .scan import affine2_scan, as_f32
+from .segprog import eval_tiled_chunk
+
+Tensor = torch.Tensor
+
+FCDCOFFSET = 3.814697265625e-6  # 2^-18, Filter.zig:8 (exact in f32)
+
+FILTER_MULS = {  # (l, b, h) output weights; bypass is not ported
+    "low_pass": (1.0, 0.0, 0.0),
+    "band_pass": (0.0, 1.0, 0.0),
+    "high_pass": (0.0, 0.0, 1.0),
+    "notch": (1.0, 0.0, 1.0),
+    "all_pass": (1.0, 1.0, 1.0),
+}
+
+
+def _svf_step(l, b, inp, cut, res):
+    """One output sample: the 2x oversampled update (Filter.zig:123-147),
+    f32 in the reference's expression order. Returns (l', b', h)."""
+    inv = inp + FCDCOFFSET
+    l = l + cut * b - FCDCOFFSET
+    b = b + cut * (inv - b * res - l)
+    l = l + cut * b
+    h = inv - b * res - l
+    b = b + cut * h
+    return l, b, h
+
+
+def svf_filter(
+    l0: Tensor,
+    b0: Tensor,
+    x: Tensor,
+    filter_type: str,
+    cutoff: Union[Tensor, float],
+    res: Union[Tensor, float],
+    active: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Run the SVF over x [..., n]. Returns (l_end, b_end, out [..., n]).
+
+    cutoff/res: raw 0-1 params (clamped like the reference), broadcastable
+    to x. active: bool [..., n]; inactive samples leave the state untouched
+    and output 0."""
+    l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
+    cut = torch.clamp(as_f32(cutoff, x), 0.0, 1.0).broadcast_to(x.shape)
+    r = (1.0 - torch.clamp(as_f32(res, x), 0.0, 1.0)).broadcast_to(x.shape)
+
+    zero = torch.zeros_like(x)
+    one = torch.ones_like(x)
+    # probe the affine step on basis states: state' = A s + c, h = Ah s + ch
+    l_00, b_00, h_00 = _svf_step(zero, zero, x, cut, r)
+    l_10, b_10, h_10 = _svf_step(one, zero, x, cut, r)
+    l_01, b_01, h_01 = _svf_step(zero, one, x, cut, r)
+
+    elems = [l_10 - l_00, l_01 - l_00, b_10 - b_00, b_01 - b_00, l_00, b_00]
+    if active is not None:
+        ident = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
+        elems = [torch.where(active, e, as_f32(iv, x)) for e, iv in zip(elems, ident)]
+
+    pre_l, pre_b, post_l, post_b = affine2_scan(tuple(elems), l0, b0)
+
+    # output: post-step l and b, plus h from the pre-step state
+    h_out = h_00 + (h_10 - h_00) * pre_l + (h_01 - h_00) * pre_b
+    out = post_l * l_mul + post_b * b_mul + h_out * h_mul
+    if active is not None:
+        out = torch.where(active, out, torch.zeros_like(out))
+    return post_l[..., -1], post_b[..., -1], out
+
+
+def svf_filter_table_ref(
+    l0: Tensor,
+    b0: Tensor,
+    x: Tensor,
+    filter_type: str,
+    tb: Tensor,
+    cutv: Tensor,
+    res: float,
+    t0: int,
+    active_from: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain version of svf_filter_table, on any device: evaluate the
+    table into a [V, n] cutoff and run svf_filter."""
+    n = x.shape[1]
+    t_idx = int(t0) + torch.arange(n, dtype=torch.int32, device=x.device)
+    cut = eval_tiled_chunk({"tb": tb, "cut": cutv}, t_idx)["cut"]
+    act = None
+    if active_from is not None:
+        act = t_idx[None, :] >= active_from.to(torch.int32)[:, None]
+    return svf_filter(l0, b0, x, filter_type, cut, res, act)
+
+
+def svf_filter_table(
+    l0: Tensor,
+    b0: Tensor,
+    x: Tensor,
+    filter_type: str,
+    tb: Tensor,
+    cutv: Tensor,
+    res: float,
+    t0: int,
+    active_from: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """SVF with a piecewise-constant cutoff given as per-tile boundary
+    tables instead of a [V, n] array.
+
+    x: [V, n] f32; tb/cutv: [V, nt, S] absolute boundary frames (slot 0
+    always active) and raw cutoff per slot; t0: absolute frame of x[:, 0];
+    active_from: [V] first-active frame. Returns (l_end, b_end, out)."""
+    if x.device.type == "cpu":
+        return svf_filter_table_ref(l0, b0, x, filter_type, tb, cutv, res, t0,
+                                    active_from)
+    from .svf_cuda import svf_table_cuda
+
+    return svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from)

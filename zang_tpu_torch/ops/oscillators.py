@@ -1,0 +1,107 @@
+"""Oscillators on u32 phase counters (port of zang_tpu/ops/oscillators.py,
+the segment-programmed path the song uses).
+
+Phase counters are int64 tensors holding u32 values (see ops/scan.py).
+plan_phase_segments is the numpy twin of the JAX package's planner.
+"""
+
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .scan import F32, as_f32, ftou32, u32, utof23
+from .segprog import SegProgram
+
+PI = 3.14159265358979323846  # rounded to f32 where used, as np.float32(PI)
+GAIN = 0.7
+
+
+def plan_phase_segments(timelines, freq_fn, sample_rate: float,
+                        guard_div8: bool = False) -> SegProgram:
+    """Host: note-constant frequencies -> a phase SegProgram.
+
+    Values per segment: ifreq (u32 increment), A = cnt0 - start*ifreq (u32,
+    so cnt(t) = A + t*ifreq mod 2^32, bit-identical to per-sample
+    accumulation), valid (f32 0/1). guard_div8 applies the pulse validity
+    rule (silent, no phase advance outside [0, sr/8] — PulseOsc.zig:82-84).
+    """
+    V = len(timelines)
+    total = timelines[0].total if timelines else 0
+    K = max(1, max(len(tl.starts) for tl in timelines))
+    starts = np.full((V, K), total, dtype=np.int64)
+    ifreq = np.zeros((V, K), dtype=np.uint32)
+    A = np.zeros((V, K), dtype=np.uint32)
+    valid = np.zeros((V, K), dtype=np.float32)
+    srbase = np.float32(np.float32(4294967296.0) / np.float32(sample_rate))
+    with np.errstate(over="ignore"):
+        for v, tl in enumerate(timelines):
+            k = len(tl.starts)
+            if k == 0:
+                continue
+            starts[v, :k] = tl.starts
+            freqs = tl.param_f32(freq_fn)
+            scaled = srbase * freqs
+            mag = np.abs(scaled).astype(np.uint32)
+            inc = np.where(scaled >= 0, mag, np.uint32(0) - mag)
+            ok = np.ones(k, dtype=bool)
+            if guard_div8:
+                ok = (freqs >= 0) & (freqs <= np.float32(sample_rate) / np.float32(8.0))
+                inc = np.where(ok, inc, np.uint32(0))
+            valid[v, :k] = ok.astype(np.float32)
+            valid[v, k:] = valid[v, k - 1]
+            ifreq[v, :k] = inc
+            ifreq[v, k:] = inc[-1]
+            # exact u32 phase at each segment start
+            ends = np.append(tl.starts[1:], total)
+            lens = (ends - tl.starts).astype(np.uint32)
+            c = np.uint32(0)
+            for i in range(k):
+                A[v, i] = np.uint32(c - np.uint32(tl.starts[i]) * inc[i])
+                c = np.uint32(c + lens[i] * inc[i])
+            A[v, k:] = A[v, k - 1]
+    return SegProgram(starts=starts, values={"ifreq": ifreq, "A": A, "valid": valid})
+
+
+def phase_from_chunk(vals: dict, t_idx: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Device: (cnt, ifreq, valid) per sample from evaluated phase program
+    values (ifreq, A as u32-in-int64; valid f32). t_idx: [n] frames >= 0."""
+    ifreq = vals["ifreq"]
+    cnt = u32(vals["A"] + t_idx.to(torch.int64)[None, :] * ifreq)
+    return cnt, ifreq, vals["valid"] > 0.5
+
+
+def sine_wave(cnt: torch.Tensor, phase: Union[torch.Tensor, float]) -> torch.Tensor:
+    """out = sin((t + phase) * pi * 2), t = utof23(cnt) (SineOsc.zig:4-6)."""
+    t = utof23(cnt)
+    return torch.sin((t + as_f32(phase, t)) * as_f32(PI, t) * 2.0)
+
+
+def pulse_wave(cnt: torch.Tensor, ifreq: torch.Tensor,
+               color: Union[torch.Tensor, float],
+               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Anti-aliased pulse values from phase counters (PulseOsc.zig:96-113).
+
+    The 3-bit transition state machine reduces to per-sample pure functions:
+    prev bit = (cnt - ifreq) < brpt, cur bit = cnt < brpt, wrap = cnt < ifreq
+    (unsigned compares on the masked int64 counters)."""
+    brpt = ftou32(torch.clamp(as_f32(color, cnt), 0.0, 1.0))
+    col = utof23(brpt)
+    gain = as_f32(GAIN, col)
+    # gdf only matters on transition samples, where ifreq >= 1
+    gdf = gain / utof23(torch.clamp(ifreq, min=1))
+    cc121 = gdf * 2.0 * (col - 1.0) + gain
+    cc212 = gdf * 2.0 * col - gain
+    p = utof23(cnt)
+    prev = u32(cnt - ifreq) < brpt
+    cur = cnt < brpt
+    wrapped = cnt < ifreq
+    updown = gdf * 2.0 * (col - p) + gain  # 0b010
+    downup = gdf * 2.0 * p - gain  # 0b101
+    v_nowrap = torch.where(prev, torch.where(cur, gain, updown), -gain)
+    v_wrap = torch.where(prev, cc121, torch.where(cur, downup, cc212))
+    out = torch.where(wrapped, v_wrap, v_nowrap)
+    if valid is not None:
+        out = torch.where(valid, out, torch.zeros((), dtype=F32, device=out.device))
+    return out

@@ -1,0 +1,107 @@
+"""u32 phase arithmetic and the affine scan (port of zang_tpu/ops/scan.py).
+
+u32 convention: torch has no add, sub, compare or shift on uint32 (on the
+CPU each raises), so phase counters ride int64 tensors holding 0..2^32-1,
+masked with U32 after every add, sub or mul. Comparisons of two masked
+values are then the unsigned compares the oscillators need. CUDA kernels
+use native uint32_t.
+"""
+
+from typing import Callable, Tuple
+
+import torch
+
+U32 = 0xFFFFFFFF
+F32 = torch.float32
+
+
+def as_f32(x, like: torch.Tensor) -> torch.Tensor:
+    """A Python number or tensor as an f32 tensor on like's device."""
+    return torch.as_tensor(x, dtype=F32, device=like.device)
+
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """Wrap an int64 tensor into 0..2^32-1 (two's complement for negatives)."""
+    return x & U32
+
+
+def utof23(cnt: torch.Tensor) -> torch.Tensor:
+    """u32 phase -> float in [0, 1) with 23-bit precision (PulseOsc.zig:19-21):
+    the top 23 bits become a mantissa with exponent 0, minus 1."""
+    bits = ((cnt >> 9) | 0x3F800000).to(torch.int32)
+    return bits.view(F32) - 1.0
+
+
+def ftou32(v: torch.Tensor) -> torch.Tensor:
+    """float [0, 1) -> 0.32 unsigned fixed point (PulseOsc.zig:23-25), as
+    int64. The products stay f32, as in the reference."""
+    return ((v * 4294967296.0) * 0.99995).to(torch.int64)
+
+
+def _affine2_combine(x, y):
+    """Compose two affine maps on 2-state systems: y after x.
+
+    Elements are (a, b, c, d, e, f) for M = [[a, b], [c, d]], v = [e, f].
+    Explicit elementwise arithmetic in the order of the JAX reference."""
+    (a1, b1, c1, d1, e1, f1) = x
+    (a2, b2, c2, d2, e2, f2) = y
+    return (
+        a2 * a1 + b2 * c1,
+        a2 * b1 + b2 * d1,
+        c2 * a1 + d2 * c1,
+        c2 * b1 + d2 * d1,
+        a2 * e1 + b2 * f1 + e2,
+        c2 * e1 + d2 * f1 + f2,
+    )
+
+
+def _affine2_apply(m, lx, ly):
+    a, b, c, d, e, f = m
+    return a * lx + b * ly + e, c * lx + d * ly + f
+
+
+def associative_scan(combine: Callable, elems: Tuple[torch.Tensor, ...]):
+    """Inclusive scan along the last axis (Hillis-Steele: log2(n) levels of
+    whole-tensor ops, no loop over samples). combine(earlier, later)."""
+    n = elems[0].shape[-1]
+    out = tuple(elems)
+    shift = 1
+    while shift < n:
+        comb = combine(tuple(e[..., :-shift] for e in out),
+                       tuple(e[..., shift:] for e in out))
+        out = tuple(torch.cat([e[..., :shift], c], dim=-1)
+                    for e, c in zip(out, comb))
+        shift *= 2
+    return out
+
+
+def _prepend(s0: torch.Tensor, post: torch.Tensor) -> torch.Tensor:
+    head = s0[..., None].expand(*post.shape[:-1], 1)
+    return torch.cat([head, post[..., :-1]], dim=-1)
+
+
+def affine2_scan(elems, s0_l, s0_b, block: int = 512):
+    """Scan of x_i = M_i x_{i-1} + v_i for 2-state recurrences.
+
+    elems: (a, b, c, d, e, f), each [..., n]; s0_l/s0_b: [...].
+    Returns (pre_l, pre_b, post_l, post_b), [..., n] states before/after
+    each step. Two levels as in the reference: a scan within blocks of
+    `block` samples, a scan over the block summaries, then an apply."""
+    n = elems[0].shape[-1]
+    if n % block != 0 or n <= block:
+        inc = associative_scan(_affine2_combine, elems)
+        post_l, post_b = _affine2_apply(inc, s0_l[..., None], s0_b[..., None])
+    else:
+        nb = n // block
+        blocked = tuple(e.reshape(*e.shape[:-1], nb, block) for e in elems)
+        inc = associative_scan(_affine2_combine, blocked)
+        summaries = tuple(e[..., -1] for e in inc)  # [..., nb]
+        sum_scan = associative_scan(_affine2_combine, summaries)
+        bl, bb = _affine2_apply(sum_scan, s0_l[..., None], s0_b[..., None])
+        start_l = _prepend(s0_l, bl)
+        start_b = _prepend(s0_b, bb)
+        post_l, post_b = _affine2_apply(inc, start_l[..., :, None],
+                                        start_b[..., :, None])
+        post_l = post_l.reshape(*post_l.shape[:-2], n)
+        post_b = post_b.reshape(*post_b.shape[:-2], n)
+    return _prepend(s0_l, post_l), _prepend(s0_b, post_b), post_l, post_b

@@ -1,0 +1,95 @@
+"""Wrapper of the table-cut SVF CUDA kernel (csrc/svf_table.cu), the
+counterpart of zang_tpu/ops/pallas_svf.py svf_filter_pallas_table.
+
+It checks device, dtype, shape and contiguity, allocates the outputs with
+torch.empty, launches on torch.cuda.current_stream() and raises if the
+launch is refused. svf_table_launches counts the launches.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _build
+
+svf_table_launches = 0
+
+_C = ctypes.c_void_p
+
+
+def _lib():
+    lib = _build.library("svf_table")
+    fn = lib.zt_svf_table
+    if fn.argtypes is None:
+        fn.argtypes = [_C] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [_C]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build() -> float:
+    """Build (or load) the kernel library; returns the seconds nvcc took
+    (0.0 when an up-to-date build was on disk)."""
+    _lib()
+    return _build.build_seconds["svf_table"]
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
+    """Drop-in for ops.filters.svf_filter_table on CUDA tensors.
+
+    x: [V, n] f32; tb: [V, nt, S] i32; cutv: [V, nt, S] f32 (raw, clipped
+    here to [0, 1]); active_from: [V] i32 or None (always active); l0/b0:
+    [V] f32. n % nt == 0. Returns (l_end [V], b_end [V], out [V, n])."""
+    global svf_table_launches
+    from .filters import FILTER_MULS
+
+    if x.device.type != "cuda":
+        raise ValueError(f"svf_table_cuda needs CUDA tensors, got x on {x.device}")
+    if x.dim() != 2 or tb.dim() != 3:
+        raise ValueError(f"x must be [V, n] and tb [V, nt, S]; got {tuple(x.shape)}, "
+                         f"{tuple(tb.shape)}")
+    V, n = x.shape
+    _, nt, S = tb.shape
+    if nt < 1 or S < 1 or n % nt:
+        raise ValueError(f"chunk of {n} frames does not split into {nt} tiles")
+    dev = x.device
+    cv = torch.clamp(cutv, 0.0, 1.0).contiguous()
+    if active_from is None:
+        active_from = torch.full((V,), -(2 ** 31), dtype=torch.int32, device=dev)
+    for name, t, dtype, shape in (
+        ("x", x, torch.float32, (V, n)), ("tb", tb, torch.int32, (V, nt, S)),
+        ("cutv", cv, torch.float32, (V, nt, S)),
+        ("active_from", active_from, torch.int32, (V,)),
+        ("l0", l0, torch.float32, (V,)), ("b0", b0, torch.float32, (V,)),
+    ):
+        _check(name, t, dtype, shape, dev)
+    if filter_type not in FILTER_MULS:
+        raise ValueError(f"filter type {filter_type!r} has no table kernel")
+    l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
+    r = np.float32(1.0) - np.clip(np.float32(res), np.float32(0.0), np.float32(1.0))
+
+    out = torch.empty((V, n), dtype=torch.float32, device=dev)
+    l_end = torch.empty((V,), dtype=torch.float32, device=dev)
+    b_end = torch.empty((V,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().zt_svf_table(
+            x.data_ptr(), tb.data_ptr(), cv.data_ptr(), active_from.data_ptr(),
+            l0.data_ptr(), b0.data_ptr(), out.data_ptr(), l_end.data_ptr(),
+            b_end.data_ptr(), V, n, nt, S, int(t0), float(r), l_mul, b_mul,
+            h_mul, stream)
+    if err != 0:
+        raise RuntimeError(f"svf_table kernel launch failed: cudaError_t {err}")
+    svf_table_launches += 1
+    return l_end, b_end, out
