@@ -62,7 +62,8 @@ def test_song_through_jax_programs(jax_song):
     perf = convert.from_jax_performance(jperf, "cpu")
     state = convert.from_jax_state(jperf.init_state(), "cpu")
     own = perf.init_state("cpu")
-    torch.testing.assert_close(state[1], own[1], rtol=0, atol=0)
+    torch.testing.assert_close(state, own, rtol=0, atol=0)
+    assert state[1] == () and set(state[0][1]) == {"l", "b"}  # no post chain
     got = trender.render_performance(perf, TOTAL, 65536, device="cpu", state=state)
     _assert_parity(got[0].numpy(), jax_song, -141.7)
 

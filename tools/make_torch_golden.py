@@ -1,22 +1,36 @@
-"""Render the Bach Toccata with the JAX package and keep golden windows.
+"""Render with the JAX package and keep golden windows for the PyTorch port.
 
 The PyTorch port (zang_tpu_torch) runs where JAX is not installed, so its
-fidelity check against the JAX reference reads a small file instead of
-rendering with JAX. This tool writes that file:
+fidelity check against the JAX reference reads small files instead of
+rendering with JAX. This tool writes them:
 
-    zang_tpu_torch/data/song_golden_jax.npz
+    zang_tpu_torch/data/song_golden_jax.npz     (the 385 s Bach Toccata)
       offsets    int64 [W]       window start frames
       windows    f32   [W, 8192] the JAX f32 mix (pre-mixdown) at each offset
       chunk_rms  f64   [nc]      RMS of each 65536-frame render chunk
       total, chunk_size, window, sample_rate
 
-The windows spread evenly over the song, plus windows that straddle chunk
-boundaries (where the filter state carries across chunks) and the last
-window of the final, partial chunk. Run from the repo root on the CPU:
+    zang_tpu_torch/data/configs_golden_jax.npz  (sampler and poly_echo)
+      params               str  JSON of each config's settings (seconds,
+                                sample rate, voices, delay, seed, ...),
+                                chunk size and window length
+      <name>_offsets       int64 [W]
+      <name>_windows       f32   [W, C, 4096]  the JAX f32 render [C, total]
+      <name>_chunk_rms     f64   [C, nc]
+    for <name> in sampler (10 s, C = 1) and poly_echo (1024 voices, 30 s,
+    C = 2), at the JAX CLI's defaults.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_golden.py
+The windows spread evenly over the render, plus windows that straddle chunk
+boundaries (where the state carries across chunks) and the last window of
+the final, partial chunk. Run from the repo root on the CPU:
+
+    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [song|configs|all]
+
+The song takes about a minute, the configs a few minutes (poly_echo renders
+1024 voices).
 """
 
+import json
 import os
 import sys
 import time
@@ -26,49 +40,108 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-OUT = os.path.join(ROOT, "zang_tpu_torch", "data", "song_golden_jax.npz")
+DATA = os.path.join(ROOT, "zang_tpu_torch", "data")
+OUT = os.path.join(DATA, "song_golden_jax.npz")
+OUT_CONFIGS = os.path.join(DATA, "configs_golden_jax.npz")
 WINDOW = 8192
+CONFIG_WINDOW = 4096
 CHUNK = 65536
 N_SPREAD = 24
 N_SEAMS = 10
 
+# the JAX CLI's defaults (zang_tpu/host/render_wav.py)
+CONFIGS = {
+    "sampler": {"seconds": 10.0, "sample_rate": 44100.0, "speed": 1.0,
+                "distort": True, "fake_sample_rate": 6000.0, "n_spread": 10,
+                "n_seams": 4},
+    "poly_echo": {"num_voices": 1024, "seconds": 30.0, "sample_rate": 44100.0,
+                  "main_delay": 15000, "seed": 0, "n_spread": 12, "n_seams": 6},
+}
 
-def window_offsets(total: int, chunk: int = CHUNK, window: int = WINDOW) -> np.ndarray:
+
+def window_offsets(total: int, chunk: int = CHUNK, window: int = WINDOW,
+                   n_spread: int = N_SPREAD, n_seams: int = N_SEAMS) -> np.ndarray:
     """Evenly spread starts (the first at 0, the last ending at `total`)
     plus windows centred on chunk boundaries."""
-    spread = np.linspace(0, total - window, N_SPREAD).astype(np.int64)
+    spread = np.linspace(0, total - window, n_spread).astype(np.int64)
     n_chunks = -(-total // chunk)
-    seams = np.linspace(1, n_chunks - 1, N_SEAMS).astype(np.int64) * chunk - window // 2
+    seams = np.linspace(1, n_chunks - 1, n_seams).astype(np.int64) * chunk - window // 2
     offs = np.unique(np.concatenate([spread, seams]))
     return offs[(offs >= 0) & (offs + window <= total)]
 
 
 def chunk_rms(mix: np.ndarray, chunk: int = CHUNK) -> np.ndarray:
-    n_chunks = -(-mix.size // chunk)
-    return np.array([
-        np.sqrt(np.mean(mix[i * chunk:(i + 1) * chunk].astype(np.float64) ** 2))
+    """RMS of each chunk along the last axis ([..., n] -> [..., nc])."""
+    n_chunks = -(-mix.shape[-1] // chunk)
+    return np.stack([
+        np.sqrt(np.mean(mix[..., i * chunk:(i + 1) * chunk].astype(np.float64) ** 2,
+                        axis=-1))
         for i in range(n_chunks)
-    ])
+    ], axis=-1)
 
 
-def main():
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+def make_song():
     from zang_tpu.host import song
 
     t = time.time()
     mix = song.render_song(song.NUM_SECONDS, chunk_size=CHUNK)
-    print(f"rendered {mix.size} frames in {time.time() - t:.1f}s on the CPU")
+    print(f"song: rendered {mix.size} frames in {time.time() - t:.1f}s on the CPU")
     offs = window_offsets(mix.size)
     windows = np.stack([mix[o:o + WINDOW] for o in offs]).astype(np.float32)
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
     np.savez_compressed(
         OUT, offsets=offs, windows=windows, chunk_rms=chunk_rms(mix),
         total=np.int64(mix.size), chunk_size=np.int64(CHUNK),
         window=np.int64(WINDOW), sample_rate=np.float64(song.SAMPLE_RATE),
     )
     print(f"wrote {OUT}: {len(offs)} windows, {os.path.getsize(OUT)} bytes")
+
+
+def _build(name, p):
+    from zang_tpu.host import configs
+
+    if name == "sampler":
+        return configs.build_sampler_performance(
+            seconds=p["seconds"], sample_rate=p["sample_rate"], speed=p["speed"],
+            distort=p["distort"], fake_sample_rate=p["fake_sample_rate"])
+    return configs.build_poly_echo_performance(
+        num_voices=p["num_voices"], seconds=p["seconds"],
+        sample_rate=p["sample_rate"], main_delay=p["main_delay"], seed=p["seed"])
+
+
+def make_configs():
+    from zang_tpu.graph.render import render_performance
+
+    arrays = {}
+    for name, p in CONFIGS.items():
+        t = time.time()
+        perf, total = _build(name, p)
+        audio = np.asarray(render_performance(perf, total, chunk_size=CHUNK),
+                           np.float32)  # [C, total]
+        print(f"{name}: rendered {audio.shape} in {time.time() - t:.1f}s on the CPU")
+        offs = window_offsets(total, window=CONFIG_WINDOW, n_spread=p["n_spread"],
+                              n_seams=p["n_seams"])
+        arrays[f"{name}_offsets"] = offs
+        arrays[f"{name}_windows"] = np.stack(
+            [audio[:, o:o + CONFIG_WINDOW] for o in offs])
+        arrays[f"{name}_chunk_rms"] = chunk_rms(audio)
+    params = {"chunk_size": CHUNK, "window": CONFIG_WINDOW, **CONFIGS}
+    np.savez_compressed(OUT_CONFIGS, params=np.array(json.dumps(params, sort_keys=True)),
+                        **arrays)
+    print(f"wrote {OUT_CONFIGS}: {os.path.getsize(OUT_CONFIGS)} bytes")
+
+
+def main(argv=None):
+    import jax
+
+    which = (argv or sys.argv[1:] or ["all"])[0]
+    if which not in ("song", "configs", "all"):
+        raise SystemExit(f"usage: {sys.argv[0]} [song|configs|all]")
+    jax.config.update("jax_platforms", "cpu")
+    os.makedirs(DATA, exist_ok=True)
+    if which in ("song", "all"):
+        make_song()
+    if which in ("configs", "all"):
+        make_configs()
 
 
 if __name__ == "__main__":

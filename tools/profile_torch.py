@@ -1,0 +1,117 @@
+"""Where the time goes in the port's renders on one GPU.
+
+For each config named (song, sampler, poly_echo; all three by default) it
+plans, renders once to warm up, renders again with the host clock (ending
+in torch.cuda.synchronize()), then renders a third time under
+torch.profiler and prints, per config:
+
+  - plan seconds, render seconds and render-only RTF;
+  - device time: the sum of the kernels' and copies' self device time in
+    the profiled render, and its share of the unprofiled render's wall
+    time (the device's busy share; one stream, so nothing overlaps);
+  - launches a chunk (kernels and copies the profiler saw);
+  - the top rows by self device time, with calls and time per call.
+
+Run from the repo root on a machine with CUDA:
+
+    python tools/profile_torch.py [song] [sampler] [poly_echo] [--top N]
+
+The card's nvidia-smi name and power limit are printed first; the last line
+is one JSON object with the numbers above.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+CHUNK = 65536
+
+
+def _build(name):
+    from zang_tpu_torch.host import configs, song
+
+    if name == "song":
+        total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
+        return song.build_performance(total), total, song.NUM_SECONDS
+    perf, total = (configs.build_sampler_performance() if name == "sampler"
+                   else configs.build_poly_echo_performance())
+    return perf, total, configs.DEFAULT_SECONDS[name]
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def profile(name, top):
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from zang_tpu_torch.graph.render import render_performance
+
+    t = time.perf_counter()
+    perf, total, seconds = _build(name)
+    plan_s = time.perf_counter() - t
+    render_performance(perf, total, CHUNK, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    render_performance(perf, total, CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        render_performance(perf, total, CHUNK, device="cuda")
+        torch.cuda.synchronize()
+    n_chunks = -(-total // CHUNK)
+    rows = [e for e in prof.key_averages() if _device_us(e) > 0
+            and str(e.device_type).endswith("CUDA")]
+    rows.sort(key=_device_us, reverse=True)
+    device_us = sum(_device_us(e) for e in rows)
+    calls = sum(e.count for e in rows)
+    print(f"{name}: {n_chunks} chunks; plan {plan_s:.3f}s, render {render_s:.3f}s "
+          f"(RTF {seconds / render_s:.1f}, render only); device time "
+          f"{device_us / 1e3:.1f} ms = {100 * device_us / 1e6 / render_s:.1f} % of the "
+          f"render's wall; {calls / n_chunks:.0f} device launches and copies a chunk")
+    top_rows = []
+    for e in rows[:top]:
+        us = _device_us(e)
+        top_rows.append({"name": e.key[:90], "calls": e.count, "device_ms": us / 1e3,
+                         "share": us / device_us, "us_per_call": us / e.count})
+        print(f"  {100 * us / device_us:5.1f} %  {us / 1e3:9.3f} ms  {e.count:7d} calls  "
+              f"{us / e.count:9.2f} us/call  {e.key[:90]}")
+    return {"chunks": n_chunks, "plan_s": plan_s, "render_s": render_s,
+            "rtf_render": seconds / render_s, "device_ms": device_us / 1e3,
+            "busy_share": device_us / 1e6 / render_s,
+            "launches_per_chunk": calls / n_chunks, "top": top_rows}
+
+
+def main(argv=None):
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("configs", nargs="*", choices=["song", "sampler", "poly_echo"],
+                    help="default: all three")
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch: needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card)
+    out = {"card": card}
+    for name in args.configs or ["song", "sampler", "poly_echo"]:
+        out[name] = profile(name, args.top)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -4,17 +4,21 @@ The JAX package (zang_tpu) stays the reference; this package renders the
 same songs on an NVIDIA GPU and is held against it on the same inputs.
 Its layout mirrors zang_tpu's, so each counterpart sits at the same path:
 
-  core      mixdown (torch on the device, numpy twin)
+  core      the host core (notes, timeline, native, curves, span, trigger,
+            wav: copies of zang_tpu.core's, the C++ compiler in csrc/) and
+            mixdown (torch on the device, numpy twin)
   ops       u32 phase math, tiled segment programs, oscillators, painter
-            envelopes, the SVF filter (plain torch + a hand-written CUDA
-            kernel for the table-cut form)
+            envelopes, the SVF filter, the sampler, effects and delays
+            (plain torch, plus hand-written CUDA kernels for the table-cut
+            SVF and the sample-table lookup)
   graph     the chunked offline renderer and the fidelity metric
-  host      instruments, the Bach song, the render_wav CLI
+  host      instruments, the Bach song, the sampler and poly_echo configs,
+            the render_wav CLI
   convert   carry a zang_tpu Performance's programs and state across
 
-It imports torch, numpy and the JAX-free modules of zang_tpu.core
-(notes, timeline, native, curves, span, trigger, twelve_tet, wav), and
-never jax. Every entry point takes an explicit device.
+It imports torch and numpy, never jax and nothing of zang_tpu: it reads
+only the data files under zang_tpu/data/. The render entry points run on
+the card (device="cuda") unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

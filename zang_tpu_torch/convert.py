@@ -10,7 +10,9 @@ import torch
 
 from .device import require_device
 from .graph.render import Performance
+from .host import configs as tc
 from .host import instruments as ti
+from .ops.sampler import SampleTable
 from .ops.segprog import SegProgram
 
 
@@ -20,6 +22,15 @@ def _instrument(inst):
         return ti.PMOscInstrument(inst.release_duration, freq_fn=inst.freq_fn)
     if name == "NiceInstrument":
         return ti.NiceInstrument(np.array(inst.color, copy=True), freq_fn=inst.freq_fn)
+    if name == "SamplerInstrument":
+        t = inst.table
+        out = tc.SamplerInstrument(
+            loop=inst.loop, speed=inst.speed, distort=inst.distort,
+            fake_sample_rate=inst.fake_sample_rate,
+            table=SampleTable(np.array(t.data_f32, copy=True), t.num_samples,
+                              t.byte_len, t.sample_rate))
+        out.ratio = inst.ratio  # set by the JAX package's plan()
+        return out
     raise ValueError(f"instrument {name} is not ported yet")
 
 
@@ -32,32 +43,46 @@ def _program(prog):
         return {k: _program(v) for k, v in prog.items()}
     if isinstance(prog, (list, tuple)):
         return type(prog)(_program(v) for v in prog)
+    if isinstance(prog, (bool, int, float)):  # static flags (sampler "windowed")
+        return prog
     return np.array(prog, copy=True)
 
 
-def from_jax_performance(perf, device) -> Performance:
+def from_jax_performance(perf, device, post=None) -> Performance:
     """The port's Performance for a zang_tpu.graph.render.Performance: the
     same instruments, timelines and (numpy) programs, unplanned again.
-    Only mono performances without a post effect are ported."""
+
+    A JAX post_fn is a closure over jax ops and cannot be converted: pass
+    the port's chain as post=(post_fn, post_init_state) (for poly_echo,
+    host.configs.poly_echo_post). Raises when the JAX performance has a
+    post_fn and post is None."""
     require_device(device)
-    if perf.num_channels != 1 or perf.post_fn is not None:
-        raise ValueError("only mono performances without post_fn are ported")
+    if perf.post_fn is not None and post is None:
+        raise ValueError("the JAX performance has a post_fn: pass the port's "
+                         "post chain as post=(post_fn, post_init_state)")
+    post_fn, post_init = post if post is not None else (None, None)
     parts = [(_instrument(inst), tls) for inst, tls in perf.parts]
     return Performance(parts, perf.sample_rate,
-                       programs=[_program(p) for p in perf.programs])
+                       programs=[_program(p) for p in perf.programs],
+                       num_channels=perf.num_channels, post_fn=post_fn,
+                       post_init_state=post_init)
 
 
 def from_jax_state(state, device):
-    """A zang_tpu Performance state ((per-part states, post state)) as the
-    port's per-part state list: arrays become f32 tensors on `device`."""
+    """A zang_tpu Performance state ((per-part states), post state) as the
+    port's, on `device`: filter l/b, decimator counters (u32 -> int64),
+    delay buffers and echo l/b."""
     dev = require_device(device)
-    states, _post = state
+    states, post = state
 
     def conv(s):
         if isinstance(s, dict):
             return {k: conv(v) for k, v in s.items()}
         if isinstance(s, (list, tuple)):
             return type(s)(conv(v) for v in s)
-        return torch.as_tensor(np.array(s), device=dev)
+        a = np.array(s)
+        if a.dtype == np.uint32:  # u32 rides int64 (ops/scan.py)
+            a = a.astype(np.int64)
+        return torch.as_tensor(a, device=dev)
 
-    return [conv(s) for s in states]
+    return [conv(s) for s in states], conv(post)

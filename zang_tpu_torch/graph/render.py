@@ -1,22 +1,25 @@
 """Chunked offline renderer (port of zang_tpu/graph/render.py).
 
 The JAX package renders the piece as one lax.scan over chunks; here it is a
-host loop over chunks that carries the per-voice state (filter l/b). Each
-chunk's program slices go to the device as the chunk is rendered, and the
-audio lands in one preallocated device tensor [C, n_chunks * chunk].
+host loop over chunks that carries the state ((per-part states, post
+state): filter l/b, decimator counters, delay lines). Each chunk's program
+slices go to the device as the chunk is rendered, and the audio lands in
+one preallocated device tensor [C, n_chunks * chunk].
 
 An Instrument provides:
   plan(timelines, sample_rate) -> program dict (host, numpy); SegProgram
       leaves get sliced per chunk, other numpy leaves go to the device once
   init_state(num_voices, device) -> state (dict of tensors, or ())
-  render(state, prog, ctx) -> (state', audio [V, n])
+  render(state, prog, ctx) -> (state', audio)
       prog has SegProgram leaves replaced by tiled chunk slices
-      {"tb": [V, nt, S], name: [V, nt, S]} on the device.
+      {"tb": [V, nt, S], name: [V, nt, S]} on the device. audio is [V, n]
+      (voices summed into the mono mix), or [C, n] pre-mixed when the
+      instrument has `output_channels`.
 Only the tiled chunk format is supported (chunk_size % 512 == 0).
 """
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,9 +45,12 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 
 class Performance:
-    """A set of (instrument, timelines) rendered into one mono mix.
+    """A set of (instrument, timelines) rendered into one mix.
 
-    programs, if given, replaces planning: the per-part program dicts
+    post_fn, if given, maps (post state, mix [n], ctx) -> (post state,
+    audio [C, n]) and owns the effect state (delays, filters);
+    post_init_state(device) makes its initial state. programs, if given,
+    replaces planning: the per-part program dicts
     (convert.from_jax_performance passes the JAX package's plans)."""
 
     def __init__(
@@ -52,16 +58,24 @@ class Performance:
         parts: Sequence[Tuple[object, list]],
         sample_rate: float,
         programs: Optional[List[dict]] = None,
+        num_channels: int = 1,
+        post_fn: Optional[Callable] = None,
+        post_init_state: Optional[Callable] = None,
     ) -> None:
         self.parts = list(parts)
         self.sample_rate = float(sample_rate)
-        self.num_channels = 1
+        self.num_channels = num_channels
+        self.post_fn = post_fn
+        self.post_init_state = post_init_state
         self.programs = programs if programs is not None else [
             inst.plan(tls, self.sample_rate) for inst, tls in self.parts
         ]
 
     def init_state(self, device):
-        return [inst.init_state(len(tls), device) for inst, tls in self.parts]
+        """((per-part states), post state) on `device`."""
+        states = [inst.init_state(len(tls), device) for inst, tls in self.parts]
+        post = self.post_init_state(device) if self.post_init_state else ()
+        return states, post
 
     def chunk_xs(self, total_frames: int, chunk_size: int, tile: int = TILE):
         """Host: per-chunk tiled slices of every SegProgram ([n_chunks, ...]
@@ -94,20 +108,34 @@ class Performance:
         return prog
 
     def render_chunk(self, state, chunk_progs, ctx: RenderCtx, programs=None):
-        """One chunk: each part renders [V, n]; voices are summed into the
-        mono mix. programs: the static programs with numpy leaves already
-        on the device (render_performance passes them). Returns
-        (state', audio [1, n])."""
-        mix = torch.zeros((ctx.n,), dtype=torch.float32, device=ctx.t_idx.device)
+        """One chunk (zang_tpu/graph/render.py render_chunk): each part
+        renders [V, n], summed into the mono mix, or [C, n] when it has
+        `output_channels`; then post_fn, or the mix on every channel.
+        programs: the static programs with numpy leaves already on the
+        device (render_performance passes them). Returns (state', [C, n])."""
+        states, post_state = state
+        dev = ctx.t_idx.device
+        mix = torch.zeros((ctx.n,), dtype=torch.float32, device=dev)
+        multi = torch.zeros((self.num_channels, ctx.n), dtype=torch.float32, device=dev)
         new_states = []
         for (inst, _), static_prog, xs_chunk, st in zip(
             self.parts, programs if programs is not None else self.programs,
-            chunk_progs, state
+            chunk_progs, states
         ):
             st2, audio = inst.render(st, self.merge_chunk(static_prog, xs_chunk), ctx)
-            mix = mix + audio.sum(dim=0)
+            if getattr(inst, "output_channels", None) is not None:
+                multi = multi + audio
+            elif audio.dim() == 2:  # [V, n] -> sum voices
+                mix = mix + audio.sum(dim=0)
+            else:
+                mix = mix + audio
             new_states.append(st2)
-        return new_states, mix[None, :]
+        if self.post_fn is not None:
+            post_state, out = self.post_fn(post_state, mix, ctx)
+            out = out + multi if out.shape == multi.shape else out
+        else:  # mono contributions go to every channel (centre)
+            out = multi + mix[None, :]
+        return (new_states, post_state), out
 
 
 def _map_arrays(tree, fn):
@@ -125,11 +153,12 @@ def render_performance(
     total_frames: int,
     chunk_size: int = 65536,
     *,
-    device,
+    device="cuda",
     state=None,
 ) -> torch.Tensor:
-    """Render the piece on `device`; returns f32 [num_channels, total_frames]
-    on that device. state: the initial per-part state (default
+    """Render the piece on `device` (the card unless the caller asks for the
+    CPU); returns f32 [num_channels, total_frames] on that device. state:
+    the initial ((per-part states), post state) (default
     perf.init_state(device))."""
     dev = require_device(device)
     xs, n_chunks = perf.chunk_xs(total_frames, chunk_size)

@@ -11,9 +11,8 @@ from typing import List
 import numpy as np
 import torch
 
-from zang_tpu.core.curves import PaintCurve
-from zang_tpu.core.timeline import SubvoiceTimeline, active_from
-
+from ..core.curves import PaintCurve
+from ..core.timeline import SubvoiceTimeline, active_from
 from ..ops import control, filters, oscillators
 from ..ops.segprog import eval_tiled_chunk
 

@@ -1,14 +1,18 @@
 """Offline WAV renderer CLI of the port (zang_tpu/host/render_wav.py).
 
-    python -m zang_tpu_torch.host.render_wav song out.wav [--seconds S]
-                                                          [--device cuda]
-                                                          [--chunk N]
+    python -m zang_tpu_torch.host.render_wav <config> out.wav [--seconds S]
+                                                              [--device cuda]
+                                                              [--chunk N]
+                                                              [--voices N]
 
 Configs:
   song       full Bach Toccata & Fugue (48 kHz mono, 385 s by default)
+  sampler    drum loop + distortion + decimator chain (44.1 kHz mono, 10 s)
+  poly_echo  N-voice texture through stereo echoes (44.1 kHz stereo, 30 s,
+             1024 voices by default)
 
---device defaults to cuda and raises when CUDA is absent; pass
---device cpu for the plain torch path.
+All three mix down to s16 at volume 0.25. --device defaults to cuda and
+raises when CUDA is absent; pass --device cpu for the plain torch path.
 """
 
 import argparse
@@ -17,34 +21,46 @@ import time
 import numpy as np
 import torch
 
-from zang_tpu.core.wav import write_wav_s16
-
 from ..core.mixdown import mixdown_s16
+from ..core.wav import write_wav_s16
+from . import configs
 from . import song as song_mod
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="zang-torch-render", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("config", choices=["song"])
+    ap.add_argument("config", choices=["song", "sampler", "poly_echo"])
     ap.add_argument("output")
-    ap.add_argument("--seconds", type=float, default=song_mod.NUM_SECONDS)
+    ap.add_argument("--seconds", type=float, default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--chunk", type=int, default=65536)
+    ap.add_argument("--voices", type=int, default=1024, help="poly_echo voice count")
     args = ap.parse_args(argv)
 
     t0 = time.perf_counter()
-    mix = song_mod.render_song(args.seconds, chunk_size=args.chunk, device=args.device)
-    pcm = mixdown_s16(mix, song_mod.MIX_VOLUME).cpu().numpy()
-    peak = float(mix.abs().max())
-    if mix.is_cuda:
+    if args.config == "song":
+        seconds = song_mod.NUM_SECONDS if args.seconds is None else args.seconds
+        sr, vol = int(song_mod.SAMPLE_RATE), song_mod.MIX_VOLUME
+        audio = song_mod.render_song(seconds, chunk_size=args.chunk,
+                                     device=args.device)[None, :]
+    else:
+        seconds = configs.DEFAULT_SECONDS[args.config] if args.seconds is None \
+            else args.seconds
+        sr, vol = int(configs.SAMPLE_RATE), configs.MIX_VOLUME
+        audio = configs.render_config(args.config, seconds, args.voices, args.chunk,
+                                      device=args.device)
+    pcm = mixdown_s16(audio, vol).cpu().numpy()
+    peak = float(audio.abs().max())
+    if audio.is_cuda:
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    sr = int(song_mod.SAMPLE_RATE)
-    write_wav_s16(args.output, pcm, sr, num_channels=1)
+    channels = pcm.shape[0]
+    write_wav_s16(args.output, pcm if channels > 1 else pcm[0], sr,
+                  num_channels=channels)
     print(
-        f"rendered {args.seconds:g}s at {sr}Hz on {args.device} in {dt:.2f}s "
-        f"(RTF {args.seconds / dt:.1f}x incl. planning and kernel build), "
+        f"rendered {seconds:g}s at {sr}Hz ({channels} ch) on {args.device} in "
+        f"{dt:.2f}s (RTF {seconds / dt:.1f}x incl. planning and kernel build), "
         f"peak {peak:.3f}, {np.count_nonzero(pcm)} nonzero samples -> {args.output}"
     )
 

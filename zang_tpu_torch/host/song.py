@@ -17,10 +17,9 @@ from typing import List
 import numpy as np
 import torch
 
-from zang_tpu.core.notes import SongEvent
-from zang_tpu.core.timeline import compile_timelines
-
 from ..core.mixdown import mixdown_s16
+from ..core.notes import SongEvent
+from ..core.timeline import compile_timelines
 from ..device import require_device
 from ..graph.render import Performance, render_performance
 from . import instruments as ti
@@ -78,9 +77,9 @@ def build_performance(total_frames: int, song=None) -> Performance:
 
 
 def render_song(seconds: float = NUM_SECONDS, chunk_size: int = 65536, *,
-                device) -> torch.Tensor:
-    """Render the song on `device` -> f32 [total] mix (pre-mixdown), on
-    that device."""
+                device="cuda") -> torch.Tensor:
+    """Render the song on `device` (the card unless the caller asks for the
+    CPU) -> f32 [total] mix (pre-mixdown), on that device."""
     dev = require_device(device)  # before planning: fail fast
     total = int(seconds * SAMPLE_RATE)
     perf = build_performance(total)
@@ -88,7 +87,7 @@ def render_song(seconds: float = NUM_SECONDS, chunk_size: int = 65536, *,
 
 
 def render_song_s16(seconds: float = NUM_SECONDS, chunk_size: int = 65536, *,
-                    device) -> np.ndarray:
+                    device="cuda") -> np.ndarray:
     """Render and mix down on `device`; returns int16 [total] on the host."""
     return mixdown_s16(render_song(seconds, chunk_size, device=device),
                        MIX_VOLUME).cpu().numpy()

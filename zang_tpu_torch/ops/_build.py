@@ -1,5 +1,6 @@
 """Build the CUDA sources in csrc/ with nvcc into a shared library with a
-plain C interface, and load it with ctypes.
+plain C interface, and load it with ctypes (core/native.py builds the C++
+host compiler through build_shared too).
 
 The library is built at first use into zang_tpu_torch/build/ (listed in
 .gitignore) and rebuilt when the source or the flags change: the file name
@@ -26,7 +27,7 @@ NVCC_FLAGS = [
 ]
 
 _loaded = {}  # source name -> ctypes.CDLL, one load per process
-build_seconds = {}  # source name -> seconds spent in nvcc (0.0 if cached)
+build_seconds = {}  # library stem -> seconds spent compiling (0.0 if cached)
 
 
 def nvcc_path() -> str:
@@ -44,30 +45,40 @@ def nvcc_path() -> str:
     return found
 
 
-def library(name: str) -> ctypes.CDLL:
-    """Load csrc/<name>.cu as a shared library, building it if needed."""
-    if name in _loaded:
-        return _loaded[name]
-    src = os.path.join(SRC_DIR, name + ".cu")
+def build_shared(src: str, compiler, flags: list, stem: str) -> str:
+    """Compile `src` with `compiler() + flags` into BUILD_DIR/lib<stem>_<hash>.so
+    unless that file exists; the hash covers the source and the flags.
+    compiler is called only when a build is needed and returns the
+    compiler's path. Returns the .so path. A failed build raises with the
+    compiler's stderr."""
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-    build_seconds[name] = 0.0
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+    build_seconds[stem] = 0.0
     if not os.path.exists(so):
-        nvcc = nvcc_path()
+        cc = compiler()
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         t = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.run([cc, *flags, "-o", tmp, src],
                               capture_output=True, text=True)
-        build_seconds[name] = time.perf_counter() - t
+        build_seconds[stem] = time.perf_counter() - t
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
+                f"{cc} failed to build {src} (exit {proc.returncode}):\n"
                 f"{proc.stderr}")
         if proc.stderr.strip():  # warnings
             sys.stderr.write(proc.stderr)
         os.replace(tmp, so)
+    return so
+
+
+def library(name: str) -> ctypes.CDLL:
+    """Load csrc/<name>.cu as a shared library, building it if needed."""
+    if name in _loaded:
+        return _loaded[name]
+    so = build_shared(os.path.join(SRC_DIR, name + ".cu"), nvcc_path, NVCC_FLAGS,
+                      name)
     lib = ctypes.CDLL(so)
     _loaded[name] = lib
     return lib

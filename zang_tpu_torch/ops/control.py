@@ -3,15 +3,14 @@ the envelope path the song uses).
 
 Per segment, value[t] = a + b * shape(min(t0 + (dt + 1) * t_step, 1)),
 dt = t - start. The segments come from the C++ envelope compiler in
-zang_tpu.core.native (JAX-free); painter_program is the numpy twin of the
+core/native.py; painter_program is the numpy twin of the
 JAX package's packer.
 """
 
 import numpy as np
 import torch
 
-from zang_tpu.core import native
-
+from ..core import native
 from .segprog import SegProgram
 
 SHAPE_CONST, SHAPE_LINEAR, SHAPE_SQUARED, SHAPE_CUBED, SHAPE_SMOOTHSTEP = 0, 1, 2, 3, 4
@@ -22,12 +21,13 @@ def compile_envelope(tl, sample_rate: float, env_params_fn) -> dict:
 
     env_params_fn(segment_index, note_params) -> dict with attack, decay,
     release (PaintCurve), sustain_volume, note_on. Raises if the native
-    compiler cannot be built: the Python walk is not ported yet."""
+    compiler cannot be built or is disabled: the Python walk is not
+    ported yet."""
     if not native.available():
         raise RuntimeError(
-            "the native envelope compiler (zang_tpu/core/native/zang_host.cpp) "
-            "could not be built or is disabled (ZANG_NATIVE=0); zang_tpu_torch "
-            "needs it and has no Python envelope walk")
+            "the native envelope compiler (zang_tpu_torch/csrc/zang_host.cpp) "
+            "is disabled (ZANG_NATIVE=0); zang_tpu_torch needs it and has no "
+            "Python envelope walk")
     return native.compile_envelope_native(tl, sample_rate, env_params_fn)
 
 

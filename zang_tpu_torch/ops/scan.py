@@ -38,6 +38,46 @@ def ftou32(v: torch.Tensor) -> torch.Tensor:
     return ((v * 4294967296.0) * 0.99995).to(torch.int64)
 
 
+def _prepend(s0: torch.Tensor, post: torch.Tensor) -> torch.Tensor:
+    head = s0[..., None].expand(*post.shape[:-1], 1)
+    return torch.cat([head, post[..., :-1]], dim=-1)
+
+
+def exclusive_cumsum_u32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Exclusive prefix sum of u32 values (int64 tensors holding 0..2^32-1),
+    wrapping mod 2^32 like the JAX package's uint32 cumsum. The int64
+    running sum cannot overflow below 2^31 elements."""
+    return u32(torch.cumsum(x, dim=dim) - x)
+
+
+def _affine1_combine(x, y):
+    a1, u1 = x
+    a2, u2 = y
+    return a2 * a1, a2 * u1 + u2
+
+
+def affine1_scan(a: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                 block: int = 512) -> torch.Tensor:
+    """Scan of x_i = a_i * x_{i-1} + u_i (first-order recurrences).
+
+    a, u: [..., n]; s0: [...]. Returns the post-states [..., n]. The same
+    two levels as affine2_scan. For the decimator's latch (a in {0, 1},
+    u in {x, 0}) every association order gives the same bits."""
+    n = a.shape[-1]
+    if n % block != 0 or n <= block:
+        ai, ui = associative_scan(_affine1_combine, (a, u))
+        return ai * s0[..., None] + ui
+    nb = n // block
+    ai, ui = associative_scan(_affine1_combine,
+                              (a.reshape(*a.shape[:-1], nb, block),
+                               u.reshape(*u.shape[:-1], nb, block)))
+    sa, su = associative_scan(_affine1_combine, (ai[..., -1], ui[..., -1]))
+    bl = sa * s0[..., None] + su  # state at each block's end
+    start = _prepend(s0, bl)
+    post = ai * start[..., :, None] + ui
+    return post.reshape(*post.shape[:-2], n)
+
+
 def _affine2_combine(x, y):
     """Compose two affine maps on 2-state systems: y after x.
 
@@ -73,11 +113,6 @@ def associative_scan(combine: Callable, elems: Tuple[torch.Tensor, ...]):
                     for e, c in zip(out, comb))
         shift *= 2
     return out
-
-
-def _prepend(s0: torch.Tensor, post: torch.Tensor) -> torch.Tensor:
-    head = s0[..., None].expand(*post.shape[:-1], 1)
-    return torch.cat([head, post[..., :-1]], dim=-1)
 
 
 def affine2_scan(elems, s0_l, s0_b, block: int = 512):
