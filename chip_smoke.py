@@ -51,7 +51,7 @@ TOL_DB = -120.0  # kernel vs plain (tests/test_ops_effects.py:270, :297)
 TOL_STATE = 1e-5  # end states (tests/test_ops_effects.py:271-272)
 PARITY_DB = -90.0  # the parity budget (FIDELITY.md)
 CHUNK = 65536
-# published H100 SXM peaks at 700 W (on-chip-measurement guide)
+# published H100 SXM peaks at 700 W (NVIDIA H100 datasheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 SVF_OPS_PER_SAMPLE = 21  # one SVF step and its output mix (Filter.zig:123-151)
