@@ -22,6 +22,7 @@ from zang_tpu.ops import control as jctl
 from zang_tpu_torch.core import native as tnative
 from zang_tpu_torch.core import timeline as ttl
 from zang_tpu_torch.core import wav as twav
+from zang_tpu_torch.core.notes import SongEvent
 from zang_tpu_torch.host import configs as tconfigs
 from zang_tpu_torch.host import instruments as tinst
 from zang_tpu_torch.host import song as tsong
@@ -64,14 +65,20 @@ def test_song_timelines_native(songs, part):
     _assert_timelines_equal(got, ref)
 
 
-def test_song_timelines_python_walk(songs, monkeypatch):
-    """ZANG_NATIVE=0: the Python walk (notes, trigger, span) on 20 s."""
-    monkeypatch.setenv("ZANG_NATIVE", "0")
-    total = 20 * 48000
-    for part in range(3):
-        ref = jtl.compile_timelines(songs[0][part], jsong.POLYPHONY[part], 48000.0, total)
-        got = ttl.compile_timelines(songs[1][part], tsong.POLYPHONY[part], 48000.0, total)
-        _assert_timelines_equal(got, ref)
+def test_timelines_unordered_events_raise_like_jax():
+    ev = [SongEvent({"note_on": True}, t=1.0, note_id=1),
+          SongEvent({"note_on": True}, t=0.5, note_id=2)]
+    for mod in (jtl, ttl):
+        with pytest.raises(ValueError, match="chronological"):
+            mod.compile_timelines(ev, 2, 44100.0, 88200)
+
+
+def test_timelines_unhashable_params_raise():
+    """The port has only the native compiler: params it cannot group raise
+    instead of taking another path."""
+    ev = [SongEvent({"note_on": True, "freq": [110.0]}, t=0.0, note_id=1)]
+    with pytest.raises(TypeError):
+        ttl.compile_timelines(ev, 1, 44100.0, 44100)
 
 
 def test_texture_song_timelines():

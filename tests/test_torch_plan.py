@@ -106,11 +106,14 @@ def test_deviation_dbfs_equal():
     assert tfid.deviation_dbfs(s, s + 1) == jfid.deviation_dbfs(s, s + 1)
 
 
-def test_compile_envelope_needs_native(monkeypatch):
-    """No Python envelope walk in the port: a missing native compiler is
-    an error, not a fallback."""
-    from zang_tpu_torch.ops import control as tctl
+def test_compile_envelope_needs_native(monkeypatch, tmp_path):
+    """No Python event or envelope walk in the port: a native compiler
+    that cannot be built is an error, not a fallback."""
+    from zang_tpu_torch.core import native
+    from zang_tpu_torch.ops import _build
 
-    monkeypatch.setattr(tctl.native, "available", lambda: False)
-    with pytest.raises(RuntimeError, match="native envelope compiler"):
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))  # nothing built yet
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)  # no g++
+    with pytest.raises(RuntimeError, match="native host compiler"):
         tsong.build_performance(4800)

@@ -40,11 +40,10 @@ def _program(prog):
                           values={k: np.array(v, copy=True)
                                   for k, v in prog.values.items()})
     if isinstance(prog, dict):
-        return {k: _program(v) for k, v in prog.items()}
+        # "windowed" is the JAX sampler's TPU routing flag; the port has none
+        return {k: _program(v) for k, v in prog.items() if k != "windowed"}
     if isinstance(prog, (list, tuple)):
         return type(prog)(_program(v) for v in prog)
-    if isinstance(prog, (bool, int, float)):  # static flags (sampler "windowed")
-        return prog
     return np.array(prog, copy=True)
 
 

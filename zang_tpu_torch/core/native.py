@@ -6,7 +6,7 @@ imports nothing of zang_tpu. The source is zang_tpu_torch/csrc/zang_host.cpp
 strict fp rules (-ffp-contract=off: the NoteTracker clock is f32-exact and
 FMA contraction would move frame boundaries) into zang_tpu_torch/build/,
 keyed by a hash of source and flags (ops/_build.build_shared). A failed
-build raises; ZANG_NATIVE=0 selects the Python timeline walk instead.
+build raises.
 """
 
 import ctypes
@@ -86,14 +86,6 @@ def lib():
         ctypes.POINTER(ctypes.c_int32),    # seg_counts
     ]
     return _lib
-
-
-def available() -> bool:
-    """False only under ZANG_NATIVE=0; otherwise builds (or raises)."""
-    if os.environ.get("ZANG_NATIVE", "1") == "0":
-        return False
-    lib()
-    return True
 
 
 def _ptr(arr, ctype):

@@ -1,25 +1,24 @@
 """Note timeline compiler: events -> per-subvoice segment tables.
 
-Runs the reference's exact event pipeline (NoteTracker block consumption,
+The reference's event pipeline (NoteTracker block consumption,
 PolyphonyDispatcher slot routing, Trigger span splitting — SURVEY.md §3.2)
-over the full render duration on the host, then flattens each subvoice's
-note spans into a compact segment table the device consumes via
-searchsorted gathers. "Events become data": all timing/stealing/carry-over
-semantics are decided here, bit-identically to the reference, because the
-tracker clock is float32 (see core/notes.py).
+runs over the full render duration on the host in the native C++ compiler
+(core/native.py), which flattens each subvoice's note spans into a compact
+segment table the device consumes via searchsorted gathers. "Events become
+data": all timing/stealing/carry-over semantics are decided here,
+bit-identically to the reference, because the tracker clock is float32.
 
-A copy of zang_tpu/core/timeline.py: the port keeps its own host core and imports
-nothing of zang_tpu.
+The types and the native entry of zang_tpu/core/timeline.py: the port
+keeps its own host core and imports nothing of zang_tpu.
 """
 
-from dataclasses import dataclass, field
-from typing import Callable, List, Optional
+from dataclasses import dataclass
+from typing import List
 
 import numpy as np
 
-from .notes import ImpulsesAndParamses, NoteTracker, PolyphonyDispatcher, SongEvent
-from .span import Span
-from .trigger import Trigger
+from . import native
+from .notes import SongEvent
 
 
 @dataclass
@@ -45,10 +44,6 @@ class SubvoiceTimeline:
         fn = key_or_fn if callable(key_or_fn) else (lambda p: p[key_or_fn])
         return np.array([fn(p) for p in self.params], dtype=np.float32)
 
-    def param_bool(self, key_or_fn) -> np.ndarray:
-        fn = key_or_fn if callable(key_or_fn) else (lambda p: p[key_or_fn])
-        return np.array([bool(fn(p)) for p in self.params], dtype=bool)
-
 
 def compile_timelines(
     song: List[SongEvent],
@@ -57,81 +52,17 @@ def compile_timelines(
     total_frames: int,
     block_size: int = 1024,
 ) -> List[SubvoiceTimeline]:
-    """Run tracker -> dispatcher -> per-subvoice triggers over the whole song.
+    """Run tracker -> dispatcher -> per-subvoice triggers over the whole song
+    in the native compiler.
 
     Returns one SubvoiceTimeline per polyphony slot. Block size matters: the
     tracker quantizes event times per block with f32 arithmetic exactly like
-    the reference host (AUDIO_BUFFER_SIZE=1024 in all examples).
-
-    Dispatches to the native C++ compiler (core/native.py, same semantics
-    bit-for-bit, ~100x faster on long songs) when params are hashable;
-    ZANG_NATIVE=0 forces this Python path.
+    the reference host (AUDIO_BUFFER_SIZE=1024 in all examples). Params must
+    be hashable dicts (the compiler groups equal ones); the compiler's
+    failures raise.
     """
-    try:
-        from . import native
-
-        if native.available() and all(
-            isinstance(ev.t, (int, float, np.floating)) for ev in song
-        ):
-            # hashability check for the params-equality classes
-            for ev in song:
-                hash(tuple(sorted(ev.params.items())))
-            return native.compile_timelines_native(
-                song, polyphony, sample_rate, total_frames, block_size
-            )
-    except TypeError:
-        pass  # unhashable params: use the Python path
-
-    tracker = NoteTracker(song)
-    dispatcher = PolyphonyDispatcher(polyphony)
-    triggers = [Trigger() for _ in range(polyphony)]
-    segs: List[List[tuple]] = [[] for _ in range(polyphony)]  # (abs_start, reset, params)
-
-    start = 0
-    while start < total_frames:
-        length = min(block_size, total_frames - start)
-        span = Span(0, length)
-        iap = tracker.consume(sample_rate, span)
-        per_voice = dispatcher.dispatch(iap)
-        for v in range(polyphony):
-            for r in triggers[v].iterate(span, per_voice[v]):
-                abs_start = start + r.span.start
-                prev = segs[v][-1] if segs[v] else None
-                if (
-                    prev is not None
-                    and not r.note_id_changed
-                    and prev[2] == r.params
-                ):
-                    continue  # span continues the previous segment
-                segs[v].append((abs_start, r.note_id_changed, r.params))
-        start += length
-
-    out = []
-    for v in range(polyphony):
-        starts = np.array([s for s, _, _ in segs[v]], dtype=np.int64)
-        resets = np.array([r for _, r, _ in segs[v]], dtype=bool)
-        params = [p for _, _, p in segs[v]]
-        out.append(
-            SubvoiceTimeline(starts=starts, resets=resets, params=params, total=total_frames)
-        )
-    return out
-
-
-def pad_step_tables(timelines: List[SubvoiceTimeline], key_or_fn, pad_value=0.0):
-    """Stack per-voice (starts, values) into padded [V, K] arrays for
-    eval_step_program. Padding starts = total (never selected)."""
-    V = len(timelines)
-    total = timelines[0].total if timelines else 0
-    K = max(1, max(len(tl.starts) for tl in timelines))
-    starts = np.full((V, K), total, dtype=np.int64)
-    values = np.full((V, K), pad_value, dtype=np.float32)
-    for v, tl in enumerate(timelines):
-        k = len(tl.starts)
-        if k:
-            starts[v, :k] = tl.starts
-            values[v, :k] = tl.param_f32(key_or_fn)
-            values[v, k:] = values[v, k - 1] if k else pad_value
-    return starts.astype(np.int32), values
+    return native.compile_timelines_native(song, polyphony, sample_rate,
+                                           total_frames, block_size)
 
 
 def active_from(timelines: List[SubvoiceTimeline]) -> np.ndarray:

@@ -24,7 +24,7 @@ from ..core.wav import read_wav
 from ..device import require_device
 from ..graph.render import Performance, render_performance
 from ..ops import delay as d_ops
-from ..ops import effects, lookup
+from ..ops import effects
 from ..ops import sampler as sampler_ops
 from ..ops.segprog import SegProgram, eval_tiled_chunk
 from . import instruments as ti
@@ -90,8 +90,7 @@ class SamplerInstrument:
                 values[name][v, :k] = p.values[name][0]
                 values[name][v, k:] = p.values[name][0, k - 1]
         self.ratio = float(F32(F32(self.effective_sample_rate()) / F32(sample_rate)))
-        return {"sampler": SegProgram(starts=starts, values=values),
-                "windowed": lookup.lookup_accelerated(self.table.num_samples)}
+        return {"sampler": SegProgram(starts=starts, values=values)}
 
     def init_state(self, num_voices: int, device):
         return {
@@ -110,12 +109,10 @@ class SamplerInstrument:
         vals = eval_tiled_chunk(ti._tiled(prog["sampler"], "sampler"), ctx.t_idx)
         out = sampler_ops.eval_sampler(
             vals, ctx.t_idx, self._device_table(ctx.t_idx.device),
-            self.table.num_samples, self.ratio, self.loop,
-            windowed=bool(prog.get("windowed", False)),
-        )
+            self.table.num_samples, self.ratio, self.loop)
         out = out * 2.5  # example_sampler.zig:106
         if self.distort:
-            out = effects.distortion(out, "overdrive", 0.9, 0.5, 0.0)
+            out = effects.distortion(out, 0.9, 0.5, 0.0)
         if self.fake_sample_rate is not None:
             cnt, val, out = effects.decimator(
                 state["dec_cnt"], state["dec_val"], out,

@@ -21,13 +21,7 @@ def compile_envelope(tl, sample_rate: float, env_params_fn) -> dict:
 
     env_params_fn(segment_index, note_params) -> dict with attack, decay,
     release (PaintCurve), sustain_volume, note_on. Raises if the native
-    compiler cannot be built or is disabled: the Python walk is not
-    ported yet."""
-    if not native.available():
-        raise RuntimeError(
-            "the native envelope compiler (zang_tpu_torch/csrc/zang_host.cpp) "
-            "is disabled (ZANG_NATIVE=0); zang_tpu_torch needs it and has no "
-            "Python envelope walk")
+    compiler cannot be built."""
     return native.compile_envelope_native(tl, sample_rate, env_params_fn)
 
 

@@ -1,8 +1,9 @@
-"""Distortion and Decimator (port of zang_tpu/ops/effects.py).
+"""Distortion and Decimator (port of zang_tpu/ops/effects.py, the parts
+the sampler config uses).
 
-Distortion (Distortion.zig): a stateless waveshaper in the reference's
-expression order (gain1 = 2^(ingain*8-2); overdrive = outgain/atan(gain1)
-* atan(x*gain1 + gain1*offset); clip = outgain * clamp(x*gain1 + offs)).
+Distortion (Distortion.zig), the overdrive: a stateless waveshaper in the
+reference's expression order (gain1 = 2^(ingain*8-2); out = outgain /
+atan(gain1) * atan(x*gain1 + gain1*offset)).
 
 Decimator (Decimator.zig): sample-and-hold at a fake sample rate. The
 fractional accumulator is a u32 counter (int64 masked to 32 bits, see
@@ -10,8 +11,7 @@ ops/scan.py) whose wrap is the trigger, and the hold is the latch
 v_i = trig ? x_i : v_{i-1}, a first-order affine scan.
 """
 
-import numbers
-from typing import Optional, Tuple, Union
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -21,67 +21,41 @@ from .scan import U32, affine1_scan, as_f32, exclusive_cumsum_u32, u32
 Tensor = torch.Tensor
 
 
-def distortion(x: Tensor, kind: str, ingain, outgain, offset) -> Tensor:
-    """kind: 'overdrive' | 'clip'. Parameters are numbers or tensors
-    broadcastable to x; all arithmetic is f32."""
+def distortion(x: Tensor, ingain, outgain, offset) -> Tensor:
+    """The overdrive. Parameters are numbers or tensors broadcastable to x;
+    all arithmetic is f32."""
     ingain, outgain, offset = (as_f32(v, x) for v in (ingain, outgain, offset))
     gain1 = torch.exp2(ingain * 8.0 - 2.0)
-    offs = gain1 * offset
-    if kind == "overdrive":
-        gain2 = outgain / torch.atan(gain1)
-        return gain2 * torch.atan(x * gain1 + offs)
-    if kind == "clip":
-        return outgain * torch.clamp(x * gain1 + offs, -1.0, 1.0)
-    raise ValueError(kind)
+    gain2 = outgain / torch.atan(gain1)
+    return gain2 * torch.atan(x * gain1 + gain1 * offset)
 
 
 def decimator(
     cnt0: Tensor,
     dval0: Tensor,
     x: Tensor,
-    fake_sample_rate: Union[Tensor, float],
+    fake_sample_rate: float,
     sample_rate: float,
-    active: Optional[Tensor] = None,
-    ratio=None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Sample-and-hold rate reduction over x [..., n].
 
     cnt0: u32 accumulator state [...] (int64; 0xFFFFFFFF at the start, so
     the first sample triggers); dval0: the held value. fake >= sr passes
     through and resets the state; fake <= 0 holds forever (output 0, state
-    untouched). active: where the module is painted; elsewhere the counter
-    freezes and the output is 0. ratio: optional f32 fake/sr. A scalar fake
-    is divided on the host in numpy f32 (correctly rounded), as the JAX
-    package does. Returns (cnt_end, dval_end, out)."""
-    fake = as_f32(fake_sample_rate, x)
-    sr = np.float32(sample_rate)
-    if ratio is None:
-        if isinstance(fake_sample_rate, numbers.Real):
-            ratio = np.float32(np.float32(fake_sample_rate) / sr)
-        else:
-            ratio = fake / float(sr)
-    # *2^32 is an exact exponent shift; only the division above rounds
-    icount = u32((as_f32(ratio, x) * 4294967296.0).to(torch.int64))
-    icount_b = icount.broadcast_to(x.shape)
-    if active is not None:
-        icount_b = torch.where(active, icount_b, torch.zeros_like(icount_b))
+    untouched). The ratio fake/sr is divided on the host in numpy f32
+    (correctly rounded), as the JAX package does. Returns (cnt_end,
+    dval_end, out)."""
+    fake, sr = np.float32(fake_sample_rate), np.float32(sample_rate)
+    if fake >= sr:
+        return torch.full_like(cnt0, U32), torch.zeros_like(dval0), x
+    if fake <= 0.0:
+        return cnt0, dval0, torch.zeros_like(x)
+    # *2^32 is an exact exponent shift; only the division rounds
+    icount = int(np.float32(fake / sr) * np.float32(4294967296.0))
+    icount_b = torch.full(x.shape, icount, dtype=torch.int64, device=x.device)
     cnt = u32(cnt0[..., None] + exclusive_cumsum_u32(icount_b) + icount_b)
     trig = cnt < icount_b  # the u32 counter wrapped on this sample
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    a = torch.where(trig, zero, torch.ones((), dtype=x.dtype, device=x.device))
-    u = torch.where(trig, x, zero)
-    held = affine1_scan(a, u, dval0)
-
-    passthrough = fake >= float(sr)
-    silent = fake <= 0.0
-    out = torch.where(passthrough, x, torch.where(silent, zero, held))
-    if active is not None:
-        out = torch.where(active, out, zero)
-    # the carry takes the regime at the chunk's last sample
-    pt_end = passthrough.broadcast_to(x.shape)[..., -1]
-    sil_end = silent.broadcast_to(x.shape)[..., -1]
-    cnt_end = torch.where(pt_end, torch.full_like(cnt0, U32),
-                          torch.where(sil_end, cnt0, cnt[..., -1]))
-    dval_end = torch.where(pt_end, torch.zeros_like(dval0),
-                           torch.where(sil_end, dval0, held[..., -1]))
-    return cnt_end, dval_end, out
+    held = affine1_scan(torch.where(trig, zero, torch.ones_like(zero)),
+                        torch.where(trig, x, zero), dval0)
+    return cnt[..., -1], held[..., -1], held

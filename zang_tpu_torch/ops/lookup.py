@@ -16,18 +16,9 @@ import torch
 
 from . import _build
 
-LANE = 128
-MAX_H = 2048  # the JAX package's table limit: 128 * 2048 samples
-
 table_lookup_launches = 0
 
 _C = ctypes.c_void_p
-
-
-def lookup_accelerated(num_samples: int) -> bool:
-    """Does the sampler route this table through the lookup kernel? The
-    same limit as the JAX package (ops/sampler.py lookup_accelerated)."""
-    return 0 < num_samples <= LANE * MAX_H
 
 
 def table_lookup_ref(idx: torch.Tensor, sel: torch.Tensor,

@@ -131,23 +131,17 @@ def plan_sampler(
     return SegProgram(starts=starts, values=values)
 
 
-TILE = 512  # the lookup's row length, as in the JAX package
-
-
 def _lookup_taps(idx: torch.Tensor, table: torch.Tensor, num_samples: int,
                  loop: bool) -> torch.Tensor:
     """table[idx % N] (looped) or table[idx] with 0 outside [0, N) (one
-    shot), through ops.lookup.table_lookup in rows of TILE samples."""
+    shot), through ops.lookup.table_lookup."""
     if loop:
         sel = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
         idx = torch.remainder(idx, num_samples)  # reverse play makes idx < 0
     else:
         sel = ((idx >= 0) & (idx < num_samples)).to(torch.float32)
         idx = torch.clamp(idx, 0, num_samples - 1)
-    rows = idx.numel() // TILE
-    out = lookup.table_lookup(idx.to(torch.int32).reshape(rows, TILE).contiguous(),
-                       sel.reshape(rows, TILE).contiguous(), table)
-    return out.reshape(idx.shape)
+    return lookup.table_lookup(idx.to(torch.int32).contiguous(), sel, table)
 
 
 def eval_sampler(
@@ -157,18 +151,14 @@ def eval_sampler(
     num_samples: int,
     ratio: float,
     loop: bool,
-    windowed: bool = False,
 ) -> torch.Tensor:
     """Device: per-sample playback from evaluated program values (t0, mode,
     seg_start, each [V, n]). table: f32 [num_samples] on t_idx's device.
 
-    windowed=True (tables the lookup takes, n % TILE == 0) reads the two
-    taps through ops.lookup.table_lookup: the CUDA kernel for CUDA tensors,
-    its plain version for CPU tensors. Otherwise the taps are a gather.
-    Both give the same bits."""
+    The two taps are read through ops.lookup.table_lookup: the CUDA kernel
+    for CUDA tensors, its plain version for CPU tensors."""
     dt = (t_idx[None, :] - vals["seg_start"]).to(torch.float32)
     mode = vals["mode"]
-    zero = torch.zeros((), dtype=torch.float32, device=dt.device)
     if num_samples == 0:
         return torch.zeros(dt.shape, dtype=torch.float32, device=dt.device)
 
@@ -178,24 +168,11 @@ def eval_sampler(
     tfrac = (it0 + 1).to(torch.float32) - t
     ifast = vals["t0"].to(torch.int32) + dt.to(torch.int32)
 
-    n = t_idx.shape[0]
-    if windowed and n % TILE == 0 and lookup.lookup_accelerated(num_samples):
-        # one lookup serves both modes' first tap (their indices are
-        # program-span disjoint); the second only matters in resample mode
-        tap_a = _lookup_taps(torch.where(mode == 2, ifast, it0), table,
-                             num_samples, loop)
-        tap_b = _lookup_taps(it0 + 1, table, num_samples, loop)
-        s_re = tap_a * (1.0 - tfrac) + tap_b * tfrac
-        s_fast = tap_a
-    else:
-        def tap(index):
-            if loop:
-                index = torch.remainder(index, num_samples)
-            ok = (index >= 0) & (index < num_samples)
-            v = table[torch.clamp(index, 0, num_samples - 1).long()]
-            return torch.where(ok, v, zero)
-
-        s_re = tap(it0) * (1.0 - tfrac) + tap(it0 + 1) * tfrac
-        # fast copy path (Sampler.zig:105-114)
-        s_fast = tap(ifast)
-    return torch.where(mode == 1, s_re, torch.where(mode == 2, s_fast, zero))
+    # one lookup serves the first tap of the resample and the copy (fast)
+    # modes (their indices are program-span disjoint); the second only
+    # matters in resample mode (Sampler.zig:105-130)
+    tap_a = _lookup_taps(torch.where(mode == 2, ifast, it0), table, num_samples, loop)
+    tap_b = _lookup_taps(it0 + 1, table, num_samples, loop)
+    s_re = tap_a * (1.0 - tfrac) + tap_b * tfrac
+    zero = torch.zeros((), dtype=torch.float32, device=dt.device)
+    return torch.where(mode == 1, s_re, torch.where(mode == 2, tap_a, zero))
