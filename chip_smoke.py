@@ -7,19 +7,33 @@ From the repo root, on a machine with CUDA, nvcc, g++ and torch. Phases,
 each of which raises on failure:
 
   1. the card: nvidia-smi name and power limit, torch's device name
-  2. build, all at once: the two CUDA kernels from zang_tpu_torch/csrc/
+  2. build, all at once: the four CUDA kernels from zang_tpu_torch/csrc/
      (nvcc, one process per source) and the C++ host compiler (g++), into
      zang_tpu_torch/build/
   3. K1, the table-cut SVF kernel, against its plain torch version
      (svf_filter_table_ref) on the card: the song's shape, a ragged shape,
-     a state chain across two calls and poly_echo's shape (1024 voices);
+     a state chain across two calls, poly_echo's shape (1024 voices) and
+     the polyphony examples' (39 and 3 voices, 16384 frames in 32 tiles);
      rms < -120 dBFS, end states within 1e-5; timed with CUDA events
      (per call) and torch.profiler (the kernel's device time)
   4. K4, the table-lookup kernel, against table_lookup_ref on the card, bit
-     for bit: the sampler's shape, the largest table, a one-shot case with
-     zero sel and out-of-range indices; timed as K1, beside the plain
-     version and torch.take(table, idx) * sel
-  5. the main paths, each with every kernel's launch count set to 0 just
+     for bit: the sampler config's shape, the sampler example's (idx
+     32 x 512), the largest table, a one-shot case with zero sel and
+     out-of-range indices; timed as K1, beside the plain version and
+     torch.take(table, idx) * sel
+  5. K2, the dense-cut SVF kernel, against svf_filter_ref on the card:
+     the play example's shape (V=1, n=16384, scalar cutoff, mask), a
+     ragged n with a [V, 1] cutoff, a state chain across two calls and
+     V=1024, n=65536 with a dense cutoff and mask; rms < -120 dBFS, end
+     states within 1e-5; timed as K1
+  6. K5, the FM feedback kernel, against fm_feedback_ref on the card at
+     feedback pi/4, waveforms 0-3: the fmsynth example's shape (V=8,
+     n=16384) and V=1024 (beyond the TPU kernel's 128 lanes; the plain
+     loop runs n=2048 there, the kernel is also timed at n=16384);
+     rms < -100 dBFS, end states within 1e-4; waveform 3 is compared up
+     to a voice's first sign flip of sin(2p), and the flips are counted.
+     Its serial-chain floor is estimated by tools/fm_chain_floor.py
+  7. the main paths, each with every kernel's launch count set to 0 just
      before it and read just after:
        song       the full 385 s Bach Toccata, render_song_s16(device="cuda"):
                   282 K1 launches
@@ -28,10 +42,18 @@ each of which raises on failure:
        poly_echo  1024 voices x 30 s stereo, render_config_s16("poly_echo",
                   device="cuda"): 21 K1 launches
      then each again in its two timed steps (plan, device render)
-  6. fidelity without JAX: each render against the JAX package's golden
+  8. fidelity without JAX: each render against the JAX package's golden
      windows (zang_tpu_torch/data/*_golden_jax.npz, < -90 dBFS RMS, every
      channel) and against the card's own plain-path render
-  7. no module of jax or of zang_tpu was imported
+  9. the ten examples (zang_tpu_torch/host/examples.py EXAMPLES), each
+     through its ex_* entry on the card at its default seconds, with the
+     launch counts checked (ceil(frames / chunk) a chunk-launched kernel:
+     play 18 K2, fmsynth 12 K5, polyphony 15 K1, polyphony2 18 K1,
+     sampler 34 K4, song 15 K1, every other count 0), against the JAX
+     golden windows and against the card's plain-path render (every
+     router patched to its plain version by name; fmsynth at 2 s there,
+     since the plain FM loop is a Python loop over samples)
+  10. no module of jax or of zang_tpu was imported
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds. Exits non-zero,
@@ -55,11 +77,17 @@ CHUNK = 65536
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 SVF_OPS_PER_SAMPLE = 21  # one SVF step and its output mix (Filter.zig:123-151)
+TOL_FM_DB = -100.0  # FM kernel vs plain (tests/test_ops_effects.py:324-346)
+TOL_FM_STATE = 1e-4
+FB = 0.7853981633974483  # pi / 4, the fmsynth example's modulator feedback
+# a feedback FM sample: 3 for the angle, 1 for the shape, and about 15 for
+# sinf's range reduction and polynomial (an estimate of libdevice's fast path)
+FM_OPS_PER_SAMPLE = 19
 
 
-def smi() -> str:
+def smi(query="name,power.limit", fmt="csv,noheader") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
@@ -108,7 +136,9 @@ def device_ms(fn, kernel_name, reps):
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if kernel_name in e.key]
     n = sum(e.count for e in rows)
-    if n != reps:
+    # the profiler may drop a record of a long back-to-back run: the mean is
+    # over the launches it saw, which must be most of them
+    if not 0.9 * reps <= n <= reps:
         raise AssertionError(f"the profiler saw {n} launches of {kernel_name}, "
                              f"expected {reps}")
     us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
@@ -125,12 +155,72 @@ def time_pair(kernel, plain, reps_k, reps_p):
     return (k_a + k_b) / 2, (p_a + p_b) / 2, (k_a, k_b, p_a, p_b)
 
 
+def timing(card, label, kernel, plain, kernel_name, n_bytes, n_ops, reps_k, reps_p,
+           library=None):
+    """A kernel's times at one shape: per call beside its plain version (or
+    without one: plain=None) and a library call, its device time, and its
+    bound from n_bytes moved and n_ops f32 operations."""
+    if plain is None:
+        ms, plain_ms = time_ms(kernel, reps_k), None
+        r = f"kernel {ms:.4f} ms"
+    else:
+        ms, plain_ms, (k_a, k_b, p_a, p_b) = time_pair(kernel, plain, reps_k, reps_p)
+        r = f"kernel {k_a:.4f} / {k_b:.4f} ms, plain {p_a:.4f} / {p_b:.4f} ms"
+    library_ms = None
+    if library is not None:
+        l_a, l_b = time_ms(library[1], reps_k), time_ms(library[1], reps_k)
+        library_ms = (l_a + l_b) / 2
+        r += f", {library[0]} {l_a:.4f} / {l_b:.4f} ms"
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    dev_ms = device_ms(kernel, kernel_name, reps_k)
+    print(f"  time at the {label} shape [{card}]: {r}; device {dev_ms:.4f} ms a launch; "
+          f"bound {bound_ms * 1e3:.3f} us ({bound_by}, {n_bytes} B, {n_ops} operations)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, device_ms=dev_ms)
+
+
 # ---------------------------------------------------------------------------
-# K1
+# the SVF kernels: K1 (table cutoff) and K2 (dense cutoff)
+
+
+def check_svf(label, kernel, plain, args):
+    """An SVF kernel (through its router) vs its plain version on one case:
+    rms < TOL_DB, end states within TOL_STATE. Returns max |out diff|."""
+    import torch
+
+    lk, bk, ok = kernel(*args)
+    lr, br, orf = plain(*args)
+    torch.cuda.synchronize()
+    db = rms_db(ok.cpu(), orf.cpu())
+    dstate = max(float((lk - lr).abs().max()), float((bk - br).abs().max()))
+    err = float((ok - orf).abs().max())
+    print(f"  {label}: rms {db:.1f} dBFS, max |diff| {err:.3e}, "
+          f"end state |diff| {dstate:.3e}")
+    if not (db < TOL_DB and dstate < TOL_STATE):
+        raise AssertionError(f"{label}: the kernel disagrees with its plain version")
+    return err
+
+
+def check_svf_chain(label, kernel, plain, args, half_args):
+    """Two chained kernel calls against one plain call over both halves;
+    half_args(k, l, b) gives half k's arguments from the carried state."""
+    import torch
+
+    lr, br, full = plain(*args)
+    l, b, halves = args[0], args[1], []
+    for k in range(2):
+        l, b, out = kernel(*half_args(k, l, b))
+        halves.append(out)
+    torch.cuda.synchronize()
+    db = rms_db(torch.cat(halves, dim=1).cpu(), full.cpu())
+    dstate = max(float((l - lr).abs().max()), float((b - br).abs().max()))
+    print(f"  {label}: rms {db:.1f} dBFS, end state |diff| {dstate:.3e}")
+    if not (db < TOL_DB and dstate < TOL_STATE):
+        raise AssertionError(f"{label}: chained kernel calls disagree with one plain call")
 
 
 def svf_case(rng, V, n, nt, S, t0, device):
-    """Random SVF inputs in the tiled table format, with active_from."""
+    """Random K1 inputs in the tiled table format, with active_from."""
     import numpy as np
     import torch
 
@@ -145,74 +235,63 @@ def svf_case(rng, V, n, nt, S, t0, device):
     l0 = (rng.standard_normal(V) * 0.1).astype(np.float32)
     b0 = (rng.standard_normal(V) * 0.1).astype(np.float32)
     to = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
-    return dict(l0=to(l0, torch.float32), b0=to(b0, torch.float32),
-                x=to(x, torch.float32), tb=to(tb, torch.int32),
-                cutv=to(cutv, torch.float32), af=to(af, torch.int32), t0=t0)
+    return (to(l0, torch.float32), to(b0, torch.float32), to(x, torch.float32),
+            "low_pass", to(tb, torch.int32), to(cutv, torch.float32), 0.7, t0,
+            to(af, torch.int32))
 
 
-def svf_args(c):
-    return (c["l0"], c["b0"], c["x"], "low_pass", c["tb"], c["cutv"], 0.7, c["t0"],
-            c["af"])
+def svf_label(label, args):
+    V, n = args[2].shape
+    _, nt, S = args[4].shape
+    return f"{label}: V={V} n={n} nt={nt} S={S}"
 
 
-def check_kernel(filters, c, label):
-    """Kernel vs plain on one case; returns max |out diff|."""
+def svf_table_bytes_ops(args):
+    """x read, out written, the tables (tb, cutv), active_from, l0/b0 in
+    and l/b out, each once; the SVF's operations on every sample."""
+    V, n = args[2].shape
+    _, nt, S = args[4].shape
+    return 4 * (2 * V * n + 2 * V * nt * S + V + 4 * V), SVF_OPS_PER_SAMPLE * V * n
+
+
+def dense_case(rng, V, n, cut_form, masked, device):
+    """Random K2 inputs: cut_form is "scalar", "column" ([V, 1]) or "dense"
+    ([V, n])."""
+    import numpy as np
     import torch
 
-    lk, bk, ok = filters.svf_filter_table(*svf_args(c))
-    lr, br, orf = filters.svf_filter_table_ref(*svf_args(c))
-    torch.cuda.synchronize()
-    db = rms_db(ok.cpu(), orf.cpu())
-    dstate = max(float((lk - lr).abs().max()), float((bk - br).abs().max()))
-    err = float((ok - orf).abs().max())
-    print(f"  {label}: V={c['x'].shape[0]} n={c['x'].shape[1]} "
-          f"nt={c['tb'].shape[1]} S={c['tb'].shape[2]}: rms {db:.1f} dBFS, "
-          f"max |diff| {err:.3e}, end state |diff| {dstate:.3e}")
-    if not (db < TOL_DB and dstate < TOL_STATE):
-        raise AssertionError(f"{label}: kernel disagrees with svf_filter_table_ref")
-    return err
+    to = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    cut = {"scalar": lambda: float(np.float32(0.2)),
+           "column": lambda: to(rng.uniform(0.05, 0.6, (V, 1)), torch.float32),
+           "dense": lambda: to(rng.uniform(0.05, 0.6, (V, n)), torch.float32)}[cut_form]()
+    act = to(rng.uniform(size=(V, n)) > 0.1, torch.bool) if masked else None
+    return (to(rng.standard_normal(V) * 0.1, torch.float32),
+            to(rng.standard_normal(V) * 0.1, torch.float32),
+            to(rng.standard_normal((V, n)) * 0.3, torch.float32), "low_pass", cut, 0.7,
+            act)
 
 
-def check_chain(filters, rng, device):
-    """Two chained kernel calls against one plain call over both halves."""
+def dense_label(label, args):
     import torch
 
-    V, n, nt, S, t0 = 4, 4096, 8, 3, 1024
-    c = svf_case(rng, V, 2 * n, 2 * nt, S, t0, device)
-    lr, br, full = filters.svf_filter_table_ref(*svf_args(c))
-    l, b, halves = c["l0"], c["b0"], []
-    for k in range(2):
-        l, b, out = filters.svf_filter_table(
-            l, b, c["x"][:, k * n:(k + 1) * n].contiguous(), "low_pass",
-            c["tb"][:, k * nt:(k + 1) * nt].contiguous(),
-            c["cutv"][:, k * nt:(k + 1) * nt].contiguous(), 0.7, t0 + k * n, c["af"])
-        halves.append(out)
-    torch.cuda.synchronize()
-    db = rms_db(torch.cat(halves, dim=1).cpu(), full.cpu())
-    dstate = max(float((l - lr).abs().max()), float((b - br).abs().max()))
-    print(f"  chained 2 x {n}: rms {db:.1f} dBFS, end state |diff| {dstate:.3e}")
-    if not (db < TOL_DB and dstate < TOL_STATE):
-        raise AssertionError("chained kernel calls disagree with one plain call")
+    V, n = args[2].shape
+    cut, act = args[4], args[6]
+    form = f"{tuple(cut.shape)}" if isinstance(cut, torch.Tensor) else "scalar"
+    return f"{label}: V={V} n={n} cut {form}, {'mask' if act is not None else 'no mask'}"
 
 
-def svf_timing(filters, c, card, label, reps_k, reps_p):
-    """Kernel and plain times at one shape, and the kernel's bound."""
-    V, n = c["x"].shape
-    _, nt, S = c["tb"].shape
-    ms, plain_ms, r = time_pair(lambda: filters.svf_filter_table(*svf_args(c)),
-                                lambda: filters.svf_filter_table_ref(*svf_args(c)),
-                                reps_k, reps_p)
-    # x read, out written, the tables (tb, cutv), active_from, l0/b0 in and
-    # l/b out, each once
-    n_bytes = 4 * (2 * V * n + 2 * V * nt * S + V + 4 * V)
-    bound_ms, bound_by = bound(n_bytes, SVF_OPS_PER_SAMPLE * V * n)
-    dev_ms = device_ms(lambda: filters.svf_filter_table(*svf_args(c)), "svf_table_kernel",
-                       reps_k)
-    print(f"  time at the {label} shape [{card}]: kernel {r[0]:.4f} / {r[1]:.4f} ms "
-          f"(device {dev_ms:.4f} ms), plain {r[2]:.4f} / {r[3]:.4f} ms; bound "
-          f"{bound_ms * 1e3:.2f} us ({bound_by}, {n_bytes} B)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, device_ms=dev_ms)
+def dense_bytes_ops(args):
+    """x read, out written, a dense cutoff and the mask read, l0/b0 in and
+    l/b out, each once; the SVF's operations on the active samples only."""
+    import torch
+
+    V, n = args[2].shape
+    cut, act = args[4], args[6]
+    dense_cut = isinstance(cut, torch.Tensor) and cut.shape[-1] == n
+    n_bytes = 4 * 2 * V * n + (4 * V * n if dense_cut else 0) + \
+        (V * n if act is not None else 0) + 4 * 4 * V
+    active = V * n if act is None else int(act.sum())
+    return n_bytes, SVF_OPS_PER_SAMPLE * active
 
 
 # ---------------------------------------------------------------------------
@@ -248,20 +327,101 @@ def check_lookup(lookup, case, label):
 
 
 # ---------------------------------------------------------------------------
+# K5
+
+
+def fm_case(rng, V, n, device):
+    """FM feedback inputs: the phase angles of held notes (as fm_osc makes
+    them, u32 counters through utof23) and a carried start state."""
+    import numpy as np
+    import torch
+
+    from zang_tpu_torch.ops.scan import exclusive_cumsum_u32, freq_to_ifreq, utof23
+
+    freq = torch.as_tensor(np.repeat(rng.uniform(80.0, 1200.0, (V, 1)), n, axis=1),
+                           dtype=torch.float32, device=device)
+    cnt = exclusive_cumsum_u32(freq_to_ifreq(freq, 48000.0))
+    base = ((utof23(cnt) * float(np.float32(np.pi))) * 2.0).contiguous()
+    to = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return dict(base=base, fb1=to(rng.uniform(-0.5, 0.5, V)),
+                fb2=to(rng.uniform(-0.5, 0.5, V)))
+
+
+def fm_args(c, waveform):
+    return (c["base"], FB, waveform, c["fb1"], c["fb2"])
+
+
+def check_fm(fm, c, waveform, label):
+    """K5 (through the fm_feedback router) vs fm_feedback_ref; for waveform
+    3 each voice is compared up to its first flip (|diff| > 0.1 where
+    |sin 2p| < 1e-5), and the flips are counted. Returns max |out diff|
+    over the compared samples."""
+    import numpy as np
+    import torch
+
+    ok, f1k, f2k = fm.fm_feedback(*fm_args(c, waveform))
+    orf, f1r, f2r = fm.fm_feedback_ref(*fm_args(c, waveform))
+    torch.cuda.synchronize()
+    got, ref = ok.cpu().numpy(), orf.cpu().numpy()
+    keep = np.ones_like(got, bool)
+    flips = 0
+    if waveform == 3:
+        base = c["base"].cpu().numpy()
+        prev1 = np.concatenate([c["fb1"].cpu().numpy()[:, None], ref[:, :-1]], axis=1)
+        prev2 = np.concatenate([c["fb2"].cpu().numpy()[:, None], prev1[:, :-1]], axis=1)
+        p = base + (prev1 + prev2) * np.float32(FB)
+        for v in range(got.shape[0]):
+            bad = np.abs(got[v] - ref[v]) > 0.1
+            if bad.any():
+                first = int(np.argmax(bad))
+                if abs(np.sin(2.0 * float(p[v, first]))) >= 1e-5:
+                    raise AssertionError(f"{label}: voice {v} differs away from a flip")
+                keep[v, first:] = False
+                flips += 1
+    db = rms_db(got[keep], ref[keep])
+    err = float(np.abs(got - ref)[keep].max())
+    full = keep.all(axis=1)  # voices compared to their end
+    d1 = (f1k - f1r).abs().cpu().numpy()[full]
+    d2 = (f2k - f2r).abs().cpu().numpy()[full]
+    dstate = float(max(d1.max(), d2.max())) if full.any() else 0.0
+    print(f"  {label}: V={got.shape[0]} n={got.shape[1]} waveform {waveform}: "
+          f"rms {db:.1f} dBFS, max |diff| {err:.3e}, end state |diff| {dstate:.3e}, "
+          f"{flips} sign flips of sin(2p)")
+    if not (db < TOL_FM_DB and dstate < TOL_FM_STATE and flips <= max(1, got.shape[0] // 64)):
+        raise AssertionError(f"{label}: the FM kernel disagrees with fm_feedback_ref")
+    return err
+
+
+def fm_bytes_ops(V, n):
+    """base read, out written, fb1/fb2 in and out, each once; the FM
+    operations of every sample."""
+    return 4 * 2 * V * n + 4 * 4 * V, FM_OPS_PER_SAMPLE * V * n
+
+
+# ---------------------------------------------------------------------------
 # main paths
 
 
-def counts(svf_cuda, lookup):
+def counts(svf_cuda, lookup, fm):
     return {"svf_table": svf_cuda.svf_table_launches,
-            "table_lookup": lookup.table_lookup_launches}
+            "svf_dense": svf_cuda.svf_dense_launches,
+            "table_lookup": lookup.table_lookup_launches,
+            "fm_feedback": fm.fm_feedback_launches}
 
 
-def reset_counts(svf_cuda, lookup):
+def reset_counts(svf_cuda, lookup, fm):
     svf_cuda.svf_table_launches = 0
+    svf_cuda.svf_dense_launches = 0
     lookup.table_lookup_launches = 0
+    fm.fm_feedback_launches = 0
 
 
-def check_golden(gold_windows, offsets, chunk_rms_gold, audio, label):
+def expect_counts(**n):
+    return {k: n.get(k, 0) for k in ("svf_table", "svf_dense", "table_lookup",
+                                     "fm_feedback")}
+
+
+def check_golden(gold_windows, offsets, chunk_rms_gold, audio, label, chunk=CHUNK):
     """audio: f32 numpy [C, total]. Windows within the parity budget and
     each chunk's RMS within 10^(budget/20) of the golden's (|rms(a) - rms(b)|
     <= rms(a - b))."""
@@ -283,7 +443,7 @@ def check_golden(gold_windows, offsets, chunk_rms_gold, audio, label):
             raise AssertionError(f"{label}: {db:.1f} dBFS from the JAX golden")
     n_chunks = chunk_rms_gold.shape[-1]
     ours_rms = np.stack([
-        np.sqrt(np.mean(audio[..., i * CHUNK:(i + 1) * CHUNK].astype(np.float64) ** 2,
+        np.sqrt(np.mean(audio[..., i * chunk:(i + 1) * chunk].astype(np.float64) ** 2,
                         axis=-1)) for i in range(n_chunks)], axis=-1)
     d_rms = float(np.abs(ours_rms - chunk_rms_gold).max())
     print(f"  {label} per-chunk RMS vs JAX golden ({n_chunks} chunks): max |diff| "
@@ -304,6 +464,96 @@ def check_plain(audio, plain_audio, label):
             raise AssertionError(f"{label}: {db:.1f} dBFS from the plain path")
 
 
+# the kernel each example launches once (twice: the sampler's two taps) a
+# render chunk; the other examples launch none
+EXAMPLE_KERNEL = {"play": ("svf_dense", 1), "fmsynth": ("fm_feedback", 1),
+                  "polyphony": ("svf_table", 1), "polyphony2": ("svf_table", 1),
+                  "sampler": ("table_lookup", 2), "song": ("svf_table", 1)}
+FM_PLAIN_SECONDS = 2.0  # fmsynth's plain-path render (a Python loop over samples)
+
+
+def plain_routers(filters, fm, lookup):
+    """Every kernel router patched to its plain version by name."""
+    from contextlib import ExitStack
+
+    stack = ExitStack()
+    for mod, attr, ref in ((filters, "svf_filter", filters.svf_filter_ref),
+                           (filters, "svf_filter_table", filters.svf_filter_table_ref),
+                           (fm, "fm_feedback", fm.fm_feedback_ref),
+                           (lookup, "table_lookup", lookup.table_lookup_ref)):
+        stack.enter_context(mock.patch.object(mod, attr, ref))
+    return stack
+
+
+def run_examples(examples, filters, fm, lookup, svf_cuda, card, launches):
+    """Each registered example through its ex_* entry on the card at its
+    default seconds: launch counts, shape, finiteness, the JAX golden
+    windows and the card's plain-path render. Adds each run's launch counts
+    to `launches` under "ex_<name>"."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    gold = np.load(os.path.join(ROOT, "zang_tpu_torch", "data", "examples_golden_jax.npz"))
+    params = json.loads(str(gold["params"]))["examples"]
+    if sorted(params) != sorted(examples.EXAMPLES):
+        raise AssertionError(f"the examples' golden holds {sorted(params)}, the registry "
+                             f"{sorted(examples.EXAMPLES)}")
+    for name, fn in examples.EXAMPLES.items():
+        p = params[name]
+        seconds = inspect.signature(fn).parameters["seconds"].default
+        chunk = examples.SONG_CHUNK if name == "song" else examples.DEFAULT_CHUNK
+        if (seconds, chunk) != (p["seconds"], p["chunk_size"]):
+            raise AssertionError(f"the {name} golden was made for {p}, not {seconds} s "
+                                 f"at chunk {chunk}")
+        total = int(seconds * p["sample_rate"])
+        spent = []
+
+        def timed_render(*a, _render=examples.render_performance, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _render(*a, **k)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t)
+            return out
+
+        reset_counts(svf_cuda, lookup, fm)
+        t = time.perf_counter()
+        with mock.patch.object(examples, "render_performance", timed_render):
+            audio, sr = fn(device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = counts(svf_cuda, lookup, fm)
+        launches[f"ex_{name}"] = got
+        kname, taps = EXAMPLE_KERNEL.get(name, (None, 0))
+        want = expect_counts(**({kname: taps * -(-total // chunk)} if kname else {}))
+        render_s = sum(spent)
+        print(f"{name}: ex_{name}(device='cuda'): {tuple(audio.shape)} at {sr:g} Hz in "
+              f"{wall:.3f}s end to end (plan {wall - render_s:.3f}s, device render "
+              f"{render_s:.3f}s, RTF {seconds / render_s:.1f} render only), "
+              f"launches {got} [{card}]")
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+        if tuple(audio.shape) != (p["channels"], total) or sr != p["sample_rate"]:
+            raise AssertionError(f"{name}: {tuple(audio.shape)} at {sr}, expected "
+                                 f"({p['channels']}, {total}) at {p['sample_rate']}")
+        if not bool(torch.isfinite(audio).all()) or float(audio.abs().max()) < 1e-3:
+            raise AssertionError(f"{name}: non-finite or silent render")
+        audio_np = audio.cpu().numpy()
+        check_golden(gold[f"{name}_windows"], gold[f"{name}_offsets"],
+                     gold[f"{name}_chunk_rms"], audio_np, name, chunk=chunk)
+        plain_s = FM_PLAIN_SECONDS if name == "fmsynth" else seconds
+        ours = audio_np if plain_s == seconds else \
+            fn(seconds=plain_s, device="cuda")[0].cpu().numpy()
+        reset_counts(svf_cuda, lookup, fm)
+        with plain_routers(filters, fm, lookup):
+            plain = fn(seconds=plain_s, device="cuda")[0].cpu().numpy()
+        if any(counts(svf_cuda, lookup, fm).values()):
+            raise AssertionError(f"{name}: the plain path launched a kernel")
+        check_plain(ours, plain, f"{name} ({plain_s:g} s)")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -320,8 +570,8 @@ def main() -> int:
     from zang_tpu_torch.core import native
     from zang_tpu_torch.core.mixdown import mixdown_s16
     from zang_tpu_torch.graph.render import render_performance
-    from zang_tpu_torch.host import configs, song
-    from zang_tpu_torch.ops import filters, lookup, svf_cuda
+    from zang_tpu_torch.host import configs, examples, song
+    from zang_tpu_torch.ops import _build, filters, fm, lookup, svf_cuda
 
     # 1. the card
     card = smi()
@@ -332,13 +582,30 @@ def main() -> int:
 
     # 2. build: one compiler process per source, all started together
     t = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        jobs = {name: pool.submit(fn) for name, fn in (
-            ("svf_table.cu", svf_cuda.build), ("table_lookup.cu", lookup.build),
-            ("zang_host.cpp", native.build))}
+    with ThreadPoolExecutor(5) as pool:
+        jobs = {f"{stem}.cu": pool.submit(_build.build, stem)
+                for stem in ("svf_table", "svf_dense", "table_lookup", "fm_feedback")}
+        jobs["zang_host.cpp"] = pool.submit(native.build)
         secs = {name: job.result() for name, job in jobs.items()}
     print(f"build: {', '.join(f'{k} {v:.2f}s' for k, v in secs.items())} "
           f"(compiler time; {time.perf_counter() - t:.2f}s wall, in parallel)")
+
+    def k1(label, a):
+        return check_svf(svf_label(label, a), filters.svf_filter_table,
+                         filters.svf_filter_table_ref, a)
+
+    def k2(label, a):
+        return check_svf(dense_label(label, a), filters.svf_filter, filters.svf_filter_ref, a)
+
+    def k1_time(label, a, reps_k, reps_p):
+        return timing(card, label, lambda: filters.svf_filter_table(*a),
+                      lambda: filters.svf_filter_table_ref(*a), "svf_table_kernel",
+                      *svf_table_bytes_ops(a), reps_k, reps_p)
+
+    def k2_time(label, a, reps_k, reps_p):
+        return timing(card, label, lambda: filters.svf_filter(*a),
+                      lambda: filters.svf_filter_ref(*a), "svf_dense_kernel",
+                      *dense_bytes_ops(a), reps_k, reps_p)
 
     # 3. K1 vs plain on the card
     rng = np.random.default_rng(20261016)
@@ -346,13 +613,27 @@ def main() -> int:
           f"end state |diff| < {TOL_STATE}):")
     song_case = svf_case(rng, 14, CHUNK, 128, 2, 7 * CHUNK, dev)
     poly_case = svf_case(rng, 1024, CHUNK, 128, 2, 5 * CHUNK, dev)
-    svf_err = {"song": check_kernel(filters, song_case, "song shape"),
-               "poly_echo": check_kernel(filters, poly_case, "poly_echo shape")}
-    svf_err["song"] = max(svf_err["song"], check_kernel(
-        filters, svf_case(rng, 3, 2048, 4, 3, 4096, dev), "ragged shape"))
-    check_chain(filters, rng, dev)
-    svf_t = {"song": svf_timing(filters, song_case, card, "song", 100, 10),
-             "poly_echo": svf_timing(filters, poly_case, card, "poly_echo", 20, 3)}
+    ex_chunk = examples.DEFAULT_CHUNK
+    svf_err = {
+        "song": max(k1("song shape", song_case),
+                    k1("ragged shape", svf_case(rng, 3, 2048, 4, 3, 4096, dev))),
+        "poly_echo": k1("poly_echo shape", poly_case),
+        # the polyphony examples' chunk: 32 tiles of 512 frames
+        "polyphony": max(k1("polyphony shape", svf_case(rng, 39, ex_chunk, 32, 2,
+                                                        3 * ex_chunk, dev)),
+                         k1("polyphony2 shape", svf_case(rng, 3, ex_chunk, 32, 3,
+                                                         5 * ex_chunk, dev)))}
+    V, n, nt, t0 = 4, 4096, 8, 1024
+    chain = svf_case(rng, V, 2 * n, 2 * nt, 3, t0, dev)
+    check_svf_chain(f"chained 2 x {n}", filters.svf_filter_table,
+                    filters.svf_filter_table_ref, chain,
+                    lambda k, l, b: (l, b, chain[2][:, k * n:(k + 1) * n].contiguous(),
+                                     "low_pass",
+                                     chain[4][:, k * nt:(k + 1) * nt].contiguous(),
+                                     chain[5][:, k * nt:(k + 1) * nt].contiguous(), 0.7,
+                                     t0 + k * n, chain[8]))
+    svf_t = {"song": k1_time("song", song_case, 100, 10),
+             "poly_echo": k1_time("poly_echo", poly_case, 20, 3)}
     del poly_case
 
     # 4. K4 vs plain on the card
@@ -361,43 +642,77 @@ def main() -> int:
     sam_case = lookup_case(rng, n_drum, CHUNK // 512, dev)
     lk_err = max(
         check_lookup(lookup, sam_case, "sampler shape"),
+        check_lookup(lookup, lookup_case(rng, n_drum, ex_chunk // 512, dev),
+                     "sampler example shape"),
         check_lookup(lookup, lookup_case(rng, 128 * 2048, CHUNK // 512, dev),
                      "largest table"),
         check_lookup(lookup, lookup_case(rng, n_drum, CHUNK // 512, dev, p_sel=0.5,
                                          out_of_range=True), "one-shot edges"))
     idx, sel, table = sam_case
     idx_long = idx.long()  # torch.take wants int64 indices
-    lk_ms, lk_plain_ms, r = time_pair(lambda: lookup.table_lookup(idx, sel, table),
-                                      lambda: lookup.table_lookup_ref(idx, sel, table),
-                                      200, 50)
-    lib_a = time_ms(lambda: torch.take(table, idx_long) * sel, 200)
-    lib_b = time_ms(lambda: torch.take(table, idx_long) * sel, 200)
-    lk_bytes = 12 * idx.numel() + 4 * table.numel()  # idx, sel in; out; the table
-    lk_bound_ms, lk_bound_by = bound(lk_bytes, idx.numel())
-    lk_dev_ms = device_ms(lambda: lookup.table_lookup(idx, sel, table),
-                          "table_lookup_kernel", 200)
-    print(f"  time at the sampler shape [{card}]: kernel {r[0]:.4f} / {r[1]:.4f} ms "
-          f"(device {lk_dev_ms:.4f} ms), "
-          f"plain {r[2]:.4f} / {r[3]:.4f} ms, torch.take(table, idx) * sel "
-          f"{lib_a:.4f} / {lib_b:.4f} ms; bound {lk_bound_ms * 1e3:.3f} us "
-          f"({lk_bound_by}, {lk_bytes} B)")
+    # idx and sel read, out written, the table read; one multiply a sample
+    lk_t = timing(card, "sampler", lambda: lookup.table_lookup(idx, sel, table),
+                  lambda: lookup.table_lookup_ref(idx, sel, table), "table_lookup_kernel",
+                  12 * idx.numel() + 4 * table.numel(), idx.numel(), 200, 50,
+                  library=("torch.take(table, idx) * sel",
+                           lambda: torch.take(table, idx_long) * sel))
+
+    # 5. K2 vs plain on the card
+    print(f"K2 svf_dense vs svf_filter_ref (rms < {TOL_DB} dBFS, "
+          f"end state |diff| < {TOL_STATE}):")
+    play_case = dense_case(rng, 1, ex_chunk, "scalar", True, dev)
+    wide_case = dense_case(rng, 1024, CHUNK, "dense", True, dev)
+    dense_err = {
+        "play": max(k2("play shape", play_case),
+                    k2("ragged n, [V, 1] cutoff", dense_case(rng, 3, 1000, "column", True,
+                                                              dev)),
+                    k2("dense cutoff, no mask", dense_case(rng, 2, 4096, "dense", False,
+                                                           dev))),
+        "v1024": k2("V=1024 shape", wide_case)}
+    chain = dense_case(rng, 4, 2 * n, "dense", True, dev)
+    check_svf_chain(f"chained 2 x {n}", filters.svf_filter, filters.svf_filter_ref, chain,
+                    lambda k, l, b: (l, b, chain[2][:, k * n:(k + 1) * n].contiguous(),
+                                     "low_pass", chain[4][:, k * n:(k + 1) * n], 0.7,
+                                     chain[6][:, k * n:(k + 1) * n]))
+    dense_t = {"play": k2_time("play", play_case, 100, 10),
+               "v1024": k2_time("V=1024", wide_case, 20, 2)}
+    del wide_case, chain
+
+    # 6. K5 vs plain on the card
+    print(f"K5 fm_feedback vs fm_feedback_ref at feedback pi/4 (rms < {TOL_FM_DB} "
+          f"dBFS, end state |diff| < {TOL_FM_STATE}):")
+    fm_cases = {"fmsynth": fm_case(rng, 8, ex_chunk, dev),
+                "v1024 (n=2048)": fm_case(rng, 1024, 2048, dev)}  # the plain loop's n
+    fm_err = {k: max(check_fm(fm, c, w, k) for w in range(4)) for k, c in fm_cases.items()}
+    fm_cases["v1024"] = fm_case(rng, 1024, ex_chunk, dev)
+    fm_t = {}
+    for k, c in fm_cases.items():
+        V, n = c["base"].shape
+        kernel = lambda c=c: fm.fm_feedback(*fm_args(c, 0))
+        plain = lambda c=c: fm.fm_feedback_ref(*fm_args(c, 0))
+        # the plain loop is timed at n=2048 only at V=1024 (see "v1024 (n=2048)")
+        fm_t[k] = timing(card, f"{k}, V={V} n={n}", kernel, None if k == "v1024" else plain,
+                         "fm_feedback_kernel", *fm_bytes_ops(V, n), 20 if V < 1024 else 10, 1)
+        print(f"  {fm_t[k]['device_ms'] * 1e6 / n:.2f} ns of device a step of the "
+              f"{n}-step serial chain")
+    del fm_cases
 
     launches = {}
 
-    # 5-6. the song
+    # 7-8. the song
     total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
-    reset_counts(svf_cuda, lookup)
+    reset_counts(svf_cuda, lookup, fm)
     t = time.perf_counter()
     pcm = song.render_song_s16(device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches["song"] = counts(svf_cuda, lookup)
+    launches["song"] = counts(svf_cuda, lookup, fm)
     print(f"song: render_song_s16(device='cuda'): {pcm.shape[0]} frames in "
           f"{wall:.3f}s end to end (RTF {song.NUM_SECONDS / wall:.1f}), "
           f"launches {launches['song']} [{card}]")
     if pcm.shape != (total,) or pcm.dtype != np.int16:
         raise AssertionError(f"pcm {pcm.shape} {pcm.dtype}, expected ({total},) int16")
-    if launches["song"] != {"svf_table": -(-total // CHUNK), "table_lookup": 0}:
+    if launches["song"] != expect_counts(svf_table=-(-total // CHUNK)):
         raise AssertionError(f"song launches {launches['song']}")
     if np.count_nonzero(pcm) < total // 2:
         raise AssertionError("the song render is mostly silent")
@@ -425,15 +740,13 @@ def main() -> int:
     check_plain(mix_np, plain, "song")
     del perf, mix, plain
 
-    # 5-6. the sampler and poly_echo configs
+    # 7-8. the sampler and poly_echo configs
     cgold = np.load(os.path.join(ROOT, "zang_tpu_torch", "data", "configs_golden_jax.npz"))
     params = json.loads(str(cgold["params"]))
     if params["chunk_size"] != CHUNK:
         raise AssertionError("the configs' golden file is for another chunk size")
-    expect = {"sampler": {"table_lookup": 2 * -(-int(10.0 * 44100) // CHUNK),
-                          "svf_table": 0},
-              "poly_echo": {"svf_table": -(-int(30.0 * 44100) // CHUNK),
-                            "table_lookup": 0}}
+    expect = {"sampler": expect_counts(table_lookup=2 * -(-int(10.0 * 44100) // CHUNK)),
+              "poly_echo": expect_counts(svf_table=-(-int(30.0 * 44100) // CHUNK))}
     make_perf = {
         "sampler": lambda: configs.build_sampler_performance(),
         "poly_echo": lambda: configs.build_poly_echo_performance(),
@@ -451,12 +764,12 @@ def main() -> int:
         seconds = configs.DEFAULT_SECONDS[name]
         total = int(seconds * configs.SAMPLE_RATE)
         channels = {"sampler": 1, "poly_echo": 2}[name]
-        reset_counts(svf_cuda, lookup)
+        reset_counts(svf_cuda, lookup, fm)
         t = time.perf_counter()
         pcm = configs.render_config_s16(name, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches[name] = counts(svf_cuda, lookup)
+        launches[name] = counts(svf_cuda, lookup, fm)
         print(f"{name}: render_config_s16({name!r}, device='cuda'): {pcm.shape} in "
               f"{wall:.3f}s end to end (RTF {seconds / wall:.1f}), "
               f"launches {launches[name]} [{card}]")
@@ -492,31 +805,40 @@ def main() -> int:
         check_plain(audio_np, plain, name)
         del perf, audio, plain
 
-    # 7. nothing of JAX
+    # 9. the examples
+    run_examples(examples, filters, fm, lookup, svf_cuda, card, launches)
+
+    # 10. nothing of JAX
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "zang_tpu"))
     if bad:
         raise AssertionError(f"modules of jax or zang_tpu were imported: {bad}")
 
-    by_path = {path: c["svf_table"] for path, c in launches.items() if c["svf_table"]}
-    svf_row = {
-        "name": "svf_table", "route": "cuda", "source": "zang_tpu_torch/csrc/svf_table.cu",
-        "replaces": "zang_tpu/ops/pallas_svf.py:355",
-        "launches": sum(by_path.values()), "max_abs_err": max(svf_err.values()),
-        **svf_t["song"],
-        "by_path": {path: {"launches": n, "max_abs_err": svf_err[path], **svf_t[path]}
-                    for path, n in by_path.items()},
-    }
-    lookup_row = {
-        "name": "table_lookup", "route": "cuda",
-        "source": "zang_tpu_torch/csrc/table_lookup.cu",
-        "replaces": "zang_tpu/ops/pallas_lookup.py:64",
-        "launches": sum(c["table_lookup"] for c in launches.values()),
-        "max_abs_err": lk_err, "ms": lk_ms, "plain_ms": lk_plain_ms,
-        "bound_ms": lk_bound_ms, "bound_by": lk_bound_by,
-        "library_ms": (lib_a + lib_b) / 2, "device_ms": lk_dev_ms,
-    }
+    def kernel_row(name, source, replaces, errs, times, main_shape):
+        """One kernel's entry: the main shape's numbers at the top level,
+        every shape's under "shapes", the launches of each main path."""
+        by_path = {path: c[name] for path, c in launches.items() if c[name]}
+        return {"name": name, "route": "cuda", "source": f"zang_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "max_abs_err": max(errs.values()), **times[main_shape],
+                "launches_by_path": by_path,
+                "shapes": {k: {"max_abs_err": errs.get(k), **times.get(k, {})}
+                           for k in {**errs, **times}}}
+
+    rows = [
+        kernel_row("svf_table", "svf_table.cu", "zang_tpu/ops/pallas_svf.py:355", svf_err,
+                   svf_t, "song"),
+        kernel_row("svf_dense", "svf_dense.cu", "zang_tpu/ops/pallas_svf.py:187",
+                   dense_err, dense_t, "play"),
+        kernel_row("table_lookup", "table_lookup.cu", "zang_tpu/ops/pallas_lookup.py:64",
+                   {"sampler": lk_err}, {"sampler": lk_t}, "sampler"),
+        kernel_row("fm_feedback", "fm_feedback.cu", "zang_tpu/ops/pallas_fm.py:64",
+                   fm_err, fm_t, "fmsynth"),
+    ]
+    for r in rows:
+        if not r["launches"]:
+            raise AssertionError(f"{r['name']} was launched on no main path")
     print(card)
-    print(json.dumps({"kernels": [svf_row, lookup_row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,0 +1,359 @@
+"""The port's example configs (zang_tpu_torch/host/examples.py) and their
+planners against zang_tpu's.
+
+- Planners, bit for bit: twelve_tet, freq_to_ifreq, sine_osc's counters,
+  trisaw_wave,
+  compile_gate, paint_table, compile_portamento, the mouse's controller
+  programs and the instruments' plans. The elementwise ones are compared
+  with the JAX package run op by op (not under jit, where XLA fuses and
+  rounds otherwise).
+- Each ported example through its public entry on the CPU, against the JAX
+  example at the seconds of tests/test_examples_golden.py: every channel
+  < -90 dBFS RMS.
+- The committed golden windows (zang_tpu_torch/data/examples_golden_jax.npz,
+  what chip_smoke.py holds the card to) against the port's CPU render at
+  each example's default seconds.
+"""
+
+import functools
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from zang_tpu.core import timeline as jtl
+from zang_tpu.core import twelve_tet as jtt
+from zang_tpu.core.notes import SongEvent as JSongEvent
+from zang_tpu.graph import render as jrender
+from zang_tpu.host import examples as jex
+from zang_tpu.host import instruments as jti
+from zang_tpu.ops import control as jctl
+from zang_tpu.ops import oscillators as josc
+from zang_tpu.ops import scan as jscan
+from zang_tpu_torch import convert
+from zang_tpu_torch.core import timeline as ttl
+from zang_tpu_torch.core import twelve_tet as ttt
+from zang_tpu_torch.core.notes import SongEvent as TSongEvent
+from zang_tpu_torch.core.wav import read_wav
+from zang_tpu_torch.graph.render import render_performance
+from zang_tpu_torch.host import examples as tex
+from zang_tpu_torch.host import instruments as tti
+from zang_tpu_torch.ops import control as tctl
+from zang_tpu_torch.ops import oscillators as tosc
+from zang_tpu_torch.ops import scan as tscan
+
+BUDGET_DB = -90.0
+SR = 48000.0
+# tests/test_examples_golden.py:23-44
+SECONDS = {"play": 2.0, "arpeggiator": 2.0, "polyphony": 2.0, "portamento": 2.0,
+           "mouse": 2.0, "fmsynth": 2.0, "sampler": 2.0, "polyphony2": 2.0,
+           "delay": 2.5, "song": 4.0}
+GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "zang_tpu_torch", "data", "examples_golden_jax.npz")
+
+
+def _rms_db(a, b):
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    return 20 * np.log10(np.sqrt((d ** 2).mean()) + 1e-30)
+
+
+def _leaves(prog, path=""):
+    if hasattr(prog, "starts") and hasattr(prog, "values"):
+        yield path + ".starts", prog.starts
+        for k, v in prog.values.items():
+            yield f"{path}.{k}", v
+    elif isinstance(prog, dict):
+        for k, v in prog.items():
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(prog, (list, tuple)):
+        for i, v in enumerate(prog):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, np.asarray(prog)
+
+
+def _assert_same(a, b):
+    la, lb = dict(_leaves(a)), dict(_leaves(b))
+    assert la.keys() == lb.keys()
+    for k in la:
+        assert la[k].dtype == lb[k].dtype, k
+        np.testing.assert_array_equal(la[k], lb[k], err_msg=k)
+
+
+def _song(event_cls, notes, extra=None):
+    """(t_on, duration, freq) notes as each package's SongEvents."""
+    song = []
+    for i, (t0, dur, f) in enumerate(notes):
+        for t, on in ((t0, True), (t0 + dur, False)):
+            p = {"freq": float(np.float32(f)), "note_on": on, **(extra or {})}
+            song.append(event_cls(p, t=t, note_id=i + 1))
+    song.sort(key=lambda e: (e.t, e.note_id))
+    return song
+
+
+def _timelines(notes, polyphony, seconds=2.0, extra=None):
+    """The same song compiled by each package: (JAX timelines, port's)."""
+    total = int(seconds * SR)
+    return (jtl.compile_timelines(_song(JSongEvent, notes, extra), polyphony, SR, total),
+            ttl.compile_timelines(_song(TSongEvent, notes, extra), polyphony, SR, total))
+
+
+NOTES = [(0.1 + 0.23 * i, 0.3 + 0.05 * (i % 3), 440.0 * jtt.rel_freq(n))
+         for i, n in enumerate([-9, -5, -2, 0, 3, 7, 0, -5])]
+
+
+# ---------------------------------------------------------------------------
+# planners and elementwise ops, bit for bit
+
+
+def test_twelve_tet_is_the_same_table():
+    names = [f"{n}{o}" for n, _ in jtt._NAMES for o in range(9)]
+    assert [getattr(ttt, k) for k in names] == [getattr(jtt, k) for k in names]
+    assert [ttt.rel_freq(k) for k in range(-60, 60)] == [jtt.rel_freq(k)
+                                                          for k in range(-60, 60)]
+
+
+def test_freq_to_ifreq_bit_for_bit():
+    rng = np.random.default_rng(0)
+    freq = np.concatenate([
+        rng.uniform(-24000.0, 24000.0, 5000), [0.0, -0.0, 1e-3, -1e-3, 48000.0,
+                                               -48000.0, 1e9, -1e9]]).astype(np.float32)
+    for sr in (48000.0, 44100.0):
+        got = tscan.freq_to_ifreq(torch.from_numpy(freq), sr).numpy()
+        want = np.asarray(jscan.freq_to_ifreq(jnp.asarray(freq), sr))
+        np.testing.assert_array_equal(got, want.astype(np.int64))
+    # a negative frequency is the two's complement of its magnitude's
+    mag = tscan.freq_to_ifreq(torch.from_numpy(np.abs(freq)), sr).numpy()
+    neg = freq < 0
+    assert ((got[neg] + mag[neg]) % 2 ** 32 == 0).all() and neg.sum() > 2000
+
+
+def test_sine_osc_counters_bit_for_bit():
+    """Counters chained over two calls, with a mask and a phase offset: the
+    u32 counters bit for bit, the values within 2^-23 (torch's sin and XLA's
+    differ by an ulp on a few per cent of the angles)."""
+    rng = np.random.default_rng(1)
+    V, n = 3, 3000
+    t_cnt = torch.zeros(V, dtype=torch.int64)
+    j_cnt = jnp.zeros(V, jnp.uint32)
+    for _ in range(2):
+        freq = rng.uniform(-900.0, 5000.0, (V, n)).astype(np.float32)
+        act = rng.uniform(size=(V, n)) > 0.2
+        t_cnt, to = tosc.sine_osc(t_cnt, torch.from_numpy(freq), 0.25, SR,
+                                  torch.from_numpy(act))
+        j_cnt, jo = josc.sine_osc(j_cnt, jnp.asarray(freq), 0.25, SR, jnp.asarray(act))
+        np.testing.assert_array_equal(t_cnt.numpy(), np.asarray(j_cnt).astype(np.int64))
+        assert np.abs(to.numpy() - np.asarray(jo)).max() <= 2.0 ** -23
+        assert _rms_db(to.numpy(), jo) < -150.0
+
+
+def test_trisaw_wave_bit_for_bit():
+    rng = np.random.default_rng(2)
+    n = 200000
+    ifreq = rng.integers(1 << 20, 1 << 27, n).astype(np.uint32)
+    cnt = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    cnt[:2000] = ifreq[:2000] // 3  # the samples just after a wrap
+    valid = rng.uniform(size=n) > 0.1
+    for color in (0.0, 0.3):
+        got = tosc.trisaw_wave(torch.from_numpy(cnt.astype(np.int64)),
+                               torch.from_numpy(ifreq.astype(np.int64)), color,
+                               torch.from_numpy(valid)).numpy()
+        want = np.asarray(josc.trisaw_wave(jnp.asarray(cnt), jnp.asarray(ifreq), color,
+                                           jnp.asarray(valid)))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_compile_gate_bit_for_bit():
+    jtls, ttls = _timelines(NOTES, 3)
+    for jt, tt in zip(jtls, ttls):
+        assert tctl.compile_gate(tt) == jctl.compile_gate(jt)
+    _assert_same(jctl.painter_program([jctl.compile_gate(t) for t in jtls], jtls[0].total),
+                 tctl.painter_program([tctl.compile_gate(t) for t in ttls], ttls[0].total))
+
+
+@pytest.mark.parametrize("kind", ["linear", "squared", "cubed"])
+def test_paint_table_bit_for_bit(kind):
+    for duration, t0 in ((0.1, 0.0), (0.5, 0.37), (0.0123, 0.9)):
+        got = tctl.paint_table(kind, duration, SR, t0)
+        want = jctl.paint_table(kind, duration, SR, t0)
+        for g, w in zip(got, want):
+            assert np.asarray(g).dtype == np.asarray(w).dtype
+            np.testing.assert_array_equal(g, w)
+
+
+def _porta_fn(k, p):
+    from zang_tpu_torch.core.curves import PaintCurve
+
+    return {"curve": PaintCurve.cubed(0.5), "goal": np.float32(p["freq"]),
+            "note_on": bool(p["note_on"]), "prev_note_on": bool(p["prev_note_on"])}
+
+
+def _jporta_fn(k, p):
+    from zang_tpu.core.curves import PaintCurve
+
+    return {"curve": PaintCurve.cubed(0.5), "goal": np.float32(p["freq"]),
+            "note_on": bool(p["note_on"]), "prev_note_on": bool(p["prev_note_on"])}
+
+
+def test_compile_portamento_bit_for_bit():
+    """The portamento example's glide program, legato moves included."""
+    moves = [(0.2, 130.8), (0.8, 196.0), (1.4, 164.8), (2.0, None), (2.4, 220.0),
+             (2.5, 230.0), (3.2, None)]
+    songs = {JSongEvent: [], TSongEvent: []}
+    for cls, song in songs.items():
+        nid, prev_on = 0, False
+        for t, f in moves:
+            if f is not None:
+                nid += 1
+                song.append(cls({"freq": float(np.float32(f)), "note_on": True,
+                                 "prev_note_on": prev_on}, t=t, note_id=nid))
+                prev_on = True
+            else:
+                song.append(cls({"freq": song[-1].params["freq"], "note_on": False,
+                                 "prev_note_on": prev_on}, t=t, note_id=nid))
+                prev_on = False
+    total = int(4.0 * SR)
+    jt = jtl.compile_timelines(songs[JSongEvent], 1, SR, total)[0]
+    tt = ttl.compile_timelines(songs[TSongEvent], 1, SR, total)[0]
+    got = tctl.compile_portamento(tt, SR, _porta_fn)
+    assert got == jctl.compile_portamento(jt, SR, _jporta_fn)
+    assert len(got) > 5
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_mouse_controller_programs_bit_for_bit(mode):
+    """Pointer moves (same-frame moves too) into the ratio and multiplier
+    glides, in both modulator modes."""
+    ctl = {"x": [(0, 0.3), (24000, 0.5), (48000, 0.8), (48000, 0.1), (72000, 0.4)],
+           "y": [(0, 0.5), (30000, 0.6), (60000, 0.3)]}
+    jtls, ttls = _timelines(NOTES[:3], 1)
+    _assert_same(jti.MousePMInstrument(mode, controllers=ctl).plan(jtls, SR),
+                 tti.MousePMInstrument(mode, controllers=ctl).plan(ttls, SR))
+
+
+FM_CONFIGS = [{}, {"mod_waveform": 2, "algorithm": 0, "mod_vibrato": 1,
+                   "car_tremolo": 1, "tremolo_depth": 0, "mod_adr": (3, 9, 5, 12)}]
+
+
+@pytest.mark.parametrize("cfg", FM_CONFIGS, ids=["default", "additive"])
+def test_fmsynth_plan_bit_for_bit(cfg):
+    jtls, ttls = _timelines(NOTES, 8)
+    j, t = jti.FMSynthInstrument(**cfg), tti.FMSynthInstrument(**cfg)
+    assert (t.mod, t.car, t.algorithm) == (j.mod, j.car, j.algorithm)
+    _assert_same(j.plan(jtls, SR), t.plan(ttls, SR))
+
+
+@pytest.mark.parametrize("name", ["FilteredSawtoothInstrument", "HardSquareInstrument",
+                                  "SquareWithEnvelope"])
+def test_instrument_plan_bit_for_bit(name):
+    jtls, ttls = _timelines(NOTES, 2)
+    _assert_same(getattr(jti, name)().plan(jtls, SR), getattr(tti, name)().plan(ttls, SR))
+
+
+# ---------------------------------------------------------------------------
+# the examples through their public entries, against the JAX package
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(name):
+    s = SECONDS[name]
+    ja, jsr = jex.EXAMPLES[name](seconds=s)
+    ta, tsr = tex.EXAMPLES[name](seconds=s, device="cpu")
+    return np.asarray(ja), jsr, ta.numpy(), tsr
+
+
+def test_registry_is_the_ten_examples():
+    assert sorted(tex.EXAMPLES) == sorted(SECONDS)
+    assert set(tex.EXAMPLES) <= set(jex.EXAMPLES)
+
+
+@pytest.mark.parametrize("name", sorted(SECONDS))
+def test_example_matches_jax(name):
+    ja, jsr, ta, tsr = _pair(name)
+    assert ta.shape == ja.shape and ta.dtype == np.float32 and tsr == jsr
+    assert np.abs(ta).max() > 0.01  # not silent
+    for ch in range(ja.shape[0]):
+        assert _rms_db(ta[ch], ja[ch]) < BUDGET_DB, (name, ch)
+
+
+def test_arpeggiator_is_exact_but_at_the_pulse_corners():
+    """HardSquare's pulse and gate are exact in both packages: the renders
+    agree bit for bit except at the anti-aliasing corner samples, where
+    XLA's fused kernels round the corner terms otherwise (the port equals
+    the JAX ops run one by one, test_trisaw_wave_bit_for_bit and
+    tests/test_torch_ops.py)."""
+    ja, _, ta, _ = _pair("arpeggiator")
+    diff = ta != ja
+    assert diff.sum() < 0.01 * ja.size
+    assert np.abs(ta - ja).max() < 1e-6
+
+
+def test_example_runs_from_converted_jax_parts():
+    """convert carries the new instruments across: an FM synth with a
+    non-default config and a NiceInstrument subclass (matched on the MRO),
+    planned by the JAX package, render on the port within the budget."""
+    class JDecimatedNice(jti.NiceInstrument):
+        def __init__(self):
+            super().__init__(0.3)
+
+    jtls, _ = _timelines(NOTES, 4, seconds=0.5)
+    total = jtls[0].total
+    jperf = jrender.Performance(
+        [(jti.FMSynthInstrument(**FM_CONFIGS[1]), jtls), (JDecimatedNice(), jtls),
+         (jti.FilteredSawtoothInstrument(), jtls[:1]),
+         (jti.HardSquareInstrument(), jtls[1:2])], SR)
+    want = np.asarray(jrender.render_performance(jperf, total, chunk_size=4096))
+    tperf = convert.from_jax_performance(jperf, "cpu")
+    assert isinstance(tperf.parts[1][0], tti.NiceInstrument)
+    assert tperf.parts[0][0].mod == jperf.parts[0][0].mod
+    state = convert.from_jax_state(jperf.init_state(), "cpu")
+    assert state[0][0]["mod_cnt"].dtype == torch.int64
+    assert state[0][0]["mod_fb1"].dtype == torch.float32
+    got = render_performance(tperf, total, 4096, device="cpu", state=state).numpy()
+    assert _rms_db(got, want) < BUDGET_DB
+
+
+def test_cli_writes_the_jax_clis_wav(tmp_path):
+    """python -m zang_tpu_torch.host.examples NAME out.wav --seconds S
+    --device cpu: the WAV of zang-examples (s16 at volume 0.25)."""
+    from zang_tpu.core.mixdown import mixdown_s16_np
+
+    out = tmp_path / "porta.wav"
+    tex.main(["portamento", str(out), "--seconds", "2", "--device", "cpu"])
+    w = read_wav(str(out))
+    ja, jsr, _, _ = _pair("portamento")
+    want = mixdown_s16_np(ja, 0.25)[0]
+    assert w.sample_rate == int(jsr) and w.num_channels == 1
+    got = np.frombuffer(w.data, np.int16)
+    assert got.shape == want.shape and np.abs(got.astype(int) - want).max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# the golden windows chip_smoke.py holds the card to
+
+
+@functools.lru_cache(maxsize=None)
+def _golden():
+    return np.load(GOLDEN)
+
+
+@pytest.mark.parametrize("name", sorted(SECONDS))
+def test_golden_windows_match_port_render(name):
+    g = _golden()
+    p = json.loads(str(g["params"]))["examples"][name]
+    audio, sr = tex.EXAMPLES[name](seconds=p["seconds"], device="cpu")
+    audio = audio.numpy()
+    assert sr == p["sample_rate"] and audio.shape[0] == p["channels"]
+    win = g[f"{name}_windows"]
+    ours = np.stack([audio[:, o:o + win.shape[-1]] for o in g[f"{name}_offsets"]])
+    for ch in range(audio.shape[0]):
+        assert _rms_db(ours[:, ch], win[:, ch]) < BUDGET_DB
+    c = p["chunk_size"]
+    rms = np.stack([np.sqrt(np.mean(audio[:, i * c:(i + 1) * c].astype(np.float64) ** 2,
+                                    axis=-1))
+                    for i in range(g[f"{name}_chunk_rms"].shape[-1])], axis=-1)
+    assert np.abs(rms - g[f"{name}_chunk_rms"]).max() < 10 ** (BUDGET_DB / 20)

@@ -20,14 +20,23 @@ rendering with JAX. This tool writes them:
     for <name> in sampler (10 s, C = 1) and poly_echo (1024 voices, 30 s,
     C = 2), at the JAX CLI's defaults.
 
+    zang_tpu_torch/data/examples_golden_jax.npz (the ten examples the port
+    has, zang_tpu_torch/host/examples.py EXAMPLES)
+      params               str  JSON: each example's seconds, sample rate,
+                                channels and render chunk, the window length
+      <name>_offsets, <name>_windows [W, C, 4096], <name>_chunk_rms [C, nc]
+                                as above, the RMS per render chunk of the
+                                example (16384 frames; 65536 for the song)
+    each at its default seconds (zang_tpu/host/examples.py).
+
 The windows spread evenly over the render, plus windows that straddle chunk
 boundaries (where the state carries across chunks) and the last window of
 the final, partial chunk. Run from the repo root on the CPU:
 
-    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [song|configs|all]
+    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [song|configs|examples|all]
 
 The song takes about a minute, the configs a few minutes (poly_echo renders
-1024 voices).
+1024 voices), the examples about a minute.
 """
 
 import json
@@ -43,6 +52,7 @@ sys.path.insert(0, ROOT)
 DATA = os.path.join(ROOT, "zang_tpu_torch", "data")
 OUT = os.path.join(DATA, "song_golden_jax.npz")
 OUT_CONFIGS = os.path.join(DATA, "configs_golden_jax.npz")
+OUT_EXAMPLES = os.path.join(DATA, "examples_golden_jax.npz")
 WINDOW = 8192
 CONFIG_WINDOW = 4096
 CHUNK = 65536
@@ -130,18 +140,57 @@ def make_configs():
     print(f"wrote {OUT_CONFIGS}: {os.path.getsize(OUT_CONFIGS)} bytes")
 
 
+# the port's examples (zang_tpu_torch/host/examples.py EXAMPLES) and the JAX
+# package's render chunks for them (zang_tpu/host/examples.py)
+EXAMPLE_NAMES = ("play", "arpeggiator", "polyphony", "portamento", "mouse", "fmsynth",
+                 "sampler", "polyphony2", "delay", "song")
+EXAMPLE_CHUNK = 16384
+SONG_EXAMPLE_CHUNK = 65536
+
+
+def make_examples():
+    import inspect
+
+    from zang_tpu.host import examples
+
+    arrays, params = {}, {}
+    for name in EXAMPLE_NAMES:
+        fn = examples.EXAMPLES[name]
+        seconds = inspect.signature(fn).parameters["seconds"].default
+        t = time.time()
+        audio, sr = fn(seconds=seconds)
+        audio = np.asarray(audio, np.float32)  # [C, total]
+        print(f"{name}: rendered {audio.shape} in {time.time() - t:.1f}s on the CPU")
+        chunk = SONG_EXAMPLE_CHUNK if name == "song" else EXAMPLE_CHUNK
+        total = audio.shape[-1]
+        offs = window_offsets(total, chunk=chunk, window=CONFIG_WINDOW, n_spread=5,
+                              n_seams=3)
+        arrays[f"{name}_offsets"] = offs
+        arrays[f"{name}_windows"] = np.stack([audio[:, o:o + CONFIG_WINDOW] for o in offs])
+        arrays[f"{name}_chunk_rms"] = chunk_rms(audio, chunk)
+        params[name] = {"seconds": float(seconds), "sample_rate": float(sr),
+                        "channels": int(audio.shape[0]), "chunk_size": chunk}
+    np.savez_compressed(
+        OUT_EXAMPLES, params=np.array(json.dumps(
+            {"window": CONFIG_WINDOW, "examples": params}, sort_keys=True)),
+        **arrays)
+    print(f"wrote {OUT_EXAMPLES}: {os.path.getsize(OUT_EXAMPLES)} bytes")
+
+
 def main(argv=None):
     import jax
 
     which = (argv or sys.argv[1:] or ["all"])[0]
-    if which not in ("song", "configs", "all"):
-        raise SystemExit(f"usage: {sys.argv[0]} [song|configs|all]")
+    if which not in ("song", "configs", "examples", "all"):
+        raise SystemExit(f"usage: {sys.argv[0]} [song|configs|examples|all]")
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(DATA, exist_ok=True)
     if which in ("song", "all"):
         make_song()
     if which in ("configs", "all"):
         make_configs()
+    if which in ("examples", "all"):
+        make_examples()
 
 
 if __name__ == "__main__":

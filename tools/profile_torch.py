@@ -1,11 +1,13 @@
 """Where the time goes in the port's renders on one GPU.
 
-For each config named (song, sampler, poly_echo; all three by default) it
-plans, renders once to warm up, renders again with the host clock (ending
-in torch.cuda.synchronize()), then renders a third time under
-torch.profiler and prints, per config:
+For each config named (song, sampler, poly_echo; all three by default) or
+example (ex_<name>, an entry of zang_tpu_torch/host/examples.py EXAMPLES
+at its default seconds) it plans, renders once to warm up, renders again
+with the host clock (ending in torch.cuda.synchronize()), then renders a
+third time under torch.profiler and prints, per config:
 
-  - plan seconds, render seconds and render-only RTF;
+  - plan seconds, render seconds and render-only RTF (an example's ex_*
+    entry plans inside its render: its render time includes planning);
   - device time: the sum of the kernels' and copies' self device time in
     the profiled render, and its share of the unprofiled render's wall
     time (the device's busy share; one stream, so nothing overlaps);
@@ -14,13 +16,14 @@ torch.profiler and prints, per config:
 
 Run from the repo root on a machine with CUDA:
 
-    python tools/profile_torch.py [song] [sampler] [poly_echo] [--top N]
+    python tools/profile_torch.py [song] [sampler] [poly_echo] [ex_fmsynth ...] [--top N]
 
 The card's nvidia-smi name and power limit are printed first; the last line
 is one JSON object with the numbers above.
 """
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -33,15 +36,29 @@ sys.path.insert(0, ROOT)
 CHUNK = 65536
 
 
-def _build(name):
-    from zang_tpu_torch.host import configs, song
+def _runner(name):
+    """(render, seconds, chunks, plan seconds): render() renders `name` on
+    the card. An example's render plans too, so its plan seconds are 0."""
+    from zang_tpu_torch.graph.render import render_performance
+    from zang_tpu_torch.host import configs, examples, song
 
+    if name.startswith("ex_"):
+        fn = examples.EXAMPLES[name[3:]]
+        seconds = inspect.signature(fn).parameters["seconds"].default
+        chunk = examples.SONG_CHUNK if name == "ex_song" else examples.DEFAULT_CHUNK
+        frames = fn(seconds=seconds, device="cuda")[0].shape[-1]
+        return lambda: fn(device="cuda"), seconds, -(-frames // chunk), 0.0
+    t = time.perf_counter()
     if name == "song":
         total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
-        return song.build_performance(total), total, song.NUM_SECONDS
-    perf, total = (configs.build_sampler_performance() if name == "sampler"
-                   else configs.build_poly_echo_performance())
-    return perf, total, configs.DEFAULT_SECONDS[name]
+        perf, seconds = song.build_performance(total), song.NUM_SECONDS
+    else:
+        perf, total = (configs.build_sampler_performance() if name == "sampler"
+                       else configs.build_poly_echo_performance())
+        seconds = configs.DEFAULT_SECONDS[name]
+    plan_s = time.perf_counter() - t
+    return (lambda: render_performance(perf, total, CHUNK, device="cuda"), seconds,
+            -(-total // CHUNK), plan_s)
 
 
 def _device_us(evt) -> float:
@@ -55,21 +72,16 @@ def profile(name, top):
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    from zang_tpu_torch.graph.render import render_performance
-
-    t = time.perf_counter()
-    perf, total, seconds = _build(name)
-    plan_s = time.perf_counter() - t
-    render_performance(perf, total, CHUNK, device="cuda")  # warm-up
+    render, seconds, n_chunks, plan_s = _runner(name)
+    render()  # warm-up
     torch.cuda.synchronize()
     t = time.perf_counter()
-    render_performance(perf, total, CHUNK, device="cuda")
+    render()
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        render_performance(perf, total, CHUNK, device="cuda")
+        render()
         torch.cuda.synchronize()
-    n_chunks = -(-total // CHUNK)
     rows = [e for e in prof.key_averages() if _device_us(e) > 0
             and str(e.device_type).endswith("CUDA")]
     rows.sort(key=_device_us, reverse=True)
@@ -97,8 +109,11 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("configs", nargs="*", choices=["song", "sampler", "poly_echo"],
-                    help="default: all three")
+    from zang_tpu_torch.host.examples import EXAMPLES
+
+    ap.add_argument("configs", nargs="*",
+                    choices=["song", "sampler", "poly_echo"] + [f"ex_{n}" for n in EXAMPLES],
+                    help="default: song, sampler and poly_echo")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -16,22 +16,49 @@ from .ops.sampler import SampleTable
 from .ops.segprog import SegProgram
 
 
+def _sampler(inst):
+    t = inst.table
+    out = tc.SamplerInstrument(
+        loop=inst.loop, speed=inst.speed, distort=inst.distort,
+        fake_sample_rate=inst.fake_sample_rate,
+        table=SampleTable(np.array(t.data_f32, copy=True), t.num_samples,
+                          t.byte_len, t.sample_rate))
+    out.ratio = inst.ratio  # set by the JAX package's plan()
+    return out
+
+
+def _fmsynth(inst):
+    out = ti.FMSynthInstrument()
+    out.cfg = dict(inst.cfg)
+    out._apply_cfg()
+    return out
+
+
+# the JAX package's instrument class name -> the port's instrument
+_CONVERT = {
+    "PMOscInstrument": lambda i: ti.PMOscInstrument(i.release_duration,
+                                                    freq_fn=i.freq_fn),
+    "NiceInstrument": lambda i: ti.NiceInstrument(np.array(i.color, copy=True),
+                                                  freq_fn=i.freq_fn),
+    "HardSquareInstrument": lambda i: ti.HardSquareInstrument(freq_fn=i.freq_fn),
+    "FilteredSawtoothInstrument": lambda i: ti.FilteredSawtoothInstrument(
+        freq_fn=i.freq_fn),
+    "SquareWithEnvelope": lambda i: ti.SquareWithEnvelope(i.weird, freq_fn=i.freq_fn),
+    "MousePMInstrument": lambda i: ti.MousePMInstrument(i.cfg["mode"],
+                                                        controllers=i._controllers),
+    "FMSynthInstrument": _fmsynth,
+    "SamplerInstrument": _sampler,
+}
+
+
 def _instrument(inst):
-    name = type(inst).__name__
-    if name == "PMOscInstrument":
-        return ti.PMOscInstrument(inst.release_duration, freq_fn=inst.freq_fn)
-    if name == "NiceInstrument":
-        return ti.NiceInstrument(np.array(inst.color, copy=True), freq_fn=inst.freq_fn)
-    if name == "SamplerInstrument":
-        t = inst.table
-        out = tc.SamplerInstrument(
-            loop=inst.loop, speed=inst.speed, distort=inst.distort,
-            fake_sample_rate=inst.fake_sample_rate,
-            table=SampleTable(np.array(t.data_f32, copy=True), t.num_samples,
-                              t.byte_len, t.sample_rate))
-        out.ratio = inst.ratio  # set by the JAX package's plan()
-        return out
-    raise ValueError(f"instrument {name} is not ported yet")
+    """The port's instrument for a JAX one. A subclass (the polyphony
+    example's DecimatedNice) converts as the first class of its MRO that the
+    port has."""
+    for cls in type(inst).__mro__:
+        if cls.__name__ in _CONVERT:
+            return _CONVERT[cls.__name__](inst)
+    raise ValueError(f"instrument {type(inst).__name__} is not ported yet")
 
 
 def _program(prog):
@@ -69,8 +96,9 @@ def from_jax_performance(perf, device, post=None) -> Performance:
 
 def from_jax_state(state, device):
     """A zang_tpu Performance state ((per-part states), post state) as the
-    port's, on `device`: filter l/b, decimator counters (u32 -> int64),
-    delay buffers and echo l/b."""
+    port's, on `device`: filter l/b, the FM feedback carry (mod_fb1,
+    mod_fb2), u32 phase and decimator counters (as int64), delay buffers
+    and echo l/b."""
     dev = require_device(device)
     states, post = state
 

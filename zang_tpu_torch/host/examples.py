@@ -1,0 +1,381 @@
+"""The reference's example programs as offline render configs (port of
+zang_tpu/host/examples.py, the ten examples that need neither zangscript
+nor the threefry noise tape).
+
+Each example (examples/example_*.zig) is a function
+`ex_<name>(seconds, device="cuda") -> (audio f32 [C, total] on device,
+sample_rate)`; keyboard and mouse input become scripted event sequences.
+The instruments live in host/instruments.py. On the card the examples reach
+every CUDA kernel of the port:
+
+  play         PMOsc melody + FilteredSawtooth drone   dense-cut SVF (K2)
+  fmsynth      8-voice 2-op FM, modulator feedback pi/4  FM feedback (K5)
+  polyphony    39 Nice voices + decimator               table-cut SVF (K1)
+  polyphony2   Nice behind a 3-slot dispatcher          table-cut SVF (K1)
+  sampler      drum loop -> overdrive -> decimator      table lookup (K4)
+  song         the Bach Toccata, 20 s                   table-cut SVF (K1)
+  arpeggiator, delay, portamento, mouse                 no kernel
+
+Run: python -m zang_tpu_torch.host.examples NAME out.wav [--seconds S]
+                                                       [--device cuda]
+"""
+
+import argparse
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..core import twelve_tet as tt
+from ..core.curves import PaintCurve
+from ..core.mixdown import mixdown_s16
+from ..core.notes import SongEvent
+from ..core.timeline import SubvoiceTimeline, active_from, compile_timelines
+from ..core.wav import write_wav_s16
+from ..device import require_device
+from ..graph.render import Performance, render_performance
+from ..ops import control, effects, oscillators
+from ..ops import delay as d_ops
+from . import configs
+from . import instruments as ti
+from . import song as song_mod
+
+F32 = np.float32
+A4 = 440.0
+MIX_VOLUME = 0.25
+
+# the render chunk of every example but the song (module-level, as in the
+# JAX package, so a test can vary it)
+DEFAULT_CHUNK = 16384
+# the song's render chunk
+SONG_CHUNK = 65536
+
+
+def _note(params, t, nid):
+    return SongEvent(params, t=t, note_id=nid)
+
+
+def _simple_song(notes: List[Tuple[float, float, float]], extra=None):
+    """notes: (t_on, duration, freq). Returns chronological SongEvents."""
+    song = []
+    for i, (t0, dur, freq) in enumerate(notes):
+        p = {"freq": float(F32(freq)), "note_on": True}
+        q = {"freq": float(F32(freq)), "note_on": False}
+        if extra:
+            p.update(extra)
+            q.update(extra)
+        song.append(_note(p, t0, i + 1))
+        song.append(_note(q, t0 + dur, i + 1))
+    song.sort(key=lambda e: (e.t, e.note_id))
+    return song
+
+
+def _render_parts(parts, seconds, sr, device, num_channels=1, post_fn=None,
+                  post_init=None):
+    total = int(seconds * sr)
+    perf = Performance(parts, sr, num_channels=num_channels, post_fn=post_fn,
+                       post_init_state=post_init)
+    return render_performance(perf, total, chunk_size=DEFAULT_CHUNK,
+                              device=device), sr
+
+
+# ---------------------------------------------------------------------------
+# example_play: PMOsc keyboard voice + filtered-sawtooth drone
+# (examples/example_play.zig).
+
+
+def ex_play(seconds=6.0, device="cuda"):
+    dev = require_device(device)
+    sr = 48000.0
+    melody = _simple_song([
+        (0.2 + i * 0.45, 0.35, A4 * tt.rel_freq(n))
+        for i, n in enumerate([-9, -5, -2, 0, -2, -5, -9, -5, 3, 0, -2, 0])
+    ])
+    drone = _simple_song([(0.0, seconds - 1.0, A4 * tt.c4 / 4.0)])
+    total = int(seconds * sr)
+    tls0 = compile_timelines(melody, 1, sr, total)
+    tls1 = compile_timelines(drone, 1, sr, total)
+    return _render_parts(
+        [(ti.PMOscInstrument(1.0), tls0), (ti.FilteredSawtoothInstrument(), tls1)],
+        seconds, sr, dev)
+
+
+# ---------------------------------------------------------------------------
+# example_arpeggiator (examples/example_arpeggiator.zig): held chords cycled
+# at 30 ms a step; the host generates the arpeggiator's impulse stream.
+
+
+def ex_arpeggiator(seconds=4.0, device="cuda"):
+    dev = require_device(device)
+    sr = 48000.0
+    step = 0.03
+    chords = [
+        (0.0, 2.0, [0, 4, 7]),        # major triad held
+        (2.0, 1.9, [0, 3, 7, 10]),    # minor 7th held
+    ]
+    song = []
+    nid = 1
+    t = 0.0
+    while t < seconds - step:
+        for t0, dur, degs in chords:
+            if t0 <= t < t0 + dur:
+                deg = degs[int(round(t / step)) % len(degs)]
+                f = A4 * tt.rel_freq(deg - 9)
+                song.append(_note({"freq": f, "note_on": True}, t, nid))
+                song.append(_note({"freq": f, "note_on": False}, t + step, nid))
+                nid += 1
+                break
+        t += step
+    song.sort(key=lambda e: (e.t, e.note_id))
+    tls = compile_timelines(song, 1, sr, int(seconds * sr))
+    return _render_parts([(ti.HardSquareInstrument(), tls)], seconds, sr, dev)
+
+
+# ---------------------------------------------------------------------------
+# example_polyphony (examples/example_polyphony.zig): 39 brute-force voices
+# (one a key) + a Decimator bitcrush on the mix.
+
+
+class DecimatedNice(ti.NiceInstrument):
+    """The polyphony example's voice: NiceInstrument(0.3); the decimator is
+    the performance's post chain."""
+
+    def __init__(self):
+        super().__init__(0.3)
+
+
+def ex_polyphony(seconds=5.0, device="cuda"):
+    dev = require_device(device)
+    sr = 48000.0
+    total = int(seconds * sr)
+    tlss = []
+    for i in range(12):  # staggered chord roll
+        t0 = 0.15 + 0.11 * i
+        song = _simple_song([(t0, seconds - t0 - 1.0, A4 * tt.rel_freq(i - 9))])
+        tlss.extend(compile_timelines(song, 1, sr, total))
+    # pad to 39 voices like the reference's one-voice-per-key array
+    while len(tlss) < 39:
+        tlss.append(SubvoiceTimeline(
+            starts=np.zeros((0,), np.int64), resets=np.zeros((0,), bool),
+            params=[], total=total))
+
+    def post_fn(state, mix, ctx):  # the bitcrush at a 6 kHz fake rate
+        cnt, val, out = effects.decimator(
+            state["cnt"], state["val"], mix[None, :], 6000.0, ctx.sample_rate)
+        return {"cnt": cnt, "val": val}, out
+
+    def post_init(device):
+        return {"cnt": torch.full((1,), 0xFFFFFFFF, dtype=torch.int64, device=device),
+                "val": torch.zeros((1,), dtype=torch.float32, device=device)}
+
+    return _render_parts([(DecimatedNice(), tlss)], seconds, sr, dev,
+                         post_fn=post_fn, post_init=post_init)
+
+
+# ---------------------------------------------------------------------------
+# example_portamento (examples/example_portamento.zig): monophonic synth
+# whose frequency glides (cubed 0.5 s) to the newest held key; the envelope
+# restarts only when a key goes down with all keys released.
+
+
+class PortamentoInstrument:
+    """Sine through a Portamento glide, times an ADSR."""
+
+    def plan(self, timelines, sample_rate):
+        prog = {"active_from": active_from(timelines)}
+        porta_segs = [control.compile_portamento(
+            tl, sample_rate,
+            lambda k, p: {"curve": PaintCurve.cubed(0.5),
+                          "goal": F32(p["freq"]),
+                          "note_on": bool(p["note_on"]),
+                          "prev_note_on": bool(p["prev_note_on"])})
+            for tl in timelines]
+        prog["porta"] = control.painter_program(porta_segs, timelines[0].total)
+        env_tls = [
+            SubvoiceTimeline(
+                starts=tl.starts,
+                resets=np.array([bool(p["note_on"]) and not bool(p["prev_note_on"])
+                                 for p in tl.params], dtype=bool),
+                params=tl.params, total=tl.total)
+            for tl in timelines
+        ]
+        return ti._plan_envelope(env_tls, sample_rate, ti._cubed_adsr(), prog)
+
+    def init_state(self, num_voices, device):
+        return {"cnt": torch.zeros((num_voices,), dtype=torch.int64, device=device)}
+
+    def render(self, state, prog, ctx):
+        freq = ti._painter(prog, "porta", ctx)
+        cnt, osc = oscillators.sine_osc(state["cnt"], freq, 0.0, ctx.sample_rate,
+                                        ti._active(prog, ctx))
+        return {"cnt": cnt}, ti._env(prog, ctx) * osc
+
+
+def ex_portamento(seconds=4.0, device="cuda"):
+    dev = require_device(device)
+    sr = 48000.0
+    # scripted mono keyboard: (time, freq or None = all released)
+    moves = [(0.2, A4 * tt.c3), (0.8, A4 * tt.g3), (1.4, A4 * tt.e3),
+             (2.0, None), (2.4, A4 * tt.a3), (3.2, None)]
+    song = []
+    nid = 0
+    prev_on = False
+    for t, f in moves:
+        if f is not None:
+            nid += 1
+            song.append(_note({"freq": float(F32(f)), "note_on": True,
+                               "prev_note_on": prev_on}, t, nid))
+            prev_on = True
+        else:
+            song.append(_note({"freq": song[-1].params["freq"], "note_on": False,
+                               "prev_note_on": prev_on}, t, nid))
+            prev_on = False
+    tls = compile_timelines(song, 1, sr, int(seconds * sr))
+    return _render_parts([(PortamentoInstrument(), tls)], seconds, sr, dev)
+
+
+# ---------------------------------------------------------------------------
+# example_mouse (examples/example_mouse.zig): PM oscillator whose ratio and
+# multiplier follow glides toward a scripted pointer path.
+
+
+def ex_mouse(seconds=4.0, device="cuda"):
+    dev = require_device(device)
+    sr = 48000.0
+    total = int(seconds * sr)
+    # scripted pointer path (t, x, y) in [0, 1]^2, quantized to frames as the
+    # live pointer events would be
+    path = [(0.0, 0.3, 0.5), (0.5, 0.5, 0.6), (1.0, 0.8, 0.3),
+            (1.5, 0.4, 0.8), (2.0, 0.6, 0.2), (2.5, 0.9, 0.9),
+            (3.0, 0.2, 0.4)]
+    ctl_song = [_note({"v": i, "note_on": True}, t, i + 1)
+                for i, (t, x, y) in enumerate(path)]
+    ctl_tl = compile_timelines(ctl_song, 1, sr, total)[0]
+    controllers = {
+        "x": [(int(f), path[k][1]) for k, f in enumerate(ctl_tl.starts)],
+        "y": [(int(f), path[k][2]) for k, f in enumerate(ctl_tl.starts)],
+    }
+    tls = compile_timelines(_simple_song([(0.1, seconds - 0.8, A4 * tt.a3)]), 1, sr,
+                            total)
+    return _render_parts([(ti.MousePMInstrument(controllers=controllers), tls)],
+                         seconds, sr, dev)
+
+
+# ---------------------------------------------------------------------------
+# example_fmsynth (examples/example_fmsynth.zig): OPL-style 2-operator FM,
+# 8-voice polyphony, the instrument's default parameters.
+
+
+def ex_fmsynth(seconds=4.0, device="cuda"):
+    dev = require_device(device)
+    sr = 48000.0
+    song = _simple_song([
+        (0.1 + 0.4 * i, 0.3, A4 * tt.rel_freq(n))
+        for i, n in enumerate([-9, -5, -2, 0, 3, 0, -2, -5])
+    ])
+    tls = compile_timelines(song, 8, sr, int(seconds * sr))
+    return _render_parts([(ti.FMSynthInstrument(), tls)], seconds, sr, dev)
+
+
+# ---------------------------------------------------------------------------
+# example_sampler (examples/example_sampler.zig): the looped drum loop
+# through overdrive and decimator (host/configs.py).
+
+
+def ex_sampler(seconds=6.0, device="cuda"):
+    dev = require_device(device)
+    perf, total = configs.build_sampler_performance(seconds=seconds)
+    return render_performance(perf, total, chunk_size=DEFAULT_CHUNK,
+                              device=dev), perf.sample_rate
+
+
+# ---------------------------------------------------------------------------
+# example_polyphony2 (examples/example_polyphony2.zig): NiceInstrument(0.3)
+# behind a 3-slot dispatcher; the song holds 5-note overlaps, so slots are
+# recycled and voices stolen.
+
+
+def ex_polyphony2(seconds=6.0, device="cuda"):
+    dev = require_device(device)
+    sr = 48000.0
+    song = _simple_song([
+        (0.2 + 0.25 * i, 1.2, 220.0 * tt.rel_freq(n))
+        for i, n in enumerate([0, 4, 7, 12, 16, 12, 7, 4, 0, -5, -1, 2, 7])
+    ])
+    tls = compile_timelines(song, 3, sr, int(seconds * sr))
+    return _render_parts([(ti.NiceInstrument(0.3), tls)], seconds, sr, dev)
+
+
+# ---------------------------------------------------------------------------
+# example_delay (examples/example_delay.zig): HardSquare keyboard voice
+# through StereoEchoes(15000) (examples/modules.zig:464-525).
+
+
+def ex_delay(seconds=8.0, device="cuda"):
+    dev = require_device(device)
+    sr = 48000.0
+    song = _simple_song([
+        (0.2 + 0.5 * i, 0.25, A4 * tt.rel_freq(n))
+        for i, n in enumerate([-12, -5, 0, 3, 7, 3, 0, -5])
+    ])
+    tls = compile_timelines(song, 1, sr, int(seconds * sr))
+
+    def post_fn(state, mix, ctx):
+        return d_ops.stereo_echoes(state, mix, 0.6, 0.7)
+
+    def post_init(device):
+        return d_ops.stereo_echoes_init(15000, device)
+
+    return _render_parts([(ti.HardSquareInstrument(), tls)], seconds, sr, dev,
+                         num_channels=2, post_fn=post_fn, post_init=post_init)
+
+
+# ---------------------------------------------------------------------------
+# example_song (examples/example_song.zig): a slice of the Bach Toccata.
+
+
+def ex_song(seconds=20.0, device="cuda"):
+    dev = require_device(device)
+    total = int(seconds * song_mod.SAMPLE_RATE)
+    perf = song_mod.build_performance(total)
+    return render_performance(perf, total, chunk_size=SONG_CHUNK,
+                              device=dev), float(song_mod.SAMPLE_RATE)
+
+
+# ---------------------------------------------------------------------------
+# registry + CLI
+
+
+EXAMPLES = {
+    "play": ex_play,
+    "arpeggiator": ex_arpeggiator,
+    "polyphony": ex_polyphony,
+    "portamento": ex_portamento,
+    "mouse": ex_mouse,
+    "fmsynth": ex_fmsynth,
+    "sampler": ex_sampler,
+    "polyphony2": ex_polyphony2,
+    "delay": ex_delay,
+    "song": ex_song,
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="zang-torch-examples",
+        description="Render a ported reference example to WAV.")
+    ap.add_argument("name", choices=sorted(EXAMPLES))
+    ap.add_argument("output")
+    ap.add_argument("--seconds", type=float, default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    kw = {"seconds": args.seconds} if args.seconds else {}
+    audio, sr = EXAMPLES[args.name](device=args.device, **kw)
+    pcm = mixdown_s16(audio, MIX_VOLUME).cpu().numpy()
+    ch = pcm.shape[0]
+    write_wav_s16(args.output, pcm if ch > 1 else pcm[0], int(sr), num_channels=ch)
+    print(f"{args.name}: wrote {args.output} ({audio.shape[-1] / sr:.1f}s, {ch}ch)")
+
+
+if __name__ == "__main__":
+    main()

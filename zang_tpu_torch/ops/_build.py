@@ -3,12 +3,13 @@ plain C interface, and load it with ctypes (core/native.py builds the C++
 host compiler through build_shared too).
 
 The library is built at first use into zang_tpu_torch/build/ (listed in
-.gitignore) and rebuilt when the source or the flags change: the file name
-carries their hash. A failed build raises with nvcc's stderr; there is no
-fallback.
+.gitignore) and rebuilt when the source, the headers in csrc/ or the flags
+change: the file name carries their hash. A failed build raises with nvcc's
+stderr; there is no fallback.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -45,14 +46,18 @@ def nvcc_path() -> str:
     return found
 
 
-def build_shared(src: str, compiler, flags: list, stem: str) -> str:
+def build_shared(src: str, compiler, flags: list, stem: str, deps=()) -> str:
     """Compile `src` with `compiler() + flags` into BUILD_DIR/lib<stem>_<hash>.so
-    unless that file exists; the hash covers the source and the flags.
-    compiler is called only when a build is needed and returns the
-    compiler's path. Returns the .so path. A failed build raises with the
-    compiler's stderr."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    unless that file exists; the hash covers the source, the files in deps
+    (the headers it includes) and the flags. compiler is called only when a
+    build is needed and returns the compiler's path. Returns the .so path. A
+    failed build raises with the compiler's stderr."""
+    h = hashlib.sha256()
+    for path in (src, *sorted(deps)):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(flags).encode())
+    digest = h.hexdigest()[:16]
     so = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     build_seconds[stem] = 0.0
     if not os.path.exists(so):
@@ -78,7 +83,14 @@ def library(name: str) -> ctypes.CDLL:
     if name in _loaded:
         return _loaded[name]
     so = build_shared(os.path.join(SRC_DIR, name + ".cu"), nvcc_path, NVCC_FLAGS,
-                      name)
+                      name, deps=glob.glob(os.path.join(SRC_DIR, "*.cuh")))
     lib = ctypes.CDLL(so)
     _loaded[name] = lib
     return lib
+
+
+def build(name: str) -> float:
+    """Build (or load) csrc/<name>.cu; returns the seconds nvcc took (0.0
+    when an up-to-date build was on disk)."""
+    library(name)
+    return build_seconds[name]

@@ -1,19 +1,32 @@
-"""Painter envelopes as segment programs (port of zang_tpu/ops/control.py,
-the envelope path the song uses).
+"""Painter programs: envelopes, portamento and gates as segment programs
+(port of zang_tpu/ops/control.py, its offline compilers).
 
 Per segment, value[t] = a + b * shape(min(t0 + (dt + 1) * t_step, 1)),
-dt = t - start. The segments come from the C++ envelope compiler in
-core/native.py; painter_program is the numpy twin of the
-JAX package's packer.
+dt = t - start. Envelope segments come from the C++ envelope compiler in
+core/native.py; the portamento and gate compilers, the paint tables and
+painter_program are numpy twins of the JAX package's, segment for segment.
 """
+
+from functools import lru_cache
+from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
 
 from ..core import native
+from ..core.curves import PaintCurve
 from .segprog import SegProgram
 
+F32 = np.float32
+
 SHAPE_CONST, SHAPE_LINEAR, SHAPE_SQUARED, SHAPE_CUBED, SHAPE_SMOOTHSTEP = 0, 1, 2, 3, 4
+_SHAPE_ID = {"linear": SHAPE_LINEAR, "squared": SHAPE_SQUARED, "cubed": SHAPE_CUBED}
+
+# cap on a single paint table (samples), against absurd durations
+MAX_TABLE = 1 << 24
+
+# program segment tuple: (start, a, b, t_step, t0, shape_id)
+Seg = Tuple[int, float, float, float, float, int]
 
 
 def compile_envelope(tl, sample_rate: float, env_params_fn) -> dict:
@@ -26,8 +39,11 @@ def compile_envelope(tl, sample_rate: float, env_params_fn) -> dict:
 
 
 def painter_program(segs_per_voice, total: int) -> SegProgram:
-    """Pack per-voice painter segments (dicts of arrays {"start", "a", "b",
-    "t_step", "t0", "shape"}) into a padded SegProgram."""
+    """Pack per-voice painter segments into a padded SegProgram. Each
+    voice's segments are a list of Seg tuples (the Python walkers) or a
+    dict of arrays {"start", "a", "b", "t_step", "t0", "shape"} (the native
+    compiler)."""
+    segs_per_voice = [_seg_arrays(sv) for sv in segs_per_voice]
     S = max(1, max(len(sv["start"]) for sv in segs_per_voice))
     V = len(segs_per_voice)
     starts = np.full((V, S), total, dtype=np.int64)
@@ -60,6 +76,17 @@ def painter_program(segs_per_voice, total: int) -> SegProgram:
     )
 
 
+def _seg_arrays(segs) -> dict:
+    """A voice's segments as the native compiler's dict of arrays."""
+    if isinstance(segs, dict):
+        return segs
+    cols = list(zip(*segs)) if segs else [()] * 6
+    return {name: np.asarray(col, dtype)
+            for name, col, dtype in zip(
+                ("start", "a", "b", "t_step", "t0", "shape"), cols,
+                (np.int64, np.float64, np.float64, np.float64, np.float64, np.int64))}
+
+
 def eval_painter(vals: dict, t_idx: torch.Tensor) -> torch.Tensor:
     """Device: evaluated painter program values (a, b, t_step, t0, shape,
     seg_start, each [V, n]) -> [V, n]."""
@@ -82,3 +109,185 @@ def eval_painter(vals: dict, t_idx: torch.Tensor) -> torch.Tensor:
         ),
     )
     return vals["a"] + vals["b"] * tp
+
+
+# ---------------------------------------------------------------------------
+# Paint tables and the painter walk (painter.zig:67-120), shared by the
+# portamento compiler and, in the JAX package, its Python envelope walk.
+
+
+@lru_cache(maxsize=None)
+def _paint_table_cached(kind: str, dur_bits: int, sr_bits: int, t0_bits: int):
+    duration = np.uint32(dur_bits).view(np.float32)
+    sr = np.uint32(sr_bits).view(np.float32)
+    t0 = np.uint32(t0_bits).view(np.float32)
+    t_step = F32(F32(1.0) / F32(duration * sr))
+    # f32-exact sequential accumulation: t_k = fl(t_{k-1} + t_step) from t0,
+    # painted while t < 1 (the crossing sample paints with t = 1). f32
+    # accumulation can run slow of the exact count, so the estimate has a
+    # margin.
+    est = int(np.ceil((1.0 - float(t0)) / max(float(t_step), 1e-30)) * 1.02) + 16
+    if est > MAX_TABLE:
+        raise ValueError(f"paint table too long ({est} samples)")
+    steps = np.full(est + 1, t_step, dtype=np.float32)
+    steps[0] = t0
+    t = np.cumsum(steps, dtype=np.float32)[1:]  # t after each += t_step
+    crossing = int(np.argmax(t >= 1.0))
+    if not t[crossing] >= 1.0:
+        raise ValueError("paint table estimate too short")
+    t = t[: crossing + 1].copy()
+    t[-1] = 1.0  # clamp (painter.zig:102-105)
+    it = F32(1.0) - t
+    if kind == "linear":
+        tp = t
+    elif kind == "squared":
+        tp = F32(1.0) - it * it
+    elif kind == "cubed":
+        tp = F32(1.0) - it * it * it
+    else:
+        raise ValueError(kind)
+    return np.asarray(t, dtype=np.float32), np.asarray(tp, dtype=np.float32), t_step
+
+
+def paint_table(kind: str, duration: float, sample_rate: float, t0: float = 0.0):
+    """(t sequence, tp sequence, t_step) for one painter stage."""
+    return _paint_table_cached(
+        kind,
+        int(F32(duration).view(np.uint32)),
+        int(F32(sample_rate).view(np.uint32)),
+        int(F32(t0).view(np.uint32)),
+    )
+
+
+class _PainterWalk:
+    """Host-side mirror of the Painter state (t position, last/start values),
+    emitting program segments instead of painting samples."""
+
+    def __init__(self, sample_rate: float) -> None:
+        self.sr = sample_rate
+        self.t_value = F32(0.0)  # painter.t
+        self.finished = False  # painter.t >= 1.0
+        self.last = F32(0.0)  # painter.last_value
+        self.start = F32(0.0)  # painter.start
+        self.table_pos = 0  # samples consumed of the current stage table
+        self.table_key = None
+        self.table = None  # (t_arr, tp_arr, t_step)
+        self.table_t0 = F32(0.0)
+        self.segs: List[Seg] = []
+
+    def new_curve(self) -> None:
+        self.start = self.last
+        self.t_value = F32(0.0)
+        self.finished = False
+        self.table_pos = 0
+        self.table_key = None
+        self.table = None
+
+    def emit(self, seg: Seg) -> None:
+        # merge consecutive constant segments with equal value
+        if seg[2] == 0.0 and self.segs:
+            prev = self.segs[-1]
+            if prev[2] == 0.0 and prev[1] == seg[1]:
+                return
+        self.segs.append(seg)
+
+    def emit_const(self, s: int, value: float) -> None:
+        self.emit((s, float(F32(value)), 0.0, 0.0, 0.0, SHAPE_CONST))
+
+    def paint_flat(self, s: int, e: int, value: float) -> None:
+        if e > s:
+            self.emit_const(s, value)
+
+    def paint_toward(self, s: int, e: int, curve: PaintCurve, goal: float
+                     ) -> Tuple[int, bool]:
+        """Mirror of painter.zig:67-120. Returns (pos, finished)."""
+        goal = F32(goal)
+        if self.finished:
+            return s, True
+        if curve.kind == "instantaneous":
+            self.finished = True
+            self.t_value = F32(1.0)
+            self.last = goal
+            return s, True
+        key = (curve.kind, F32(curve.duration).tobytes())
+        if self.table_key != key:
+            # stage (re)parameterized mid-flight: continue from current t
+            self.table_t0 = F32(self.t_value)
+            self.table = paint_table(curve.kind, curve.duration, self.sr,
+                                     float(self.t_value))
+            self.table_key = key
+            self.table_pos = 0
+        t_arr, tp_arr, t_step = self.table
+        length = len(t_arr)
+        if self.table_pos >= length:
+            self.finished = True
+            return s, True
+        n = min(length - self.table_pos, e - s)
+        if n > 0:
+            b = F32(goal - self.start)
+            # t before the first emitted sample of this program segment
+            t_base = t_arr[self.table_pos - 1] if self.table_pos > 0 else self.table_t0
+            self.emit((s, float(self.start), float(b), float(t_step),
+                       float(t_base), _SHAPE_ID[curve.kind]))
+            self.last = F32(self.start + F32(tp_arr[self.table_pos + n - 1] * b))
+            self.t_value = F32(t_arr[self.table_pos + n - 1])
+            self.table_pos += n
+        if self.table_pos >= length:
+            self.finished = True
+            return s + n, True
+        return s + n, False
+
+
+class PortamentoWalkStream:
+    """The portamento compiler (src/modules/Portamento.zig) fed one timeline
+    segment [s, e) at a time, with the painter walk carried across."""
+
+    def __init__(self, sample_rate: float, porta_params_fn) -> None:
+        self.w = _PainterWalk(sample_rate)
+        self.fn = porta_params_fn
+        self.k = 0
+        self.w.emit_const(0, 0.0)
+
+    @property
+    def segs(self) -> List[Seg]:
+        return self.w.segs
+
+    def feed(self, s: int, e: int, reset: bool, params: dict) -> None:
+        k = self.k
+        self.k += 1
+        if e <= s:
+            return
+        p = self.fn(k, params)
+        w = self.w
+        if p["note_on"] and p.get("prev_note_on", False):
+            curve = p["curve"]
+        else:
+            curve = PaintCurve.instantaneous()
+        if p["note_on"] and reset:
+            w.new_curve()
+        pos, fin = w.paint_toward(s, e, curve, p["goal"])
+        if fin:
+            w.paint_flat(pos, e, p["goal"])
+
+
+def compile_portamento(tl, sample_rate: float,
+                       porta_params_fn: Callable[[int, dict], dict]) -> List[Seg]:
+    """One subvoice's portamento segments. porta_params_fn(segment_index,
+    note_params) -> dict with curve (PaintCurve), goal, note_on,
+    prev_note_on."""
+    st = PortamentoWalkStream(sample_rate, porta_params_fn)
+    for k in range(len(tl.starts)):
+        s = int(tl.starts[k])
+        e = int(tl.starts[k + 1]) if k + 1 < len(tl.starts) else tl.total
+        st.feed(s, e, bool(tl.resets[k]), tl.params[k])
+    return st.segs
+
+
+def compile_gate(tl) -> List[Seg]:
+    """One subvoice's gate (src/modules/Gate.zig): 1.0 while note_on, else 0."""
+    segs: List[Seg] = [(0, 0.0, 0.0, 0.0, 0.0, SHAPE_CONST)]
+    for k in range(len(tl.starts)):
+        v = 1.0 if tl.params[k]["note_on"] else 0.0
+        if segs[-1][1] != v:
+            segs.append((int(tl.starts[k]), v, 0.0, 0.0, 0.0, SHAPE_CONST))
+    return segs

@@ -1,18 +1,22 @@
 """SVF state-variable filter (port of zang_tpu/ops/filters.py).
 
-svf_filter is the plain version: the reference's per-sample recurrence
+svf_filter_ref is the plain version: the reference's per-sample recurrence
 (Filter.zig:96-151) is linear time-varying, so each sample's affine map is
 probed on basis states and composed with an associative scan. It runs on
 any device and is what the CPU uses.
 
-svf_filter_table takes the cutoff as per-tile boundary tables (the tiled
-segment-program format). For a CPU tensor it is svf_filter_table_ref;
-for a CUDA tensor it launches the hand-written kernel (ops/svf_cuda.py),
-with no fallback.
+svf_filter routes as the JAX package does (zang_tpu/ops/filters.py:134-145):
+a CUDA tensor x [V, n] with a scalar res launches the dense-cut kernel
+(ops/svf_cuda.py svf_dense_cuda); every other call, and every CPU tensor,
+takes svf_filter_ref. svf_filter_table takes the cutoff as per-tile
+boundary tables (the tiled segment-program format): svf_filter_table_ref
+for a CPU tensor, the table-cut kernel (svf_table_cuda) for a CUDA one.
+Neither router has a fallback.
 """
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .scan import affine2_scan, as_f32
@@ -31,6 +35,19 @@ FILTER_MULS = {  # (l, b, h) output weights; bypass is not ported
 }
 
 
+def cutoff_from_frequency(frequency: float, sample_rate: float) -> np.float32:
+    """Filter.zig:20-23 on the host, in f32: sqrt(clip(2 (1 - cos(pi f /
+    sr)), 0, 1)). cos is taken in f64 and rounded to f32: numpy's f32 cos
+    and XLA's differ from each other in the last place, and the rounded f64
+    cos lands nearer XLA's (tests/test_torch_svf.py sweeps the audio band:
+    under 1% of the cutoffs differ from the JAX package's, each by one ulp
+    of cos)."""
+    f = np.float32
+    x = f(f(np.pi) * f(frequency) / f(sample_rate))
+    v = f(2.0) * (f(1.0) - f(np.cos(np.float64(x))))
+    return np.sqrt(np.clip(v, f(0.0), f(1.0)), dtype=f)
+
+
 def _svf_step(l, b, inp, cut, res):
     """One output sample: the 2x oversampled update (Filter.zig:123-147),
     f32 in the reference's expression order. Returns (l', b', h)."""
@@ -43,7 +60,7 @@ def _svf_step(l, b, inp, cut, res):
     return l, b, h
 
 
-def svf_filter(
+def svf_filter_ref(
     l0: Tensor,
     b0: Tensor,
     x: Tensor,
@@ -52,7 +69,8 @@ def svf_filter(
     res: Union[Tensor, float],
     active: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Run the SVF over x [..., n]. Returns (l_end, b_end, out [..., n]).
+    """Plain version of svf_filter, on any device: run the SVF over
+    x [..., n]. Returns (l_end, b_end, out [..., n]).
 
     cutoff/res: raw 0-1 params (clamped like the reference), broadcastable
     to x. active: bool [..., n]; inactive samples leave the state untouched
@@ -83,6 +101,30 @@ def svf_filter(
     return post_l[..., -1], post_b[..., -1], out
 
 
+def _is_scalar(v) -> bool:
+    return (isinstance(v, (int, float, np.floating, np.integer))
+            or (isinstance(v, Tensor) and v.dim() == 0))
+
+
+def svf_filter(
+    l0: Tensor,
+    b0: Tensor,
+    x: Tensor,
+    filter_type: str,
+    cutoff: Union[Tensor, float],
+    res: Union[Tensor, float],
+    active: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The SVF over x [..., n] (see svf_filter_ref for the arguments): the
+    dense-cut CUDA kernel for a CUDA x [V, n] with a scalar res, else the
+    plain version."""
+    if x.device.type == "cuda" and x.dim() == 2 and _is_scalar(res):
+        from .svf_cuda import svf_dense_cuda
+
+        return svf_dense_cuda(l0, b0, x, filter_type, cutoff, res, active)
+    return svf_filter_ref(l0, b0, x, filter_type, cutoff, res, active)
+
+
 def svf_filter_table_ref(
     l0: Tensor,
     b0: Tensor,
@@ -95,14 +137,15 @@ def svf_filter_table_ref(
     active_from: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain version of svf_filter_table, on any device: evaluate the
-    table into a [V, n] cutoff and run svf_filter."""
+    table into a [V, n] cutoff and run svf_filter_ref (never the router, so
+    the plain comparison on the card launches no kernel)."""
     n = x.shape[1]
     t_idx = int(t0) + torch.arange(n, dtype=torch.int32, device=x.device)
     cut = eval_tiled_chunk({"tb": tb, "cut": cutv}, t_idx)["cut"]
     act = None
     if active_from is not None:
         act = t_idx[None, :] >= active_from.to(torch.int32)[:, None]
-    return svf_filter(l0, b0, x, filter_type, cut, res, act)
+    return svf_filter_ref(l0, b0, x, filter_type, cut, res, act)
 
 
 def svf_filter_table(

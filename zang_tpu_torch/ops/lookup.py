@@ -39,13 +39,6 @@ def _lib():
     return lib
 
 
-def build() -> float:
-    """Build (or load) the kernel library; returns the seconds nvcc took
-    (0.0 when an up-to-date build was on disk)."""
-    _lib()
-    return _build.build_seconds["table_lookup"]
-
-
 def table_lookup_cuda(idx: torch.Tensor, sel: torch.Tensor,
                       table: torch.Tensor) -> torch.Tensor:
     """The kernel: idx int32 and sel f32 of one shape, table f32 [N], all

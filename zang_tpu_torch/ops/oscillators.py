@@ -10,7 +10,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .scan import F32, as_f32, ftou32, u32, utof23
+from .scan import F32, as_f32, exclusive_cumsum_u32, freq_to_ifreq, ftou32, u32, utof23
 from .segprog import SegProgram
 
 PI = 3.14159265358979323846  # rounded to f32 where used, as np.float32(PI)
@@ -76,6 +76,62 @@ def sine_wave(cnt: torch.Tensor, phase: Union[torch.Tensor, float]) -> torch.Ten
     """out = sin((t + phase) * pi * 2), t = utof23(cnt) (SineOsc.zig:4-6)."""
     t = utof23(cnt)
     return torch.sin((t + as_f32(phase, t)) * as_f32(PI, t) * 2.0)
+
+
+def _advance(cnt0: torch.Tensor, ifreq: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample phase counters (exclusive) and the end counter, u32 in
+    int64."""
+    cnt = u32(cnt0[..., None] + exclusive_cumsum_u32(ifreq))
+    return cnt, u32(cnt[..., -1] + ifreq[..., -1])
+
+
+def sine_osc(cnt0: torch.Tensor, freq: torch.Tensor,
+             phase: Union[torch.Tensor, float], sample_rate: float,
+             active: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sine oscillator with a per-sample frequency (SineOsc.zig:23-87).
+    cnt0: u32 counters [...] (int64); freq: f32 [..., n]. Inactive samples
+    do not advance the phase and output 0. Returns (cnt_end, out)."""
+    ifreq = freq_to_ifreq(as_f32(freq, cnt0), sample_rate)
+    if active is not None:
+        ifreq = torch.where(active, ifreq, torch.zeros_like(ifreq))
+    cnt, cnt_end = _advance(cnt0, ifreq)
+    out = sine_wave(cnt, phase)
+    if active is not None:
+        out = torch.where(active, out, torch.zeros((), dtype=F32, device=out.device))
+    return cnt_end, out
+
+
+def trisaw_wave(cnt: torch.Tensor, ifreq: torch.Tensor,
+                color: Union[torch.Tensor, float],
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Anti-aliased tri/saw values from phase counters (TriSawOsc.zig:92-117),
+    f32 in the reference's expression order."""
+    brpt = ftou32(torch.clamp(as_f32(color, cnt), 0.0, 1.0))
+    col = utof23(brpt)
+    gain = as_f32(GAIN, col)
+    f = utof23(torch.clamp(ifreq, min=1))
+    omf = 1.0 - f
+    rcpf = 1.0 / f
+    c1 = gain / col
+    c2 = -gain / (1.0 - col)
+    p = utof23(cnt) - col
+    prev = u32(cnt - ifreq) < brpt
+    cur = cnt < brpt
+    wrapped = cnt < ifreq
+    up = c1 * (p + p - f)
+    down = c2 * (p + p - f)
+    updown = rcpf * (c2 * (p * p) - c1 * ((p - f) * (p - f)))
+    downup = -rcpf * (gain + c2 * ((p + omf) * (p + omf)) - c1 * (p * p))
+    ududu = -rcpf * (gain + c1 * omf * (p + p + omf))
+    dudud = -rcpf * (gain + c2 * omf * (p + p + omf))
+    v_nowrap = torch.where(prev, torch.where(cur, up, updown), down)
+    v_wrap = torch.where(prev, ududu, torch.where(cur, downup, dudud))
+    out = gain + torch.where(wrapped, v_wrap, v_nowrap)
+    if valid is not None:
+        out = torch.where(valid, out, torch.zeros((), dtype=F32, device=out.device))
+    return out
 
 
 def pulse_wave(cnt: torch.Tensor, ifreq: torch.Tensor,

@@ -9,6 +9,7 @@ use native uint32_t.
 
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 U32 = 0xFFFFFFFF
@@ -36,6 +37,19 @@ def ftou32(v: torch.Tensor) -> torch.Tensor:
     """float [0, 1) -> 0.32 unsigned fixed point (PulseOsc.zig:23-25), as
     int64. The products stay f32, as in the reference."""
     return ((v * 4294967296.0) * 0.99995).to(torch.int64)
+
+
+def freq_to_ifreq(freq: torch.Tensor, sample_rate: float) -> torch.Tensor:
+    """Frequency (Hz, f32, may be negative) -> u32 phase increment, as int64.
+
+    ifreq = u32(f32(2^32 / sr) * freq); a negative frequency maps to the
+    two's complement of its magnitude (backward phase motion). A magnitude
+    of 2^32 or more saturates at 2^32 - 1, as the JAX package's f32 -> u32
+    conversion does."""
+    srbase = np.float32(np.float32(4294967296.0) / np.float32(sample_rate))
+    scaled = as_f32(freq, freq) * as_f32(srbase, freq)
+    mag = torch.clamp(scaled.abs(), max=4294967296.0).to(torch.int64).clamp(max=U32)
+    return u32(torch.where(scaled >= 0, mag, -mag))
 
 
 def _prepend(s0: torch.Tensor, post: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,15 @@
-"""Wrapper of the table-cut SVF CUDA kernel (csrc/svf_table.cu), the
-counterpart of zang_tpu/ops/pallas_svf.py svf_filter_pallas_table.
+"""Wrappers of the SVF CUDA kernels, the counterparts of
+zang_tpu/ops/pallas_svf.py:
 
-It checks device, dtype, shape and contiguity, allocates the outputs with
+  svf_table_cuda  the table-cut kernel (csrc/svf_table.cu, K1), for
+                  svf_filter_pallas_table
+  svf_dense_cuda  the dense-cut kernel (csrc/svf_dense.cu, K2), for
+                  svf_filter_pallas
+
+Each checks device, dtype, shape and contiguity, allocates the outputs with
 torch.empty, launches on torch.cuda.current_stream() and raises if the
-launch is refused. svf_table_launches counts the launches.
+launch is refused. svf_table_launches and svf_dense_launches count the
+launches.
 """
 
 import ctypes
@@ -14,24 +20,31 @@ import torch
 from . import _build
 
 svf_table_launches = 0
+svf_dense_launches = 0
 
 _C = ctypes.c_void_p
+_I64 = ctypes.c_longlong
 
 
-def _lib():
-    lib = _build.library("svf_table")
-    fn = lib.zt_svf_table
+# source stem -> its C function and argument types
+_ARGTYPES = {
+    "svf_table": [_C] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [_C],
+    "svf_dense": [_C] * 8 + [ctypes.c_int] * 2 + [_I64] * 4 + [ctypes.c_float] * 5 + [_C],
+}
+
+
+def _fn(stem):
+    """The C entry zt_<stem> of csrc/<stem>.cu, built at first use."""
+    fn = getattr(_build.library(stem), f"zt_{stem}")
     if fn.argtypes is None:
-        fn.argtypes = [_C] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [_C]
+        fn.argtypes = _ARGTYPES[stem]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def build() -> float:
-    """Build (or load) the kernel library; returns the seconds nvcc took
-    (0.0 when an up-to-date build was on disk)."""
-    _lib()
-    return _build.build_seconds["svf_table"]
+def _r(res) -> np.float32:
+    """r = 1 - clip(res, 0, 1) in f32, as the plain version computes it."""
+    return np.float32(1.0) - np.clip(np.float32(res), np.float32(0.0), np.float32(1.0))
 
 
 def _check(name, t, dtype, shape, device):
@@ -77,14 +90,14 @@ def svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
     if filter_type not in FILTER_MULS:
         raise ValueError(f"filter type {filter_type!r} has no table kernel")
     l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
-    r = np.float32(1.0) - np.clip(np.float32(res), np.float32(0.0), np.float32(1.0))
+    r = _r(res)
 
     out = torch.empty((V, n), dtype=torch.float32, device=dev)
     l_end = torch.empty((V,), dtype=torch.float32, device=dev)
     b_end = torch.empty((V,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().zt_svf_table(
+        err = _fn("svf_table")(
             x.data_ptr(), tb.data_ptr(), cv.data_ptr(), active_from.data_ptr(),
             l0.data_ptr(), b0.data_ptr(), out.data_ptr(), l_end.data_ptr(),
             b_end.data_ptr(), V, n, nt, S, int(t0), float(r), l_mul, b_mul,
@@ -92,4 +105,63 @@ def svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
     if err != 0:
         raise RuntimeError(f"svf_table kernel launch failed: cudaError_t {err}")
     svf_table_launches += 1
+    return l_end, b_end, out
+
+
+def svf_dense_cuda(l0, b0, x, filter_type, cutoff, res, active=None):
+    """Drop-in for ops.filters.svf_filter on a CUDA x [V, n] with a scalar res.
+
+    cutoff: a number, or an f32 tensor broadcastable to [V, n] (a scalar,
+    [V, 1] or [V, n] tensor is read through its broadcast strides, never
+    materialised); it is clipped to [0, 1] in the kernel. active: a bool
+    tensor broadcastable to [V, n], or None (always active). l0/b0: [V] f32.
+    Returns (l_end [V], b_end [V], out [V, n])."""
+    global svf_dense_launches
+    from .filters import FILTER_MULS
+
+    if x.device.type != "cuda":
+        raise ValueError(f"svf_dense_cuda needs CUDA tensors, got x on {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be [V, n], got {tuple(x.shape)}")
+    V, n = x.shape
+    dev = x.device
+    for name, t, dtype, shape in (("x", x, torch.float32, (V, n)),
+                                  ("l0", l0, torch.float32, (V,)),
+                                  ("b0", b0, torch.float32, (V,))):
+        _check(name, t, dtype, shape, dev)
+    if filter_type not in FILTER_MULS:
+        raise ValueError(f"filter type {filter_type!r} has no dense kernel")
+    l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
+    r = _r(float(res))
+
+    cut, c_sv, c_st, c0 = None, 0, 0, 0.0
+    if isinstance(cutoff, torch.Tensor):
+        if cutoff.device != dev or cutoff.dtype != torch.float32:
+            raise ValueError(f"cutoff must be f32 on {dev}, got {cutoff.dtype} on "
+                             f"{cutoff.device}")
+        cut = cutoff.broadcast_to((V, n))
+        c_sv, c_st = cut.stride()
+    else:
+        c0 = float(np.clip(np.float32(cutoff), np.float32(0.0), np.float32(1.0)))
+    act, a_sv, a_st = None, 0, 0
+    if active is not None:
+        if active.device != dev or active.dtype != torch.bool:
+            raise ValueError(f"active must be bool on {dev}, got {active.dtype} on "
+                             f"{active.device}")
+        act = active.broadcast_to((V, n))
+        a_sv, a_st = act.stride()
+
+    out = torch.empty((V, n), dtype=torch.float32, device=dev)
+    l_end = torch.empty((V,), dtype=torch.float32, device=dev)
+    b_end = torch.empty((V,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn("svf_dense")(
+            x.data_ptr(), None if cut is None else cut.data_ptr(),
+            None if act is None else act.data_ptr(), l0.data_ptr(), b0.data_ptr(),
+            out.data_ptr(), l_end.data_ptr(), b_end.data_ptr(), V, n, c_sv, c_st,
+            a_sv, a_st, c0, float(r), l_mul, b_mul, h_mul, stream)
+    if err != 0:
+        raise RuntimeError(f"svf_dense kernel launch failed: cudaError_t {err}")
+    svf_dense_launches += 1
     return l_end, b_end, out
