@@ -7,7 +7,7 @@ From the repo root, on a machine with CUDA, nvcc, g++ and torch. Phases,
 each of which raises on failure:
 
   1. the card: nvidia-smi name and power limit, torch's device name
-  2. build, all at once: the four CUDA kernels from zang_tpu_torch/csrc/
+  2. build, all at once: the five CUDA kernels from zang_tpu_torch/csrc/
      (nvcc, one process per source) and the C++ host compiler (g++), into
      zang_tpu_torch/build/
   3. K1, the table-cut SVF kernel, against its plain torch version
@@ -22,10 +22,12 @@ each of which raises on failure:
      out-of-range indices; timed as K1, beside the plain version and
      torch.take(table, idx) * sel
   5. K2, the dense-cut SVF kernel, against svf_filter_ref on the card:
-     the play example's shape (V=1, n=16384, scalar cutoff, mask), a
-     ragged n with a [V, 1] cutoff, a state chain across two calls and
-     V=1024, n=65536 with a dense cutoff and mask; rms < -120 dBFS, end
-     states within 1e-5; timed as K1
+     the play example's shape (V=1, n=16384, scalar cutoff, mask), the
+     stereo example's (V=2, [2, 1] cutoff, no mask, resonance 0.4), the
+     detuned example's two calls (V=2, scalar cutoff: 4 Hz, resonance 0, no
+     mask; 7040 Hz with a mask), a ragged n with a [V, 1] cutoff, a state
+     chain across two calls and V=1024, n=65536 with a dense cutoff and
+     mask; rms < -120 dBFS, end states within 1e-5; timed as K1
   6. K5, the FM feedback kernel, against fm_feedback_ref on the card at
      feedback pi/4, waveforms 0-3: the fmsynth example's shape (V=8,
      n=16384) and V=1024 (beyond the TPU kernel's 128 lanes; the plain
@@ -33,6 +35,15 @@ each of which raises on failure:
      rms < -100 dBFS, end states within 1e-4; waveform 3 is compared up
      to a voice's first sign flip of sin(2p), and the flips are counted.
      Its serial-chain floor is estimated by tools/fm_chain_floor.py
+  6b. K3, the one-pass table-cut SVF kernel for large voice counts, against
+     svf_onepass_table_ref (the sequential loop) on the card, bit for bit:
+     through the router at V=4096, n=2048 with active_from inside the
+     chunk, a ragged V=5000 x 1000 with time tiles of 125 frames and four
+     slots written over its input, a state chain across two calls, and the
+     main path's V=16384 x 65536 written over its input;
+     against K1 and K1's plain version at V=4096 (rms < -120 dBFS, end
+     states within 1e-5); timed beside K1 called by name at 1024, 4096 and
+     16384 voices x 65536 frames
   7. the main paths, each with every kernel's launch count set to 0 just
      before it and read just after:
        song       the full 385 s Bach Toccata, render_song_s16(device="cuda"):
@@ -41,18 +52,30 @@ each of which raises on failure:
                   14 K4 launches
        poly_echo  1024 voices x 30 s stereo, render_config_s16("poly_echo",
                   device="cuda"): 21 K1 launches
+       poly_echo at 4096 and at 16384 voices x 8 s (the JAX package's
+                  capacity sizes), render_config_s16("poly_echo", 8.0,
+                  voices=N, device="cuda"): 6 K3 launches and no K1 each,
+                  peak device memory under 64 GiB
      then each again in its two timed steps (plan, device render)
   8. fidelity without JAX: each render against the JAX package's golden
      windows (zang_tpu_torch/data/*_golden_jax.npz, < -90 dBFS RMS, every
-     channel) and against the card's own plain-path render
-  9. the ten examples (zang_tpu_torch/host/examples.py EXAMPLES), each
+     channel) and against the card's own plain-path render (4096 voices:
+     the first chunk; 16384 voices: K3 is held to its loop at that shape in
+     6b instead)
+  9. the twelve examples (zang_tpu_torch/host/examples.py EXAMPLES), each
      through its ex_* entry on the card at its default seconds, with the
      launch counts checked (ceil(frames / chunk) a chunk-launched kernel:
      play 18 K2, fmsynth 12 K5, polyphony 15 K1, polyphony2 18 K1,
-     sampler 34 K4, song 15 K1, every other count 0), against the JAX
+     sampler 34 K4, song 15 K1, stereo 18 K2, detuned 30 K2 (two a chunk),
+     every other count 0), against the JAX
      golden windows and against the card's plain-path render (every
      router patched to its plain version by name; fmsynth at 2 s there,
-     since the plain FM loop is a Python loop over samples)
+     since the plain FM loop is a Python loop over samples). detuned is
+     held in two parts, as the JAX package holds its own oracle twin (its
+     warble multiplier feeds a phase counter): the multiplier against the
+     JAX trajectory a chunk at a time from the JAX filter state (relative
+     deviation < 1e-5), and the cascade on that trajectory against the
+     golden windows; the free-running render's distance is printed
   10. no module of jax or of zang_tpu was imported
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
@@ -133,12 +156,12 @@ def device_ms(fn, kernel_name, reps):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()  # a launch at a time: fewer records dropped
     rows = [e for e in prof.key_averages() if kernel_name in e.key]
     n = sum(e.count for e in rows)
-    # the profiler may drop a record of a long back-to-back run: the mean is
-    # over the launches it saw, which must be most of them
-    if not 0.9 * reps <= n <= reps:
+    # the profiler may drop records of a long run (it was seen to keep 168 of
+    # 200): the mean is over the launches it saw, at least half of them
+    if not 0.5 * reps <= n <= reps:
         raise AssertionError(f"the profiler saw {n} launches of {kernel_name}, "
                              f"expected {reps}")
     us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
@@ -183,14 +206,20 @@ def timing(card, label, kernel, plain, kernel_name, n_bytes, n_ops, reps_k, reps
 # the SVF kernels: K1 (table cutoff) and K2 (dense cutoff)
 
 
-def check_svf(label, kernel, plain, args):
+def check_svf(label, kernel, plain, args, exact=False):
     """An SVF kernel (through its router) vs its plain version on one case:
-    rms < TOL_DB, end states within TOL_STATE. Returns max |out diff|."""
+    rms < TOL_DB, end states within TOL_STATE; with exact, bit for bit.
+    Returns max |out diff|."""
     import torch
 
     lk, bk, ok = kernel(*args)
     lr, br, orf = plain(*args)
     torch.cuda.synchronize()
+    if exact:
+        same = torch.equal(ok, orf) and torch.equal(lk, lr) and torch.equal(bk, br)
+        label = f"{label}: {'bit-exact' if same else 'NOT bit-exact'}"
+        if not same:
+            raise AssertionError(f"{label}: the kernel is not its plain loop bit for bit")
     db = rms_db(ok.cpu(), orf.cpu())
     dstate = max(float((lk - lr).abs().max()), float((bk - br).abs().max()))
     err = float((ok - orf).abs().max())
@@ -201,9 +230,10 @@ def check_svf(label, kernel, plain, args):
     return err
 
 
-def check_svf_chain(label, kernel, plain, args, half_args):
+def check_svf_chain(label, kernel, plain, args, half_args, exact=False):
     """Two chained kernel calls against one plain call over both halves;
-    half_args(k, l, b) gives half k's arguments from the carried state."""
+    half_args(k, l, b) gives half k's arguments from the carried state.
+    With exact, the two agree bit for bit."""
     import torch
 
     lr, br, full = plain(*args)
@@ -217,10 +247,13 @@ def check_svf_chain(label, kernel, plain, args, half_args):
     print(f"  {label}: rms {db:.1f} dBFS, end state |diff| {dstate:.3e}")
     if not (db < TOL_DB and dstate < TOL_STATE):
         raise AssertionError(f"{label}: chained kernel calls disagree with one plain call")
+    if exact and not (torch.equal(torch.cat(halves, dim=1), full) and dstate == 0.0):
+        raise AssertionError(f"{label}: chained kernel calls are not the plain loop's bits")
 
 
 def svf_case(rng, V, n, nt, S, t0, device):
-    """Random K1 inputs in the tiled table format, with active_from."""
+    """Random K1 inputs in the tiled table format, with active_from. From
+    2^27 samples on, x is drawn on the device (seeded from rng)."""
     import numpy as np
     import torch
 
@@ -231,11 +264,15 @@ def svf_case(rng, V, n, nt, S, t0, device):
                     + t0 + np.arange(nt)[None, :, None] * T)
     cutv = rng.uniform(0.05, 0.9, (V, nt, S)).astype(np.float32)
     af = rng.integers(t0, t0 + n // 2, V)
-    x = (rng.standard_normal((V, n)) * 0.3).astype(np.float32)
+    to = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    if V * n < 2 ** 27:
+        x = to((rng.standard_normal((V, n)) * 0.3).astype(np.float32), torch.float32)
+    else:
+        gen = torch.Generator(device=device).manual_seed(int(rng.integers(2 ** 31)))
+        x = torch.randn((V, n), generator=gen, device=device).mul_(0.3)
     l0 = (rng.standard_normal(V) * 0.1).astype(np.float32)
     b0 = (rng.standard_normal(V) * 0.1).astype(np.float32)
-    to = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
-    return (to(l0, torch.float32), to(b0, torch.float32), to(x, torch.float32),
+    return (to(l0, torch.float32), to(b0, torch.float32), x,
             "low_pass", to(tb, torch.int32), to(cutv, torch.float32), 0.7, t0,
             to(af, torch.int32))
 
@@ -254,20 +291,20 @@ def svf_table_bytes_ops(args):
     return 4 * (2 * V * n + 2 * V * nt * S + V + 4 * V), SVF_OPS_PER_SAMPLE * V * n
 
 
-def dense_case(rng, V, n, cut_form, masked, device):
-    """Random K2 inputs: cut_form is "scalar", "column" ([V, 1]) or "dense"
-    ([V, n])."""
+def dense_case(rng, V, n, cut_form, masked, device, res=0.7, scalar_cut=0.2):
+    """Random K2 inputs: cut_form is "scalar" (the value scalar_cut), "column"
+    ([V, 1]) or "dense" ([V, n])."""
     import numpy as np
     import torch
 
     to = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
-    cut = {"scalar": lambda: float(np.float32(0.2)),
+    cut = {"scalar": lambda: float(np.float32(scalar_cut)),
            "column": lambda: to(rng.uniform(0.05, 0.6, (V, 1)), torch.float32),
            "dense": lambda: to(rng.uniform(0.05, 0.6, (V, n)), torch.float32)}[cut_form]()
     act = to(rng.uniform(size=(V, n)) > 0.1, torch.bool) if masked else None
     return (to(rng.standard_normal(V) * 0.1, torch.float32),
             to(rng.standard_normal(V) * 0.1, torch.float32),
-            to(rng.standard_normal((V, n)) * 0.3, torch.float32), "low_pass", cut, 0.7,
+            to(rng.standard_normal((V, n)) * 0.3, torch.float32), "low_pass", cut, res,
             act)
 
 
@@ -277,7 +314,8 @@ def dense_label(label, args):
     V, n = args[2].shape
     cut, act = args[4], args[6]
     form = f"{tuple(cut.shape)}" if isinstance(cut, torch.Tensor) else "scalar"
-    return f"{label}: V={V} n={n} cut {form}, {'mask' if act is not None else 'no mask'}"
+    return (f"{label}: V={V} n={n} cut {form}, res {args[5]}, "
+            f"{'mask' if act is not None else 'no mask'}")
 
 
 def dense_bytes_ops(args):
@@ -292,6 +330,91 @@ def dense_bytes_ops(args):
         (V * n if act is not None else 0) + 4 * 4 * V
     active = V * n if act is None else int(act.sum())
     return n_bytes, SVF_OPS_PER_SAMPLE * active
+
+
+def run_onepass(card, dev, rng, filters, svf_cuda):
+    """K3, the one-pass table-cut SVF kernel: against its plain loop
+    (svf_onepass_table_ref; bit for bit), against K1 and K1's plain version
+    (TOL_DB, TOL_STATE), and timed beside K1 called by name at 1024, 4096
+    and 16384 voices x 65536 frames. Returns (errs, times, k1_times) by
+    shape; the V=16384 entry carries the plain loop's one timed run."""
+    import torch
+
+    k3, k1 = svf_cuda.svf_onepass_cuda, svf_cuda.svf_table_cuda
+    ref = filters.svf_onepass_table_ref
+    print("K3 svf_onepass vs svf_onepass_table_ref (bit for bit), and vs K1 and "
+          f"svf_filter_table_ref (rms < {TOL_DB} dBFS, end state |diff| < {TOL_STATE}):")
+    errs = {}
+    # through the router: V >= ONEPASS_V_MIN, active_from inside the chunk
+    before = svf_cuda.svf_onepass_launches
+    a = svf_case(rng, 4096, 2048, 128, 3, 512, dev)
+    errs["v4096 n2048"] = check_svf(svf_label("router", a), filters.svf_filter_table, ref,
+                                    a, exact=True)
+    if svf_cuda.svf_onepass_launches != before + 1:
+        raise AssertionError("svf_filter_table did not launch K3 at V=4096")
+    # a ragged V and time tiles of 125 frames (batches that end inside a
+    # tile: the kernel's sample-at-a-time steps), four slots, written over x
+    a = svf_case(rng, 5000, 1000, 8, 4, 4096, dev)
+    x_in = a[2].clone()
+
+    def in_place(*args):
+        l, b, out = k3(*args, out=args[2])
+        if out.data_ptr() != args[2].data_ptr():
+            raise AssertionError("out=x did not write in place")
+        return l, b, out
+
+    errs["ragged in place"] = check_svf(
+        svf_label("ragged, out=x", a), in_place,
+        lambda *args: ref(args[0], args[1], x_in, *args[3:]), a, exact=True)
+    V, n, nt, t0 = 4096, 1024, 8, 2048
+    chain = svf_case(rng, V, 2 * n, 2 * nt, 3, t0, dev)
+    check_svf_chain(f"chained 2 x {n} at V={V}", filters.svf_filter_table, ref, chain,
+                    lambda k, l, b: (l, b, chain[2][:, k * n:(k + 1) * n].contiguous(),
+                                     "low_pass",
+                                     chain[4][:, k * nt:(k + 1) * nt].contiguous(),
+                                     chain[5][:, k * nt:(k + 1) * nt].contiguous(), 0.7,
+                                     t0 + k * n, chain[8]), exact=True)
+    # against the two-phase kernel and its plain version (block seams there)
+    a = svf_case(rng, 4096, 16384, 32, 3, 3 * 16384, dev)
+    errs["vs K1"] = check_svf(svf_label("vs K1 (svf_table_cuda)", a), k3, k1, a)
+    errs["vs table ref"] = check_svf(svf_label("vs svf_filter_table_ref", a), k3,
+                                     filters.svf_filter_table_ref, a)
+    del a, chain
+
+    times, k1_times = {}, {}
+    for V in (1024, 4096, 16384):
+        a = svf_case(rng, V, CHUNK, 128, 2, 3 * CHUNK, dev)
+        key = f"v{V}"
+        n_bytes, n_ops = svf_table_bytes_ops(a)
+        reps = 20 if V < 16384 else 10
+        times[key] = timing(card, f"K3 V={V}", lambda a=a: k3(*a), None,
+                            "svf_onepass_kernel", n_bytes, n_ops, reps, 1)
+        k1_times[key] = timing(card, f"K1 by name, V={V}", lambda a=a: k1(*a), None,
+                               "svf_table_kernel", n_bytes, n_ops, reps, 1)
+        if V == 16384:
+            # the main path's shape and call (written over its input with the
+            # 16-byte copies): the plain loop once, timed on the host clock,
+            # and K3 held to it bit for bit
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            want = ref(*a)
+            torch.cuda.synchronize()
+            times[key]["plain_ms"] = (time.perf_counter() - t) * 1e3
+            x = a[2].clone()
+            got = k3(a[0], a[1], x, *a[3:], out=x)
+            torch.cuda.synchronize()
+            if got[2].data_ptr() != x.data_ptr():
+                raise AssertionError("out=x did not write in place")
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            errs[key] = float((got[2] - want[2]).abs().max())
+            print(f"  {svf_label('poly_echo 16384 shape', a)}: "
+                  f"{'bit-exact' if same else 'NOT bit-exact'}, max |diff| "
+                  f"{errs[key]:.3e}; the plain loop took {times[key]['plain_ms']:.0f} ms")
+            if not same:
+                raise AssertionError("K3 is not its plain loop bit for bit at V=16384")
+            del want, got, x
+        del a
+    return errs, times, k1_times
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +528,7 @@ def fm_bytes_ops(V, n):
 def counts(svf_cuda, lookup, fm):
     return {"svf_table": svf_cuda.svf_table_launches,
             "svf_dense": svf_cuda.svf_dense_launches,
+            "svf_onepass": svf_cuda.svf_onepass_launches,
             "table_lookup": lookup.table_lookup_launches,
             "fm_feedback": fm.fm_feedback_launches}
 
@@ -412,13 +536,14 @@ def counts(svf_cuda, lookup, fm):
 def reset_counts(svf_cuda, lookup, fm):
     svf_cuda.svf_table_launches = 0
     svf_cuda.svf_dense_launches = 0
+    svf_cuda.svf_onepass_launches = 0
     lookup.table_lookup_launches = 0
     fm.fm_feedback_launches = 0
 
 
 def expect_counts(**n):
-    return {k: n.get(k, 0) for k in ("svf_table", "svf_dense", "table_lookup",
-                                     "fm_feedback")}
+    return {k: n.get(k, 0) for k in ("svf_table", "svf_dense", "svf_onepass",
+                                     "table_lookup", "fm_feedback")}
 
 
 def check_golden(gold_windows, offsets, chunk_rms_gold, audio, label, chunk=CHUNK):
@@ -468,7 +593,9 @@ def check_plain(audio, plain_audio, label):
 # render chunk; the other examples launch none
 EXAMPLE_KERNEL = {"play": ("svf_dense", 1), "fmsynth": ("fm_feedback", 1),
                   "polyphony": ("svf_table", 1), "polyphony2": ("svf_table", 1),
-                  "sampler": ("table_lookup", 2), "song": ("svf_table", 1)}
+                  "sampler": ("table_lookup", 2), "song": ("svf_table", 1),
+                  "stereo": ("svf_dense", 1), "detuned": ("svf_dense", 2)}
+TOL_WARBLE = 1e-5  # detuned's warble multiplier vs the JAX trajectory, relative
 FM_PLAIN_SECONDS = 2.0  # fmsynth's plain-path render (a Python loop over samples)
 
 
@@ -483,6 +610,57 @@ def plain_routers(filters, fm, lookup):
                            (lookup, "table_lookup", lookup.table_lookup_ref)):
         stack.enter_context(mock.patch.object(mod, attr, ref))
     return stack
+
+
+def check_detuned(examples, filters, fm, lookup, svf_cuda, gold, p, free_np, launches):
+    """The detuned example in two parts. (a) The warble multiplier of each
+    chunk from the JAX package's filter state before it, against the JAX
+    trajectory: relative deviation < TOL_WARBLE. (b) The cascade that
+    consumes it (ex_detuned on the JAX trajectory): launch count, the golden
+    windows, the card's plain path. free_np, the render on the port's own
+    warble, is only measured against the golden."""
+    import numpy as np
+    import torch
+
+    from zang_tpu_torch.graph.fidelity import deviation_dbfs
+    from zang_tpu_torch.graph.render import RenderCtx
+
+    warble, states = gold["detuned_warble"], gold["detuned_warble_state"]
+    sr, chunk, total = p["sample_rate"], p["chunk_size"], warble.shape[1]
+    base = torch.arange(chunk, dtype=torch.int32, device="cuda")
+    worst = 0.0
+    for i, (nl, nb) in enumerate(states):
+        c0 = i * chunk
+        ctx = RenderCtx(sr, base + c0, c0, chunk)
+        _, _, mul = examples.DetunedInstrument.warble(
+            torch.as_tensor(nl, device="cuda"), torch.as_tensor(nb, device="cuda"), ctx)
+        want = warble[:, c0:c0 + chunk]
+        got = mul.cpu().numpy()[:, :want.shape[1]]
+        worst = max(worst, float(np.abs(got / want - 1.0).max()))
+    print(f"  detuned (a) warble multiplier vs the JAX trajectory, {len(states)} chunks "
+          f"from the JAX filter state: largest relative deviation {worst:.3e} "
+          f"(bound {TOL_WARBLE})")
+    if not worst < TOL_WARBLE:
+        raise AssertionError("detuned: the warble multiplier is off the JAX trajectory")
+    reset_counts(svf_cuda, lookup, fm)
+    cascade = examples.ex_detuned(device="cuda", warble_mul=warble)[0].cpu().numpy()
+    got = counts(svf_cuda, lookup, fm)
+    launches["ex_detuned_cascade"] = got
+    if got != expect_counts(svf_dense=-(-total // chunk)):
+        raise AssertionError(f"detuned on the JAX trajectory: launches {got}")
+    check_golden(gold["detuned_windows"], gold["detuned_offsets"],
+                 gold["detuned_chunk_rms"], cascade, "detuned (b) cascade", chunk=chunk)
+    reset_counts(svf_cuda, lookup, fm)
+    with plain_routers(filters, fm, lookup):
+        plain = examples.ex_detuned(device="cuda", warble_mul=warble)[0].cpu().numpy()
+    if any(counts(svf_cuda, lookup, fm).values()):
+        raise AssertionError("detuned: the plain path launched a kernel")
+    check_plain(cascade, plain, "detuned (b) cascade")
+    w = gold["detuned_windows"].shape[-1]
+    ours = np.stack([free_np[:, o:o + w] for o in gold["detuned_offsets"]])
+    dbs = [deviation_dbfs(ours[:, ch], gold["detuned_windows"][:, ch])[0] for ch in range(2)]
+    print("  detuned free-running (the port's own warble) vs JAX golden, not bounded: "
+          + ", ".join(f"{db:.1f}" for db in dbs) + " dBFS")
 
 
 def run_examples(examples, filters, fm, lookup, svf_cuda, card, launches):
@@ -541,6 +719,10 @@ def run_examples(examples, filters, fm, lookup, svf_cuda, card, launches):
         if not bool(torch.isfinite(audio).all()) or float(audio.abs().max()) < 1e-3:
             raise AssertionError(f"{name}: non-finite or silent render")
         audio_np = audio.cpu().numpy()
+        if name == "detuned":
+            check_detuned(examples, filters, fm, lookup, svf_cuda, gold, p, audio_np,
+                          launches)
+            continue
         check_golden(gold[f"{name}_windows"], gold[f"{name}_offsets"],
                      gold[f"{name}_chunk_rms"], audio_np, name, chunk=chunk)
         plain_s = FM_PLAIN_SECONDS if name == "fmsynth" else seconds
@@ -582,9 +764,10 @@ def main() -> int:
 
     # 2. build: one compiler process per source, all started together
     t = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         jobs = {f"{stem}.cu": pool.submit(_build.build, stem)
-                for stem in ("svf_table", "svf_dense", "table_lookup", "fm_feedback")}
+                for stem in ("svf_table", "svf_dense", "svf_onepass", "table_lookup",
+                             "fm_feedback")}
         jobs["zang_host.cpp"] = pool.submit(native.build)
         secs = {name: job.result() for name, job in jobs.items()}
     print(f"build: {', '.join(f'{k} {v:.2f}s' for k, v in secs.items())} "
@@ -668,6 +851,19 @@ def main() -> int:
                                                               dev)),
                     k2("dense cutoff, no mask", dense_case(rng, 2, 4096, "dense", False,
                                                            dev))),
+        # the stereo example: a [2, 1] cutoff, no mask, resonance 0.4
+        "stereo": k2("stereo shape", dense_case(rng, 2, ex_chunk, "column", False, dev,
+                                                res=0.4)),
+        # the detuned example's two calls a chunk: the 4 Hz warble lowpass
+        # (resonance 0, no mask), then the 7040 Hz lowpass under the note mask
+        "detuned": max(k2("detuned warble shape",
+                          dense_case(rng, 2, ex_chunk, "scalar", False, dev, res=0.0,
+                                     scalar_cut=filters.cutoff_from_frequency(
+                                         4.0, 48000.0))),
+                       k2("detuned voice shape",
+                          dense_case(rng, 2, ex_chunk, "scalar", True, dev,
+                                     scalar_cut=filters.cutoff_from_frequency(
+                                         7040.0, 48000.0)))),
         "v1024": k2("V=1024 shape", wide_case)}
     chain = dense_case(rng, 4, 2 * n, "dense", True, dev)
     check_svf_chain(f"chained 2 x {n}", filters.svf_filter, filters.svf_filter_ref, chain,
@@ -696,6 +892,10 @@ def main() -> int:
         print(f"  {fm_t[k]['device_ms'] * 1e6 / n:.2f} ns of device a step of the "
               f"{n}-step serial chain")
     del fm_cases
+
+    # 6b. K3 vs its plain loop, K1 and K1's plain version on the card
+    onepass_err, onepass_t, k1_by_name = run_onepass(card, dev, rng, filters, svf_cuda)
+    svf_t.update({k: v for k, v in k1_by_name.items() if k != "v1024"})
 
     launches = {}
 
@@ -740,48 +940,57 @@ def main() -> int:
     check_plain(mix_np, plain, "song")
     del perf, mix, plain
 
-    # 7-8. the sampler and poly_echo configs
+    # 7-8. the sampler and poly_echo configs: (golden entry, config, seconds,
+    # voices, the kernel each chunk launches and how often, frames of the
+    # plain-path comparison or None)
     cgold = np.load(os.path.join(ROOT, "zang_tpu_torch", "data", "configs_golden_jax.npz"))
     params = json.loads(str(cgold["params"]))
     if params["chunk_size"] != CHUNK:
         raise AssertionError("the configs' golden file is for another chunk size")
-    expect = {"sampler": expect_counts(table_lookup=2 * -(-int(10.0 * 44100) // CHUNK)),
-              "poly_echo": expect_counts(svf_table=-(-int(30.0 * 44100) // CHUNK))}
-    make_perf = {
-        "sampler": lambda: configs.build_sampler_performance(),
-        "poly_echo": lambda: configs.build_poly_echo_performance(),
-    }
     plain_paths = {"sampler": (lookup, "table_lookup", lookup.table_lookup_ref),
                    "poly_echo": (filters, "svf_filter_table", filters.svf_filter_table_ref)}
-    for name in ("sampler", "poly_echo"):
+    runs = [("sampler", "sampler", 10.0, None, "table_lookup", 2, "all"),
+            ("poly_echo", "poly_echo", 30.0, 1024, "svf_table", 1, "all"),
+            # the JAX package's capacity sizes (bench.py bench_poly); the
+            # plain path's affine scan at 4096 voices fits one chunk
+            ("poly_echo_4096", "poly_echo", 8.0, 4096, "svf_onepass", 1, CHUNK),
+            ("poly_echo_16384", "poly_echo", 8.0, 16384, "svf_onepass", 1, None)]
+    for name, config, seconds, voices, kname, per_chunk, plain_frames in runs:
         p = params[name]
-        want = {"sampler": dict(seconds=10.0, sample_rate=44100.0, speed=1.0, distort=True,
-                                fake_sample_rate=6000.0),
-                "poly_echo": dict(num_voices=1024, seconds=30.0, sample_rate=44100.0,
-                                  main_delay=15000, seed=0)}[name]
+        want = dict(seconds=seconds, sample_rate=44100.0)
+        if config == "sampler":
+            want.update(speed=1.0, distort=True, fake_sample_rate=6000.0)
+            if seconds != configs.DEFAULT_SECONDS[config]:
+                raise AssertionError("the sampler's default seconds changed")
+            kw, build = {}, lambda: configs.build_sampler_performance()
+        else:
+            want.update(num_voices=voices, main_delay=15000, seed=0)
+            kw = dict(voices=voices)
+            build = lambda: configs.build_poly_echo_performance(num_voices=voices,
+                                                                seconds=seconds)
         if any(p[k] != v for k, v in want.items()):
             raise AssertionError(f"the {name} golden was made for {p}, not {want}")
-        seconds = configs.DEFAULT_SECONDS[name]
         total = int(seconds * configs.SAMPLE_RATE)
-        channels = {"sampler": 1, "poly_echo": 2}[name]
+        channels = 1 if config == "sampler" else 2
+        expect = expect_counts(**{kname: per_chunk * -(-total // CHUNK)})
         reset_counts(svf_cuda, lookup, fm)
         t = time.perf_counter()
-        pcm = configs.render_config_s16(name, device="cuda")
+        pcm = configs.render_config_s16(config, seconds, device="cuda", **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches[name] = counts(svf_cuda, lookup, fm)
-        print(f"{name}: render_config_s16({name!r}, device='cuda'): {pcm.shape} in "
+        print(f"{name}: render_config_s16({config!r}, {seconds}, device='cuda'"
+              f"{''.join(f', {k}={v}' for k, v in kw.items())}): {pcm.shape} in "
               f"{wall:.3f}s end to end (RTF {seconds / wall:.1f}), "
               f"launches {launches[name]} [{card}]")
         if pcm.shape != (channels, total) or pcm.dtype != np.int16:
             raise AssertionError(f"{name}: pcm {pcm.shape} {pcm.dtype}")
-        if launches[name] != expect[name]:
-            raise AssertionError(f"{name}: launches {launches[name]}, expected "
-                                 f"{expect[name]}")
+        if launches[name] != expect:
+            raise AssertionError(f"{name}: launches {launches[name]}, expected {expect}")
         if np.count_nonzero(pcm) < pcm.size // 2:
             raise AssertionError(f"the {name} render is mostly silent")
         t = time.perf_counter()
-        perf, _ = make_perf[name]()
+        perf, _ = build()
         plan_s = time.perf_counter() - t
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -789,21 +998,31 @@ def main() -> int:
         audio = render_performance(perf, total, CHUNK, device="cuda")
         torch.cuda.synchronize()
         render_s = time.perf_counter() - t
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"{name}: plan {plan_s:.3f}s, device render {render_s:.3f}s, "
               f"RTF {seconds / render_s:.1f} (render only), peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+              f"{peak_gib:.2f} GiB [{card}]")
+        if not peak_gib < 64.0:
+            raise AssertionError(f"{name}: peak device memory {peak_gib:.2f} GiB")
         if not bool(torch.isfinite(audio).all()):
             raise AssertionError(f"non-finite samples in the {name} render")
         if not np.array_equal(mixdown_s16(audio, configs.MIX_VOLUME).cpu().numpy(), pcm):
             raise AssertionError(f"two renders of {name} differ")
         audio_np = audio.cpu().numpy()
+        del audio
         check_golden(cgold[f"{name}_windows"], cgold[f"{name}_offsets"],
                      cgold[f"{name}_chunk_rms"], audio_np, name)
-        mod, attr, ref = plain_paths[name]
-        with mock.patch.object(mod, attr, ref):
-            plain = render_performance(perf, total, CHUNK, device="cuda").cpu().numpy()
-        check_plain(audio_np, plain, name)
-        del perf, audio, plain
+        if plain_frames is not None:
+            frames = total if plain_frames == "all" else plain_frames
+            mod, attr, ref = plain_paths[config]
+            reset_counts(svf_cuda, lookup, fm)
+            with mock.patch.object(mod, attr, ref):
+                plain = render_performance(perf, frames, CHUNK, device="cuda").cpu().numpy()
+            if any(counts(svf_cuda, lookup, fm).values()):
+                raise AssertionError(f"{name}: the plain path launched a kernel")
+            check_plain(audio_np[:, :frames], plain, f"{name} ({frames} frames)")
+            del plain
+        del perf
 
     # 9. the examples
     run_examples(examples, filters, fm, lookup, svf_cuda, card, launches)
@@ -829,6 +1048,8 @@ def main() -> int:
                    svf_t, "song"),
         kernel_row("svf_dense", "svf_dense.cu", "zang_tpu/ops/pallas_svf.py:187",
                    dense_err, dense_t, "play"),
+        kernel_row("svf_onepass", "svf_onepass.cu", "zang_tpu/ops/pallas_svf.py:650",
+                   onepass_err, onepass_t, "v16384"),
         kernel_row("table_lookup", "table_lookup.cu", "zang_tpu/ops/pallas_lookup.py:64",
                    {"sampler": lk_err}, {"sampler": lk_t}, "sampler"),
         kernel_row("fm_feedback", "fm_feedback.cu", "zang_tpu/ops/pallas_fm.py:64",

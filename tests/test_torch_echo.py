@@ -23,6 +23,7 @@ from zang_tpu_torch.core.wav import read_wav
 from zang_tpu_torch.graph import render as trender
 from zang_tpu_torch.graph.fidelity import deviation_dbfs
 from zang_tpu_torch.host import configs as tconfigs
+from zang_tpu_torch.host import instruments as tinstruments
 from zang_tpu_torch.host import render_wav
 from zang_tpu_torch.ops import delay as tdelay
 
@@ -98,6 +99,19 @@ def test_poly_echo_matches_jax(poly_pair, poly_jax):
     assert got.shape == (2, total) and got.dtype == torch.float32
     assert np.abs(poly_jax).max() > 0.1
     assert not np.array_equal(poly_jax[0], poly_jax[1])  # the echoes are mirrored
+    for ch in range(2):
+        assert _db(got[ch].numpy(), poly_jax[ch]) < -110.0
+
+
+def test_poly_echo_grouped_matches_jax(poly_pair, poly_jax, monkeypatch):
+    """The render by groups of voices (the path of 4096 voices and more),
+    forced here to groups of 3 of the 4 voices: the ungrouped bits, so the
+    same distance from the JAX render."""
+    _, tperf, total = poly_pair
+    want = trender.render_performance(tperf, total, CHUNK, device="cpu")
+    monkeypatch.setattr(tinstruments, "GROUP_VOICE_SAMPLES", 3 * CHUNK)
+    got = trender.render_performance(tperf, total, CHUNK, device="cpu")
+    assert torch.equal(got, want)
     for ch in range(2):
         assert _db(got[ch].numpy(), poly_jax[ch]) < -110.0
 
@@ -200,6 +214,35 @@ def test_configs_golden_file():
     perf, _ = jc.build_sampler_performance(seconds=p["sampler"]["seconds"])
     first = np.asarray(jrender.render_performance(perf, 65536, chunk_size=65536))
     np.testing.assert_array_equal(g["sampler_windows"][0], first[:, :4096])
+
+
+@pytest.mark.parametrize("voices", [4096, 16384])
+def test_configs_golden_file_large_poly_echo(voices):
+    """The capacity sizes of bench.py's bench_poly (8 s, StereoEchoes(15000)):
+    rendered by JAX at a smaller chunk, recorded with the entry; windows
+    across the 65536-frame seams of the port's render and at the end; the
+    mix is scaled by 1 / voices, so its level is that of the 1024-voice
+    entry."""
+    import json
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "zang_tpu_torch", "data", "configs_golden_jax.npz")
+    g = np.load(path)
+    name = f"poly_echo_{voices}"
+    p = json.loads(str(g["params"]))[name]
+    assert (p["num_voices"], p["seconds"], p["main_delay"], p["seed"]) == (
+        voices, 8.0, 15000, 0)
+    assert p["jax_chunk"] % 512 == 0 and p["jax_chunk"] <= 65536
+    total = int(p["seconds"] * p["sample_rate"])
+    offs, win = g[f"{name}_offsets"], g[f"{name}_windows"]
+    assert win.shape == (len(offs), 2, 4096) and win.dtype == np.float32
+    assert offs[0] == 0 and offs[-1] + 4096 == total
+    assert ((offs % 65536) > 65536 - 4096).sum() >= 3
+    rms = g[f"{name}_chunk_rms"]
+    assert rms.shape == (2, -(-total // 65536)) and np.abs(win).max() > 0.05
+    assert not np.array_equal(win[:, 0], win[:, 1])
+    assert np.abs(rms[:, 2:5] / g["poly_echo_chunk_rms"][:, 2:5] - 1.0).max() < 0.5
 
 
 class _Stub:

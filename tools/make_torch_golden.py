@@ -18,25 +18,39 @@ rendering with JAX. This tool writes them:
       <name>_windows       f32   [W, C, 4096]  the JAX f32 render [C, total]
       <name>_chunk_rms     f64   [C, nc]
     for <name> in sampler (10 s, C = 1) and poly_echo (1024 voices, 30 s,
-    C = 2), at the JAX CLI's defaults.
+    C = 2), at the JAX CLI's defaults, and poly_echo_4096 and
+    poly_echo_16384 (that many voices, 8 s: bench.py's capacity sizes).
+    The two large ones are rendered at a smaller JAX chunk (their
+    "jax_chunk": the JAX render of 16384 voices at 65536 frames a chunk
+    needs more memory than a 64 GB host has, and the audio depends on the
+    chunk only through rounding); their chunk_rms is still on the 65536 grid.
 
-    zang_tpu_torch/data/examples_golden_jax.npz (the ten examples the port
+    zang_tpu_torch/data/examples_golden_jax.npz (the twelve examples the port
     has, zang_tpu_torch/host/examples.py EXAMPLES)
       params               str  JSON: each example's seconds, sample rate,
                                 channels and render chunk, the window length
       <name>_offsets, <name>_windows [W, C, 4096], <name>_chunk_rms [C, nc]
                                 as above, the RMS per render chunk of the
                                 example (16384 frames; 65536 for the song)
-    each at its default seconds (zang_tpu/host/examples.py).
+    each at its default seconds (zang_tpu/host/examples.py). The detuned
+    example's warble multiplier feeds a phase counter, so the port is held
+    to it in two parts (zang_tpu/oracle/examples.py detuned_warble says
+    why); for that the file also has
+      detuned_warble        f32 [2, total]   exp2(4 * lowpass(white, 4 Hz)),
+                                             the JAX trajectory
+      detuned_warble_state  f32 [nc, 2, 2]   the 4 Hz filter's (l, b) of the
+                                             two voices before each chunk
 
 The windows spread evenly over the render, plus windows that straddle chunk
 boundaries (where the state carries across chunks) and the last window of
 the final, partial chunk. Run from the repo root on the CPU:
 
-    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [song|configs|examples|all]
+    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [song|configs|examples|all] [NAME ...]
 
-The song takes about a minute, the configs a few minutes (poly_echo renders
-1024 voices), the examples about a minute.
+The song takes about a minute, the examples about a minute, the configs
+about 40 minutes on 8 cores (poly_echo_16384 most of it, with ~20 GB
+resident). Names after `configs` or `examples` remake only those entries and
+keep the others from the file that is there.
 """
 
 import json
@@ -66,6 +80,13 @@ CONFIGS = {
                 "n_seams": 4},
     "poly_echo": {"num_voices": 1024, "seconds": 30.0, "sample_rate": 44100.0,
                   "main_delay": 15000, "seed": 0, "n_spread": 12, "n_seams": 6},
+    # bench.py's bench_poly sizes (16384 voices x 8 s is its default)
+    "poly_echo_4096": {"num_voices": 4096, "seconds": 8.0, "sample_rate": 44100.0,
+                       "main_delay": 15000, "seed": 0, "n_spread": 6, "n_seams": 5,
+                       "jax_chunk": 16384},
+    "poly_echo_16384": {"num_voices": 16384, "seconds": 8.0, "sample_rate": 44100.0,
+                        "main_delay": 15000, "seed": 0, "n_spread": 6, "n_seams": 5,
+                        "jax_chunk": 8192},
 }
 
 
@@ -118,16 +139,33 @@ def _build(name, p):
         sample_rate=p["sample_rate"], main_delay=p["main_delay"], seed=p["seed"])
 
 
-def make_configs():
+def _kept(path, only, names):
+    """The arrays of the entries in `names` that are not remade now."""
+    if not only:
+        return {}
+    unknown = sorted(set(only) - set(names))
+    if unknown:
+        raise SystemExit(f"unknown entries {unknown}; known: {sorted(names)}")
+    old = np.load(path)
+    return {k: old[k] for k in old.files
+            if k != "params" and k.rsplit("_", 1 + k.endswith("chunk_rms"))[0] not in only}
+
+
+def make_configs(only=()):
     from zang_tpu.graph.render import render_performance
 
-    arrays = {}
+    arrays = _kept(OUT_CONFIGS, only, CONFIGS)
     for name, p in CONFIGS.items():
+        if only and name not in only:
+            continue
         t = time.time()
         perf, total = _build(name, p)
-        audio = np.asarray(render_performance(perf, total, chunk_size=CHUNK),
+        audio = np.asarray(render_performance(perf, total,
+                                              chunk_size=p.get("jax_chunk", CHUNK)),
                            np.float32)  # [C, total]
-        print(f"{name}: rendered {audio.shape} in {time.time() - t:.1f}s on the CPU")
+        del perf
+        print(f"{name}: rendered {audio.shape} in {time.time() - t:.1f}s on the CPU",
+              flush=True)
         offs = window_offsets(total, window=CONFIG_WINDOW, n_spread=p["n_spread"],
                               n_seams=p["n_seams"])
         arrays[f"{name}_offsets"] = offs
@@ -143,18 +181,44 @@ def make_configs():
 # the port's examples (zang_tpu_torch/host/examples.py EXAMPLES) and the JAX
 # package's render chunks for them (zang_tpu/host/examples.py)
 EXAMPLE_NAMES = ("play", "arpeggiator", "polyphony", "portamento", "mouse", "fmsynth",
-                 "sampler", "polyphony2", "delay", "song")
+                 "sampler", "polyphony2", "delay", "song", "stereo", "detuned")
 EXAMPLE_CHUNK = 16384
 SONG_EXAMPLE_CHUNK = 65536
 
 
-def make_examples():
+def detuned_warble(V: int, total: int, sr: float, chunk: int):
+    """The loop of zang_tpu/oracle/examples.py detuned_warble, keeping the
+    filter state before each chunk too. Returns (multiplier [V, total],
+    states [nc, 2, V])."""
+    import jax
+    import jax.numpy as jnp
+
+    from zang_tpu.ops import filters
+    from zang_tpu.ops import noise as noise_ops
+
+    nl = nb = jnp.zeros((V,), jnp.float32)
+    cut = filters.cutoff_from_frequency(jnp.float32(4.0), jnp.float32(sr))
+    cols, states = [], []
+    for c0 in range(0, total, chunk):
+        states.append(np.stack([np.asarray(nl), np.asarray(nb)]))
+        key = jax.random.fold_in(jax.random.PRNGKey(0xDE7), c0)
+        white, _ = noise_ops.white_noise(key, (V, chunk))
+        nl, nb, w = filters.svf_filter(nl, nb, white, "low_pass", cut, 0.0)
+        cols.append(np.asarray(jnp.exp2(w * jnp.float32(4.0)))[:, :min(chunk, total - c0)])
+    return np.concatenate(cols, axis=1), np.stack(states)
+
+
+def make_examples(only=()):
     import inspect
 
     from zang_tpu.host import examples
 
-    arrays, params = {}, {}
+    arrays, params = _kept(OUT_EXAMPLES, only, EXAMPLE_NAMES), {}
+    if only:
+        params = json.loads(str(np.load(OUT_EXAMPLES)["params"]))["examples"]
     for name in EXAMPLE_NAMES:
+        if only and name not in only:
+            continue
         fn = examples.EXAMPLES[name]
         seconds = inspect.signature(fn).parameters["seconds"].default
         t = time.time()
@@ -170,6 +234,14 @@ def make_examples():
         arrays[f"{name}_chunk_rms"] = chunk_rms(audio, chunk)
         params[name] = {"seconds": float(seconds), "sample_rate": float(sr),
                         "channels": int(audio.shape[0]), "chunk_size": chunk}
+        if name == "detuned":
+            from zang_tpu.oracle import examples as oex
+
+            mul, states = detuned_warble(2, total, sr, chunk)
+            if not np.array_equal(mul, oex.detuned_warble(2, total, sr, chunk)):
+                raise AssertionError("the warble loop is not the oracle twin's")
+            arrays["detuned_warble"] = mul.astype(np.float32)
+            arrays["detuned_warble_state"] = states.astype(np.float32)
     np.savez_compressed(
         OUT_EXAMPLES, params=np.array(json.dumps(
             {"window": CONFIG_WINDOW, "examples": params}, sort_keys=True)),
@@ -180,17 +252,18 @@ def make_examples():
 def main(argv=None):
     import jax
 
-    which = (argv or sys.argv[1:] or ["all"])[0]
-    if which not in ("song", "configs", "examples", "all"):
-        raise SystemExit(f"usage: {sys.argv[0]} [song|configs|examples|all]")
+    which, *only = argv or sys.argv[1:] or ["all"]
+    if which not in ("song", "configs", "examples", "all") or \
+            (only and which not in ("configs", "examples")):
+        raise SystemExit(f"usage: {sys.argv[0]} [song|configs|examples|all] [NAME ...]")
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(DATA, exist_ok=True)
     if which in ("song", "all"):
         make_song()
     if which in ("configs", "all"):
-        make_configs()
+        make_configs(only)
     if which in ("examples", "all"):
-        make_examples()
+        make_examples(only)
 
 
 if __name__ == "__main__":

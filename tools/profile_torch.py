@@ -1,6 +1,8 @@
 """Where the time goes in the port's renders on one GPU.
 
-For each config named (song, sampler, poly_echo; all three by default) or
+For each config named (song, sampler, poly_echo; all three by default;
+poly_echo_4096 and poly_echo_16384 are poly_echo at that many voices x 8 s,
+the JAX package's capacity sizes) or
 example (ex_<name>, an entry of zang_tpu_torch/host/examples.py EXAMPLES
 at its default seconds) it plans, renders once to warm up, renders again
 with the host clock (ending in torch.cuda.synchronize()), then renders a
@@ -16,7 +18,8 @@ third time under torch.profiler and prints, per config:
 
 Run from the repo root on a machine with CUDA:
 
-    python tools/profile_torch.py [song] [sampler] [poly_echo] [ex_fmsynth ...] [--top N]
+    python tools/profile_torch.py [song] [sampler] [poly_echo] [poly_echo_16384]
+                                  [ex_fmsynth ...] [--top N]
 
 The card's nvidia-smi name and power limit are printed first; the last line
 is one JSON object with the numbers above.
@@ -34,11 +37,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 CHUNK = 65536
+LARGE_POLY = {"poly_echo_4096": 4096, "poly_echo_16384": 16384}
+LARGE_POLY_SECONDS = 8.0
 
 
 def _runner(name):
-    """(render, seconds, chunks, plan seconds): render() renders `name` on
-    the card. An example's render plans too, so its plan seconds are 0."""
+    """(render, seconds, chunks, plan seconds, slice seconds): render()
+    renders `name` on the card. An example's render plans too, so its plan
+    seconds are 0. Slice seconds: the host's share of a config's render
+    that cuts the programs into per-chunk tiles (Performance.chunk_xs,
+    which render_performance runs before its first chunk), timed alone."""
     from zang_tpu_torch.graph.render import render_performance
     from zang_tpu_torch.host import configs, examples, song
 
@@ -47,18 +55,25 @@ def _runner(name):
         seconds = inspect.signature(fn).parameters["seconds"].default
         chunk = examples.SONG_CHUNK if name == "ex_song" else examples.DEFAULT_CHUNK
         frames = fn(seconds=seconds, device="cuda")[0].shape[-1]
-        return lambda: fn(device="cuda"), seconds, -(-frames // chunk), 0.0
+        return lambda: fn(device="cuda"), seconds, -(-frames // chunk), 0.0, None
     t = time.perf_counter()
     if name == "song":
         total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
         perf, seconds = song.build_performance(total), song.NUM_SECONDS
+    elif name in LARGE_POLY:
+        seconds = LARGE_POLY_SECONDS
+        perf, total = configs.build_poly_echo_performance(num_voices=LARGE_POLY[name],
+                                                          seconds=seconds)
     else:
         perf, total = (configs.build_sampler_performance() if name == "sampler"
                        else configs.build_poly_echo_performance())
         seconds = configs.DEFAULT_SECONDS[name]
     plan_s = time.perf_counter() - t
+    t = time.perf_counter()
+    perf.chunk_xs(total, CHUNK)
+    slice_s = time.perf_counter() - t
     return (lambda: render_performance(perf, total, CHUNK, device="cuda"), seconds,
-            -(-total // CHUNK), plan_s)
+            -(-total // CHUNK), plan_s, slice_s)
 
 
 def _device_us(evt) -> float:
@@ -72,7 +87,7 @@ def profile(name, top):
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    render, seconds, n_chunks, plan_s = _runner(name)
+    render, seconds, n_chunks, plan_s, slice_s = _runner(name)
     render()  # warm-up
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -87,8 +102,9 @@ def profile(name, top):
     rows.sort(key=_device_us, reverse=True)
     device_us = sum(_device_us(e) for e in rows)
     calls = sum(e.count for e in rows)
+    sliced = "" if slice_s is None else f", {slice_s:.3f}s of it slicing programs on the host"
     print(f"{name}: {n_chunks} chunks; plan {plan_s:.3f}s, render {render_s:.3f}s "
-          f"(RTF {seconds / render_s:.1f}, render only); device time "
+          f"(RTF {seconds / render_s:.1f}, render only{sliced}); device time "
           f"{device_us / 1e3:.1f} ms = {100 * device_us / 1e6 / render_s:.1f} % of the "
           f"render's wall; {calls / n_chunks:.0f} device launches and copies a chunk")
     top_rows = []
@@ -98,7 +114,7 @@ def profile(name, top):
                          "share": us / device_us, "us_per_call": us / e.count})
         print(f"  {100 * us / device_us:5.1f} %  {us / 1e3:9.3f} ms  {e.count:7d} calls  "
               f"{us / e.count:9.2f} us/call  {e.key[:90]}")
-    return {"chunks": n_chunks, "plan_s": plan_s, "render_s": render_s,
+    return {"chunks": n_chunks, "plan_s": plan_s, "slice_s": slice_s, "render_s": render_s,
             "rtf_render": seconds / render_s, "device_ms": device_us / 1e3,
             "busy_share": device_us / 1e6 / render_s,
             "launches_per_chunk": calls / n_chunks, "top": top_rows}
@@ -112,7 +128,8 @@ def main(argv=None):
     from zang_tpu_torch.host.examples import EXAMPLES
 
     ap.add_argument("configs", nargs="*",
-                    choices=["song", "sampler", "poly_echo"] + [f"ex_{n}" for n in EXAMPLES],
+                    choices=["song", "sampler", "poly_echo", *LARGE_POLY]
+                    + [f"ex_{n}" for n in EXAMPLES],
                     help="default: song, sampler and poly_echo")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)

@@ -11,6 +11,7 @@ import torch
 from .device import require_device
 from .graph.render import Performance
 from .host import configs as tc
+from .host import examples as te
 from .host import instruments as ti
 from .ops.sampler import SampleTable
 from .ops.segprog import SegProgram
@@ -48,6 +49,8 @@ _CONVERT = {
                                                         controllers=i._controllers),
     "FMSynthInstrument": _fmsynth,
     "SamplerInstrument": _sampler,
+    "_StereoNoise": lambda i: te.StereoNoise(),
+    "_DetunedInstrument": lambda i: te.DetunedInstrument(),
 }
 
 
@@ -96,9 +99,9 @@ def from_jax_performance(perf, device, post=None) -> Performance:
 
 def from_jax_state(state, device):
     """A zang_tpu Performance state ((per-part states), post state) as the
-    port's, on `device`: filter l/b, the FM feedback carry (mod_fb1,
-    mod_fb2), u32 phase and decimator counters (as int64), delay buffers
-    and echo l/b."""
+    port's, on `device`: filter l/b (the detuned example's nl/nb too), the
+    FM feedback carry (mod_fb1, mod_fb2), u32 phase, pan and decimator
+    counters (as int64), delay buffers and echo l/b."""
     dev = require_device(device)
     states, post = state
 

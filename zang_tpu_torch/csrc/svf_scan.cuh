@@ -6,6 +6,9 @@
 //   src.active(i)  is sample i of this voice's chunk active?
 //   src.cut(i)     its cutoff, clipped to [0, 1] (read only when active)
 //
+// The one-pass kernel (svf_onepass.cu, K3) takes only the sample step from
+// here (step).
+//
 // For one voice (one CUDA block of kThreads threads) it computes what
 // zang_tpu/ops/filters.py svf_filter computes:
 //
@@ -58,6 +61,18 @@ __device__ __forceinline__ Map compose(const Map& x, const Map& y) {
   return r;
 }
 
+// One active sample from the state (l, b) before it: advances (l, b) and
+// returns h, in the f32 order of Filter.zig:123-147.
+__device__ __forceinline__ float step(float& l, float& b, float x, float cut, float res) {
+  const float inv = x + kOff;
+  l = l + cut * b - kOff;
+  b = b + cut * (inv - b * res - l);
+  l = l + cut * b;
+  const float h = inv - b * res - l;
+  b = b + cut * h;
+  return h;
+}
+
 // One voice's chunk: xv, ov [n]; (l_in, b_in) the state before sample 0.
 // Call from every thread of a block of kThreads threads.
 template <class Src>
@@ -79,13 +94,7 @@ __device__ __forceinline__ void svf_voice(const Src& src, const float* __restric
   for (int i = lo; i < hi; ++i) {
     if (!src.active(i)) continue;
     const float cut = src.cut(i);
-    const float inv = xv[i] + kOff;
-    float l = l00 + cut * b00 - kOff;
-    float b = b00 + cut * (inv - b00 * res - l);
-    l = l + cut * b;
-    const float h = inv - b * res - l;
-    b00 = b + cut * h;
-    l00 = l;
+    step(l00, b00, xv[i], cut, res);
 
     float dl = l10 + cut * b10;
     float db = b10 - cut * (b10 * res + dl);
@@ -132,13 +141,7 @@ __device__ __forceinline__ void svf_voice(const Src& src, const float* __restric
   for (int i = lo; i < hi; ++i) {
     float o = 0.f;
     if (src.active(i)) {
-      const float cut = src.cut(i);
-      const float inv = xv[i] + kOff;
-      l = l + cut * b - kOff;
-      b = b + cut * (inv - b * res - l);
-      l = l + cut * b;
-      const float h = inv - b * res - l;
-      b = b + cut * h;
+      const float h = step(l, b, xv[i], src.cut(i), res);
       o = l * lm + b * bm + h * hm;
     }
     ov[i] = o;

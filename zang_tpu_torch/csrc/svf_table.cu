@@ -20,29 +20,11 @@
 #include <cuda_runtime.h>
 
 #include "svf_scan.cuh"
+#include "svf_table_cut.cuh"
 
 namespace {
 
-// cutoff and activity of one voice's chunk from its tables
-struct TableCut {
-  const int32_t* tb;  // [nt, S] absolute boundary frames, slot 0 always active
-  const float* cv;    // [nt, S] cutoff per slot, clipped to [0, 1]
-  int S, tile, t0, active_from;
-
-  __device__ __forceinline__ bool active(int i) const { return t0 + i >= active_from; }
-
-  __device__ __forceinline__ float cut(int i) const {
-    const int k = i / tile;
-    const int t = t0 + i;
-    const int32_t* tbk = tb + k * S;
-    const float* cvk = cv + k * S;
-    float c = cvk[0];
-    for (int j = 1; j < S; ++j) {
-      if (t >= tbk[j]) c = cvk[j];
-    }
-    return c;
-  }
-};
+using zt_svf::TableCut;  // svf_table_cut.cuh
 
 __global__ void __launch_bounds__(zt_svf::kThreads)
 svf_table_kernel(const float* __restrict__ x, const int32_t* __restrict__ tb,

@@ -191,19 +191,26 @@ def build_poly_echo_performance(
     return perf, total
 
 
-def render_config(name: str, seconds: Optional[float] = None, voices: int = 1024,
-                  chunk_size: int = 65536, *, device="cuda") -> torch.Tensor:
-    """Render the sampler or poly_echo config with the JAX CLI's defaults
-    (10 s and 30 s at 44.1 kHz; poly_echo with `voices` voices) on `device`
-    -> f32 [C, total] on that device (C = 1 for sampler, 2 for poly_echo)."""
-    dev = require_device(device)  # before planning: fail fast
+def build_config(name: str, seconds: Optional[float] = None, voices: int = 1024):
+    """Host: (Performance, total frames) of the sampler or poly_echo config
+    with the JAX CLI's defaults (10 s and 30 s at 44.1 kHz; poly_echo with
+    `voices` voices). Planning 16384 voices takes tens of seconds."""
     seconds = DEFAULT_SECONDS[name] if seconds is None else seconds
     if name == "sampler":
-        perf, total = build_sampler_performance(seconds=seconds)
-    elif name == "poly_echo":
-        perf, total = build_poly_echo_performance(num_voices=voices, seconds=seconds)
-    else:
-        raise ValueError(f"unknown config {name!r} (sampler or poly_echo)")
+        return build_sampler_performance(seconds=seconds)
+    if name == "poly_echo":
+        return build_poly_echo_performance(num_voices=voices, seconds=seconds)
+    raise ValueError(f"unknown config {name!r} (sampler or poly_echo)")
+
+
+def render_config(name: str, seconds: Optional[float] = None, voices: int = 1024,
+                  chunk_size: int = 65536, *, device="cuda") -> torch.Tensor:
+    """Render build_config(name, seconds, voices) on `device` -> f32
+    [C, total] on that device (C = 1 for sampler, 2 for poly_echo). From
+    4096 voices on, poly_echo renders by groups of voices through the
+    one-pass SVF kernel (host/instruments.py NiceInstrument)."""
+    dev = require_device(device)  # before planning: fail fast
+    perf, total = build_config(name, seconds, voices)
     return render_performance(perf, total, chunk_size=chunk_size, device=dev)
 
 

@@ -1,6 +1,5 @@
 """The reference's example programs as offline render configs (port of
-zang_tpu/host/examples.py, the ten examples that need neither zangscript
-nor the threefry noise tape).
+zang_tpu/host/examples.py, the twelve examples that need no zangscript).
 
 Each example (examples/example_*.zig) is a function
 `ex_<name>(seconds, device="cuda") -> (audio f32 [C, total] on device,
@@ -14,6 +13,9 @@ every CUDA kernel of the port:
   polyphony2   Nice behind a 3-slot dispatcher          table-cut SVF (K1)
   sampler      drum loop -> overdrive -> decimator      table lookup (K4)
   song         the Bach Toccata, 20 s                   table-cut SVF (K1)
+  stereo       two panned noise voices, a [2, 1] cutoff dense-cut SVF (K2)
+  detuned      noise-warbled trisaw -> lowpass -> echoes dense-cut SVF (K2),
+                                                        twice a chunk
   arpeggiator, delay, portamento, mouse                 no kernel
 
 Run: python -m zang_tpu_torch.host.examples NAME out.wav [--seconds S]
@@ -34,8 +36,9 @@ from ..core.timeline import SubvoiceTimeline, active_from, compile_timelines
 from ..core.wav import write_wav_s16
 from ..device import require_device
 from ..graph.render import Performance, render_performance
-from ..ops import control, effects, oscillators
+from ..ops import control, effects, filters, noise, oscillators
 from ..ops import delay as d_ops
+from ..ops.segprog import eval_tiled_chunk
 from . import configs
 from . import instruments as ti
 from . import song as song_mod
@@ -170,6 +173,148 @@ def ex_polyphony(seconds=5.0, device="cuda"):
 
     return _render_parts([(DecimatedNice(), tlss)], seconds, sr, dev,
                          post_fn=post_fn, post_init=post_init)
+
+
+# ---------------------------------------------------------------------------
+# example_stereo (examples/example_stereo.zig): two filtered noise voices
+# panned by a 0.1 Hz sine; continuous (no notes).
+
+STEREO_SEED = 0xA0D10
+DETUNED_SEED = 0xDE7
+
+
+class StereoNoise:
+    """Two lowpassed white-noise voices (320 and 380 Hz), panned 0..0.5 and
+    0.5..1 by one 0.1 Hz sine; renders stereo [2, n] itself. The noise tape
+    of a chunk is the draw of the key fold_in(PRNGKey(STEREO_SEED), t0), as
+    in the JAX package."""
+
+    output_channels = 2
+
+    def plan(self, timelines, sample_rate):
+        return {"active_from": active_from(timelines)}
+
+    def init_state(self, num_voices, device):
+        return {"pan_cnt": torch.zeros((), dtype=torch.int64, device=device),
+                "l0": torch.zeros((2,), dtype=torch.float32, device=device),
+                "b0": torch.zeros((2,), dtype=torch.float32, device=device)}
+
+    def render(self, state, prog, ctx):
+        sr, dev = ctx.sample_rate, ctx.t_idx.device
+        pan_cnt, pan = oscillators.sine_osc(
+            state["pan_cnt"], torch.full((ctx.n,), 0.1, dtype=torch.float32, device=dev),
+            0.0, sr)
+        key = noise.fold_in(noise.prng_key(STEREO_SEED), ctx.t0)
+        white, _ = noise.white_noise(key, (2, ctx.n), dev)
+        cut = torch.as_tensor(
+            np.stack([filters.cutoff_from_frequency(f, sr) for f in (320.0, 380.0)]),
+            device=dev)[:, None]
+        l, b, filtered = filters.svf_filter(state["l0"], state["b0"], white, "low_pass",
+                                            cut, 0.4)
+        filtered = filtered * 4.0
+        # voice 0 pans 0..0.5, voice 1 pans 0.5..1 (scaleWave)
+        panv = torch.stack([pan * 0.25 + 0.25, pan * 0.25 + 0.75])
+        out = torch.stack([(filtered * panv).sum(dim=0),
+                           (filtered * (1.0 - panv)).sum(dim=0)])
+        return {"pan_cnt": pan_cnt, "l0": l, "b0": b}, out
+
+
+def ex_stereo(seconds=6.0, device="cuda"):
+    dev = require_device(device)
+    sr = 48000.0
+    tls = compile_timelines(_simple_song([(0.0, seconds, 1.0)]), 1, sr,
+                            int(seconds * sr))
+    return _render_parts([(StereoNoise(), tls)], seconds, sr, dev, num_channels=2)
+
+
+# ---------------------------------------------------------------------------
+# example_detuned (examples/example_detuned.zig): slow-filtered noise warble
+# modulating a trisaw's frequency; env + lowpass; through StereoEchoes.
+
+
+class DetunedInstrument:
+    """Naive trisaw whose frequency is the note's times a warble multiplier
+    exp2(4 * lowpass(white noise, 4 Hz)), then ADSR and a lowpass.
+
+    The multiplier feeds the oscillator's per-sample u32 phase step, so a
+    difference in its last place accumulates in the phase over seconds (the
+    JAX package's own oracle twin therefore takes the multiplier as a
+    shared input trajectory, zang_tpu/oracle/examples.py DetunedTwin).
+    warble_mul does the same here: None (the default) makes the multiplier
+    from the noise tape of fold_in(PRNGKey(DETUNED_SEED), t0); an f32
+    [V, total] array is read instead, a chunk at a time."""
+
+    def __init__(self, warble_mul=None) -> None:
+        self.warble_mul = warble_mul
+
+    def plan(self, timelines, sample_rate):
+        freq_fn = ti.default_freq
+        prog = {"active_from": active_from(timelines),
+                "phase": oscillators.plan_phase_segments(timelines, freq_fn, sample_rate,
+                                                         guard_div8=True)}
+        ti._plan_envelope(timelines, sample_rate, ti._cubed_adsr(), prog)
+        # per-note freq as a column for the warble multiply
+        freq = np.zeros_like(prog["phase"].values["valid"])
+        for v, tl in enumerate(timelines):
+            k = len(tl.starts)
+            if k:
+                freq[v, :k] = tl.param_f32(freq_fn)
+                freq[v, k:] = freq[v, k - 1]
+        prog["phase"].values["freq"] = freq
+        if self.warble_mul is not None:
+            prog["warble_mul"] = np.ascontiguousarray(self.warble_mul, F32)
+        return prog
+
+    def init_state(self, num_voices, device):
+        z = lambda: torch.zeros((num_voices,), dtype=torch.float32, device=device)
+        return {"cnt": torch.zeros((num_voices,), dtype=torch.int64, device=device),
+                "nl": z(), "nb": z(), "l": z(), "b": z()}
+
+    @staticmethod
+    def warble(nl, nb, ctx):
+        """One chunk of the multiplier from the carried 4 Hz filter state
+        (nl, nb) [V]. Returns (nl', nb', multiplier [V, n])."""
+        key = noise.fold_in(noise.prng_key(DETUNED_SEED), ctx.t0)
+        white, _ = noise.white_noise(key, (nl.shape[0], ctx.n), ctx.t_idx.device)
+        cut = float(filters.cutoff_from_frequency(4.0, ctx.sample_rate))
+        nl, nb, w = filters.svf_filter(nl, nb, white, "low_pass", cut, 0.0)
+        return nl, nb, torch.exp2(w * 4.0)  # examples: multiplyWithScalar 4
+
+    def render(self, state, prog, ctx):
+        act = ti._active(prog, ctx)
+        nl, nb = state["nl"], state["nb"]
+        if "warble_mul" in prog:
+            mul = prog["warble_mul"][:, ctx.t0:ctx.t0 + ctx.n]
+            if mul.shape[1] < ctx.n:  # the last chunk runs past the trajectory
+                mul = torch.nn.functional.pad(mul, (0, ctx.n - mul.shape[1]), value=1.0)
+        else:
+            nl, nb, mul = self.warble(nl, nb, ctx)
+        freq = eval_tiled_chunk(ti._tiled(prog["phase"], "phase"), ctx.t_idx)["freq"] * mul
+        cnt, osc = oscillators.trisaw_naive(state["cnt"], freq, 0.0, ctx.sample_rate, act)
+        cutm = float(filters.cutoff_from_frequency(880.0 * 8.0, ctx.sample_rate))
+        l, b, out = filters.svf_filter(state["l"], state["b"], osc * ti._env(prog, ctx),
+                                       "low_pass", cutm, 0.7, act)
+        return {"cnt": cnt, "nl": nl, "nb": nb, "l": l, "b": b}, out
+
+
+def ex_detuned(seconds=5.0, device="cuda", warble_mul=None):
+    """warble_mul: see DetunedInstrument (None: the port's own warble)."""
+    dev = require_device(device)
+    sr = 48000.0
+    song = _simple_song([
+        (0.2, 0.8, A4 * tt.c3), (1.2, 0.8, A4 * tt.eb3),
+        (2.2, 0.8, A4 * tt.g3), (3.2, 1.2, A4 * tt.c4),
+    ])
+    tls = compile_timelines(song, 2, sr, int(seconds * sr))
+
+    def post_fn(state, mix, ctx):
+        return d_ops.stereo_echoes(state, mix, 0.6, 0.7)
+
+    def post_init(device):
+        return d_ops.stereo_echoes_init(15000, device)
+
+    return _render_parts([(DetunedInstrument(warble_mul), tls)], seconds, sr, dev,
+                         num_channels=2, post_fn=post_fn, post_init=post_init)
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +502,8 @@ EXAMPLES = {
     "polyphony2": ex_polyphony2,
     "delay": ex_delay,
     "song": ex_song,
+    "stereo": ex_stereo,
+    "detuned": ex_detuned,
 }
 
 

@@ -10,8 +10,10 @@ a CUDA tensor x [V, n] with a scalar res launches the dense-cut kernel
 (ops/svf_cuda.py svf_dense_cuda); every other call, and every CPU tensor,
 takes svf_filter_ref. svf_filter_table takes the cutoff as per-tile
 boundary tables (the tiled segment-program format): svf_filter_table_ref
-for a CPU tensor, the table-cut kernel (svf_table_cuda) for a CUDA one.
-Neither router has a fallback.
+for a CPU tensor; for a CUDA one the one-pass kernel (svf_onepass_cuda) at
+ONEPASS_V_MIN voices or more and the table-cut kernel (svf_table_cuda) below.
+svf_onepass_table_ref is the one-pass kernel's plain version, the sequential
+recurrence as a loop over samples. No router has a fallback or a switch.
 """
 
 from typing import Optional, Tuple, Union
@@ -25,6 +27,10 @@ from .segprog import eval_tiled_chunk
 Tensor = torch.Tensor
 
 FCDCOFFSET = 3.814697265625e-6  # 2^-18, Filter.zig:8 (exact in f32)
+
+# voices at which the one-pass kernel takes over from the two-phase one
+# (zang_tpu/ops/pallas_svf.py ONEPASS_V_MIN, here on the true voice count)
+ONEPASS_V_MIN = 4096
 
 FILTER_MULS = {  # (l, b, h) output weights; bypass is not ported
     "low_pass": (1.0, 0.0, 0.0),
@@ -135,10 +141,12 @@ def svf_filter_table_ref(
     res: float,
     t0: int,
     active_from: Optional[Tensor] = None,
+    donate_x: bool = False,
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Plain version of svf_filter_table, on any device: evaluate the
-    table into a [V, n] cutoff and run svf_filter_ref (never the router, so
-    the plain comparison on the card launches no kernel)."""
+    """Plain version of svf_filter_table with its signature, on any device:
+    evaluate the table into a [V, n] cutoff and run svf_filter_ref (never
+    the router, so the plain comparison on the card launches no kernel).
+    It returns a tensor of its own and leaves x as it was, donated or not."""
     n = x.shape[1]
     t_idx = int(t0) + torch.arange(n, dtype=torch.int32, device=x.device)
     cut = eval_tiled_chunk({"tb": tb, "cut": cutv}, t_idx)["cut"]
@@ -146,6 +154,44 @@ def svf_filter_table_ref(
     if active_from is not None:
         act = t_idx[None, :] >= active_from.to(torch.int32)[:, None]
     return svf_filter_ref(l0, b0, x, filter_type, cut, res, act)
+
+
+def svf_onepass_table_ref(
+    l0: Tensor,
+    b0: Tensor,
+    x: Tensor,
+    filter_type: str,
+    tb: Tensor,
+    cutv: Tensor,
+    res: float,
+    t0: int,
+    active_from: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain version of the one-pass kernel (svf_cuda.svf_onepass_cuda), on
+    any device: svf_filter_table's function as the sequential recurrence, a
+    Python loop over the n samples on [V] tensors in the reference's f32
+    order (no affine maps, no scan). Slow by design: about a dozen small ops
+    a sample."""
+    l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
+    n = x.shape[1]
+    t_idx = int(t0) + torch.arange(n, dtype=torch.int32, device=x.device)
+    cut = eval_tiled_chunk({"tb": tb, "cut": torch.clamp(cutv, 0.0, 1.0)}, t_idx)["cut"]
+    r = 1.0 - torch.clamp(as_f32(res, x), 0.0, 1.0)
+    xt, cut = x.t().contiguous(), cut.t().contiguous()  # [n, V]: a row a sample
+    act = None
+    if active_from is not None:
+        act = t_idx[:, None] >= active_from.to(torch.int32)[None, :]
+    l, b = l0, b0
+    out = torch.empty_like(xt)
+    for i in range(n):
+        nl, nb, h = _svf_step(l, b, xt[i], cut[i], r)
+        o = nl * l_mul + nb * b_mul + h * h_mul
+        if act is None:
+            l, b, out[i] = nl, nb, o
+        else:
+            l, b = torch.where(act[i], nl, l), torch.where(act[i], nb, b)
+            out[i] = torch.where(act[i], o, torch.zeros_like(o))
+    return l, b, out.t().contiguous()
 
 
 def svf_filter_table(
@@ -158,16 +204,24 @@ def svf_filter_table(
     res: float,
     t0: int,
     active_from: Optional[Tensor] = None,
+    donate_x: bool = False,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """SVF with a piecewise-constant cutoff given as per-tile boundary
     tables instead of a [V, n] array.
 
     x: [V, n] f32; tb/cutv: [V, nt, S] absolute boundary frames (slot 0
     always active) and raw cutoff per slot; t0: absolute frame of x[:, 0];
-    active_from: [V] first-active frame. Returns (l_end, b_end, out)."""
+    active_from: [V] first-active frame. donate_x: the caller has no further
+    use for x, so the output may be written over it (the one-pass kernel
+    then filters in place; the other paths return a tensor of their own
+    and leave x as it was). Returns (l_end, b_end, out)."""
     if x.device.type == "cpu":
-        return svf_filter_table_ref(l0, b0, x, filter_type, tb, cutv, res, t0,
-                                    active_from)
+        return svf_filter_table_ref(l0, b0, x, filter_type, tb, cutv, res, t0, active_from)
+    if x.shape[0] >= ONEPASS_V_MIN:
+        from .svf_cuda import svf_onepass_cuda
+
+        return svf_onepass_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from,
+                                out=x if donate_x else None)
     from .svf_cuda import svf_table_cuda
 
     return svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from)

@@ -1,5 +1,6 @@
 """Oscillators on u32 phase counters (port of zang_tpu/ops/oscillators.py,
-the segment-programmed path the song uses).
+the segment-programmed path the song uses and the per-sample-frequency
+oscillators of the examples: sine_osc, trisaw_naive, cycle).
 
 Phase counters are int64 tensors holding u32 values (see ops/scan.py).
 plan_phase_segments is the numpy twin of the JAX package's planner.
@@ -86,6 +87,13 @@ def _advance(cnt0: torch.Tensor, ifreq: torch.Tensor
     return cnt, u32(cnt[..., -1] + ifreq[..., -1])
 
 
+def _gated_ifreq(freq, sample_rate, active, like):
+    ifreq = freq_to_ifreq(as_f32(freq, like), sample_rate)
+    if active is not None:
+        ifreq = torch.where(active, ifreq, torch.zeros_like(ifreq))
+    return ifreq
+
+
 def sine_osc(cnt0: torch.Tensor, freq: torch.Tensor,
              phase: Union[torch.Tensor, float], sample_rate: float,
              active: Optional[torch.Tensor] = None
@@ -93,10 +101,7 @@ def sine_osc(cnt0: torch.Tensor, freq: torch.Tensor,
     """Sine oscillator with a per-sample frequency (SineOsc.zig:23-87).
     cnt0: u32 counters [...] (int64); freq: f32 [..., n]. Inactive samples
     do not advance the phase and output 0. Returns (cnt_end, out)."""
-    ifreq = freq_to_ifreq(as_f32(freq, cnt0), sample_rate)
-    if active is not None:
-        ifreq = torch.where(active, ifreq, torch.zeros_like(ifreq))
-    cnt, cnt_end = _advance(cnt0, ifreq)
+    cnt, cnt_end = _advance(cnt0, _gated_ifreq(freq, sample_rate, active, cnt0))
     out = sine_wave(cnt, phase)
     if active is not None:
         out = torch.where(active, out, torch.zeros((), dtype=F32, device=out.device))
@@ -161,3 +166,42 @@ def pulse_wave(cnt: torch.Tensor, ifreq: torch.Tensor,
     if valid is not None:
         out = torch.where(valid, out, torch.zeros((), dtype=F32, device=out.device))
     return out
+
+
+def trisaw_naive_wave(cnt: torch.Tensor, color: Union[torch.Tensor, float],
+                      active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Naive tri/saw values from u32 phase counters (TriSawOsc.zig:137-151):
+    saw when color < 0.25 or > 0.75, a fixed triangle otherwise (the
+    reference's controlled-frequency path reads color this crudely)."""
+    t = utof23(cnt)
+    color_f = as_f32(color, t)
+    saw = t * 2.0 - 1.0
+    tri = torch.where(
+        t < 0.25, t * 4.0,
+        torch.where(t < 0.75, 1.0 - (t - 0.25) * 4.0, (t - 0.75) * 4.0 - 1.0))
+    out = as_f32(GAIN, t) * torch.where((color_f < 0.25) | (color_f > 0.75), saw, tri)
+    if active is not None:
+        out = torch.where(active, out, torch.zeros((), dtype=F32, device=out.device))
+    return out
+
+
+def trisaw_naive(cnt0: torch.Tensor, freq: torch.Tensor,
+                 color: Union[torch.Tensor, float], sample_rate: float,
+                 active: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Naive tri/saw on a u32 phase with a per-sample frequency, the
+    reference's controlled-frequency path (TriSawOsc.zig:120-156). Inactive
+    samples do not advance the phase and output 0. Returns (cnt_end, out)."""
+    cnt, cnt_end = _advance(cnt0, _gated_ifreq(freq, sample_rate, active, cnt0))
+    return cnt_end, trisaw_naive_wave(cnt, color, active)
+
+
+def cycle(cnt0: torch.Tensor, speed: torch.Tensor, sample_rate: float,
+          active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phasor 0 -> ~1 wrapping (src/modules/Cycle.zig) on a u32 phase.
+    Returns (cnt_end, out)."""
+    cnt, cnt_end = _advance(cnt0, _gated_ifreq(speed, sample_rate, active, cnt0))
+    out = utof23(cnt)
+    if active is not None:
+        out = torch.where(active, out, torch.zeros((), dtype=F32, device=out.device))
+    return cnt_end, out

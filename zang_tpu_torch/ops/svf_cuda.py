@@ -5,11 +5,13 @@ zang_tpu/ops/pallas_svf.py:
                   svf_filter_pallas_table
   svf_dense_cuda  the dense-cut kernel (csrc/svf_dense.cu, K2), for
                   svf_filter_pallas
+  svf_onepass_cuda  the one-pass table-cut kernel for large voice counts
+                  (csrc/svf_onepass.cu, K3), for svf_onepass_table
 
 Each checks device, dtype, shape and contiguity, allocates the outputs with
 torch.empty, launches on torch.cuda.current_stream() and raises if the
-launch is refused. svf_table_launches and svf_dense_launches count the
-launches.
+launch is refused. svf_table_launches, svf_dense_launches and
+svf_onepass_launches count the launches.
 """
 
 import ctypes
@@ -21,6 +23,7 @@ from . import _build
 
 svf_table_launches = 0
 svf_dense_launches = 0
+svf_onepass_launches = 0
 
 _C = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -29,6 +32,7 @@ _I64 = ctypes.c_longlong
 # source stem -> its C function and argument types
 _ARGTYPES = {
     "svf_table": [_C] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [_C],
+    "svf_onepass": [_C] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [_C],
     "svf_dense": [_C] * 8 + [ctypes.c_int] * 2 + [_I64] * 4 + [ctypes.c_float] * 5 + [_C],
 }
 
@@ -58,17 +62,14 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
-    """Drop-in for ops.filters.svf_filter_table on CUDA tensors.
-
-    x: [V, n] f32; tb: [V, nt, S] i32; cutv: [V, nt, S] f32 (raw, clipped
-    here to [0, 1]); active_from: [V] i32 or None (always active); l0/b0:
-    [V] f32. n % nt == 0. Returns (l_end [V], b_end [V], out [V, n])."""
-    global svf_table_launches
+def _launch_table_cut(stem, l0, b0, x, filter_type, tb, cutv, res, t0, active_from, out):
+    """Check the arguments that the two table-cut kernels share (see
+    svf_table_cuda), allocate what is not given and launch zt_<stem>.
+    Returns (l_end, b_end, out)."""
     from .filters import FILTER_MULS
 
     if x.device.type != "cuda":
-        raise ValueError(f"svf_table_cuda needs CUDA tensors, got x on {x.device}")
+        raise ValueError(f"{stem}_cuda needs CUDA tensors, got x on {x.device}")
     if x.dim() != 2 or tb.dim() != 3:
         raise ValueError(f"x must be [V, n] and tb [V, nt, S]; got {tuple(x.shape)}, "
                          f"{tuple(tb.shape)}")
@@ -80,11 +81,14 @@ def svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
     cv = torch.clamp(cutv, 0.0, 1.0).contiguous()
     if active_from is None:
         active_from = torch.full((V,), -(2 ** 31), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((V, n), dtype=torch.float32, device=dev)
     for name, t, dtype, shape in (
         ("x", x, torch.float32, (V, n)), ("tb", tb, torch.int32, (V, nt, S)),
         ("cutv", cv, torch.float32, (V, nt, S)),
         ("active_from", active_from, torch.int32, (V,)),
         ("l0", l0, torch.float32, (V,)), ("b0", b0, torch.float32, (V,)),
+        ("out", out, torch.float32, (V, n)),
     ):
         _check(name, t, dtype, shape, dev)
     if filter_type not in FILTER_MULS:
@@ -92,20 +96,63 @@ def svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
     l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
     r = _r(res)
 
-    out = torch.empty((V, n), dtype=torch.float32, device=dev)
     l_end = torch.empty((V,), dtype=torch.float32, device=dev)
     b_end = torch.empty((V,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn("svf_table")(
+        err = _fn(stem)(
             x.data_ptr(), tb.data_ptr(), cv.data_ptr(), active_from.data_ptr(),
             l0.data_ptr(), b0.data_ptr(), out.data_ptr(), l_end.data_ptr(),
             b_end.data_ptr(), V, n, nt, S, int(t0), float(r), l_mul, b_mul,
             h_mul, stream)
     if err != 0:
-        raise RuntimeError(f"svf_table kernel launch failed: cudaError_t {err}")
-    svf_table_launches += 1
+        raise RuntimeError(f"{stem} kernel launch failed: cudaError_t {err}")
     return l_end, b_end, out
+
+
+def svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
+    """Drop-in for ops.filters.svf_filter_table on CUDA tensors.
+
+    x: [V, n] f32; tb: [V, nt, S] i32; cutv: [V, nt, S] f32 (raw, clipped
+    here to [0, 1]); active_from: [V] i32 or None (always active); l0/b0:
+    [V] f32. n % nt == 0. Returns (l_end [V], b_end [V], out [V, n])."""
+    global svf_table_launches
+    ret = _launch_table_cut("svf_table", l0, b0, x, filter_type, tb, cutv, res, t0,
+                            active_from, None)
+    svf_table_launches += 1
+    return ret
+
+
+# what svf_onepass.cu is built for: 16-byte copies of x, a tile's slots in registers
+ONEPASS_N_MULTIPLE = 4
+ONEPASS_MAX_SLOTS = 4
+
+
+def svf_onepass_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None,
+                     out=None):
+    """The one-pass kernel: svf_table_cuda's arguments and function, as the
+    exact sequential recurrence (a thread a voice, no block seams). out:
+    None (allocate) or an f32 [V, n] tensor to write to, which is x itself
+    (in place: at 16384 voices a second [V, n] buffer is 4 GiB) or shares
+    no byte with x. n must be a multiple of 4 (render chunks are multiples
+    of 512) and a time tile may have at most 4 slots; svf_table_cuda takes
+    the other shapes."""
+    global svf_onepass_launches
+    if x.dim() == 2 and x.shape[1] % ONEPASS_N_MULTIPLE:
+        raise ValueError(f"svf_onepass_cuda needs a chunk that is a multiple of "
+                         f"{ONEPASS_N_MULTIPLE} frames, got {x.shape[1]}")
+    if tb.dim() == 3 and tb.shape[2] > ONEPASS_MAX_SLOTS:
+        raise ValueError(f"svf_onepass_cuda takes at most {ONEPASS_MAX_SLOTS} slots a "
+                         f"time tile, got {tb.shape[2]}")
+    if out is not None and out.data_ptr() != x.data_ptr():
+        size = x.numel() * x.element_size()
+        if abs(out.data_ptr() - x.data_ptr()) < size:
+            raise ValueError("out overlaps x without being x: the kernel writes "
+                             "finished tiles over rows it has yet to read")
+    ret = _launch_table_cut("svf_onepass", l0, b0, x, filter_type, tb, cutv, res, t0,
+                            active_from, out)
+    svf_onepass_launches += 1
+    return ret
 
 
 def svf_dense_cuda(l0, b0, x, filter_type, cutoff, res, active=None):
