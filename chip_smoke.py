@@ -12,15 +12,33 @@ each of which raises on failure:
      zang_tpu_torch/build/
   3. K1, the table-cut SVF kernel, against its plain torch version
      (svf_filter_table_ref) on the card: the song's shape, a ragged shape,
-     a state chain across two calls, poly_echo's shape (1024 voices) and
-     the polyphony examples' (39 and 3 voices, 16384 frames in 32 tiles);
-     rms < -120 dBFS, end states within 1e-5; timed with CUDA events
-     (per call) and torch.profiler (the kernel's device time)
-  4. K4, the table-lookup kernel, against table_lookup_ref on the card, bit
-     for bit: the sampler config's shape, the sampler example's (idx
-     32 x 512), the largest table, a one-shot case with zero sel and
-     out-of-range indices; timed as K1, beside the plain version and
-     torch.take(table, idx) * sel
+     a state chain across two calls, poly_echo's shape (1024 voices), the
+     polyphony examples' (39 and 3 voices, 16384 frames in 32 tiles) and
+     poly_echo's shape with the slot count of its 1024-voice render's
+     tables (counted from its plan) and every sample active, as a render
+     chunk is, a 262,144-frame chunk (two rounds of the cluster) and a
+     chunk of 35 tiles (4 windows of 4480 frames); rms < -120 dBFS, end
+     states within 1e-5; each case's device time (torch.profiler) beside
+     its bound; the song's and poly_echo's shapes also per call (CUDA
+     events) beside the plain version, and the song's beside K1's latency
+     floor (an estimate from its dependent chain, k1_chain_floor_us,
+     printed only). At the song's, the polyphony, the ragged, the long and
+     the 35-tile shapes K1 is also held bit for bit to svf_table_emulated,
+     its seams composed in torch
+  4. K4, the table-lookup kernel: its two-tap entry (sampler_taps, both of
+     the sampler's taps of a chunk in one launch) against sampler_taps_ref
+     on the card, bit for bit: the sampler config's shape (looped, indices
+     wrapping both ways), the sampler example's, a one-shot case with
+     out-of-range indices and the 262,144-entry table; and the generic
+     entry (table_lookup) against table_lookup_ref: the sampler's shape,
+     the example's (idx 32 x 512), the largest table, one-shot edges. Both
+     timed as K1, beside the plain version; the two-tap entry, looped and
+     one shot, also beside the library call (one torch.take on indices
+     stacked, wrapped or clipped and made int64 beforehand; one shot times
+     a sel made beforehand), beside the fewest PyTorch calls that compute
+     its function from its own inputs (the yardstick, which it must not
+     lose to) and beside the two-launch path it replaced, with the host's
+     microseconds a call
   5. K2, the dense-cut SVF kernel, against svf_filter_ref on the card:
      the play example's shape (V=1, n=16384, scalar cutoff, mask), the
      stereo example's (V=2, [2, 1] cutoff, no mask, resonance 0.4), the
@@ -49,7 +67,7 @@ each of which raises on failure:
        song       the full 385 s Bach Toccata, render_song_s16(device="cuda"):
                   282 K1 launches
        sampler    10 s, render_config_s16("sampler", device="cuda"):
-                  14 K4 launches
+                  7 K4 launches (both taps in one)
        poly_echo  1024 voices x 30 s stereo, render_config_s16("poly_echo",
                   device="cuda"): 21 K1 launches
        poly_echo at 4096 and at 16384 voices x 8 s (the JAX package's
@@ -66,7 +84,7 @@ each of which raises on failure:
      through its ex_* entry on the card at its default seconds, with the
      launch counts checked (ceil(frames / chunk) a chunk-launched kernel:
      play 18 K2, fmsynth 12 K5, polyphony 15 K1, polyphony2 18 K1,
-     sampler 34 K4, song 15 K1, stereo 18 K2, detuned 30 K2 (two a chunk),
+     sampler 17 K4, song 15 K1, stereo 18 K2, detuned 30 K2 (two a chunk),
      every other count 0), against the JAX
      golden windows and against the card's plain-path render (every
      router patched to its plain version by name; fmsynth at 2 s there,
@@ -100,6 +118,11 @@ CHUNK = 65536
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 SVF_OPS_PER_SAMPLE = 21  # one SVF step and its output mix (Filter.zig:123-151)
+# K1's latency floor, an estimate: the dependent f32 operations of one SVF
+# step (svf_scan.cuh step: 11 from the state in to the state out), each at
+# an assumed 4 cycles, as tools/fm_chain_floor.py assumes for K5
+SVF_STEP_CHAIN = 11
+CYCLES_PER_DEPENDENT_OP = 4
 TOL_FM_DB = -100.0  # FM kernel vs plain (tests/test_ops_effects.py:324-346)
 TOL_FM_STATE = 1e-4
 FB = 0.7853981633974483  # pi / 4, the fmsynth example's modulator feedback
@@ -251,9 +274,22 @@ def check_svf_chain(label, kernel, plain, args, half_args, exact=False):
         raise AssertionError(f"{label}: chained kernel calls are not the plain loop's bits")
 
 
-def svf_case(rng, V, n, nt, S, t0, device):
-    """Random K1 inputs in the tiled table format, with active_from. From
-    2^27 samples on, x is drawn on the device (seeded from rng)."""
+def k1_chain_floor_us(cluster, mhz):
+    """K1's latency floor in microseconds at `mhz`, from its dependent
+    chain (csrc/svf_table.cu): a run of 16 frames stepped twice (phase A's
+    zero state, phase B), two Kogge-Stone scans of 32 maps (warps, then
+    the block's warps: 5 levels of a 3-deep compose each), the earlier
+    windows' maps applied one after another (cluster - 1 applies, 3 deep)
+    and the warp's and the run's start (two applies). Shuffle, barrier and
+    memory latencies are not counted."""
+    ops = 2 * 16 * SVF_STEP_CHAIN + 2 * 5 * 3 + (cluster - 1) * 3 + 2 * 3
+    return ops * CYCLES_PER_DEPENDENT_OP / mhz
+
+
+def svf_case(rng, V, n, nt, S, t0, device, always_active=False):
+    """Random K1 inputs in the tiled table format, with active_from (None
+    with always_active). From 2^27 samples on, x is drawn on the device
+    (seeded from rng)."""
     import numpy as np
     import torch
 
@@ -274,7 +310,7 @@ def svf_case(rng, V, n, nt, S, t0, device):
     b0 = (rng.standard_normal(V) * 0.1).astype(np.float32)
     return (to(l0, torch.float32), to(b0, torch.float32), x,
             "low_pass", to(tb, torch.int32), to(cutv, torch.float32), 0.7, t0,
-            to(af, torch.int32))
+            None if always_active else to(af, torch.int32))
 
 
 def svf_label(label, args):
@@ -288,7 +324,20 @@ def svf_table_bytes_ops(args):
     and l/b out, each once; the SVF's operations on every sample."""
     V, n = args[2].shape
     _, nt, S = args[4].shape
-    return 4 * (2 * V * n + 2 * V * nt * S + V + 4 * V), SVF_OPS_PER_SAMPLE * V * n
+    af = 0 if args[8] is None else V
+    return 4 * (2 * V * n + 2 * V * nt * S + af + 4 * V), SVF_OPS_PER_SAMPLE * V * n
+
+
+def render_slots(configs, voices, seconds):
+    """The slot count of the tables that K1 gets in poly_echo's render at
+    `voices` x `seconds`: the NiceInstrument's phase program, as
+    Performance.chunk_xs cuts it into chunks."""
+    from zang_tpu_torch.ops.segprog import chunkify_tiled
+
+    perf, total = configs.build_poly_echo_performance(num_voices=voices, seconds=seconds)
+    n_chunks = -(-total // CHUNK)
+    return max(chunkify_tiled(p["phase"], CHUNK, n_chunks, total)["tb"].shape[-1]
+               for p in perf.programs if isinstance(p, dict) and "phase" in p)
 
 
 def dense_case(rng, V, n, cut_form, masked, device, res=0.7, scalar_cut=0.2):
@@ -449,6 +498,50 @@ def check_lookup(lookup, case, label):
     return err
 
 
+def taps_case(rng, N, n, device, lo, hi):
+    """The sampler's two index arrays of a chunk: idx_a from [lo, hi),
+    idx_b = idx_a + 1, each [1, n]; a table of N samples."""
+    import torch
+
+    table = rng.standard_normal(N).astype("float32")
+    ia = rng.integers(lo, hi, (1, n)).astype("int32")
+    return tuple(torch.from_numpy(a).to(device) for a in (ia, ia + 1, table))
+
+
+def check_taps(lookup, case, loop, label):
+    """The two-tap entry against its plain version, bit for bit."""
+    import torch
+
+    ia, ib, table = case
+    N = table.shape[0]
+    got = lookup.sampler_taps(ia, ib, table, N, loop)
+    want = lookup.sampler_taps_ref(ia, ib, table, N, loop)
+    torch.cuda.synchronize()
+    exact = torch.equal(got, want)
+    err = float((got - want).abs().max())
+    print(f"  {label}: 2 x {tuple(ia.shape)}, N={N}, {'looped' if loop else 'one shot'}: "
+          f"{'bit-exact' if exact else 'DIFFERS'}, max |diff| {err:.3e}, "
+          f"{int(((ia < 0) | (ia >= N)).sum())} of tap a outside [0, N)")
+    if not exact:
+        raise AssertionError(f"{label}: sampler_taps disagrees with sampler_taps_ref")
+    return err
+
+
+def host_us(fn, reps):
+    """The host's microseconds a call: the enqueue, no synchronisation
+    inside the loop."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 # ---------------------------------------------------------------------------
 # K5
 
@@ -589,11 +682,11 @@ def check_plain(audio, plain_audio, label):
             raise AssertionError(f"{label}: {db:.1f} dBFS from the plain path")
 
 
-# the kernel each example launches once (twice: the sampler's two taps) a
-# render chunk; the other examples launch none
+# the kernel each example launches once a render chunk (detuned's twice: its
+# two filters); the other examples launch none
 EXAMPLE_KERNEL = {"play": ("svf_dense", 1), "fmsynth": ("fm_feedback", 1),
                   "polyphony": ("svf_table", 1), "polyphony2": ("svf_table", 1),
-                  "sampler": ("table_lookup", 2), "song": ("svf_table", 1),
+                  "sampler": ("table_lookup", 1), "song": ("svf_table", 1),
                   "stereo": ("svf_dense", 1), "detuned": ("svf_dense", 2)}
 TOL_WARBLE = 1e-5  # detuned's warble multiplier vs the JAX trajectory, relative
 FM_PLAIN_SECONDS = 2.0  # fmsynth's plain-path render (a Python loop over samples)
@@ -607,7 +700,8 @@ def plain_routers(filters, fm, lookup):
     for mod, attr, ref in ((filters, "svf_filter", filters.svf_filter_ref),
                            (filters, "svf_filter_table", filters.svf_filter_table_ref),
                            (fm, "fm_feedback", fm.fm_feedback_ref),
-                           (lookup, "table_lookup", lookup.table_lookup_ref)):
+                           (lookup, "table_lookup", lookup.table_lookup_ref),
+                           (lookup, "sampler_taps", lookup.sampler_taps_ref)):
         stack.enter_context(mock.patch.object(mod, attr, ref))
     return stack
 
@@ -774,8 +868,29 @@ def main() -> int:
           f"(compiler time; {time.perf_counter() - t:.2f}s wall, in parallel)")
 
     def k1(label, a):
-        return check_svf(svf_label(label, a), filters.svf_filter_table,
-                         filters.svf_filter_table_ref, a)
+        err = check_svf(svf_label(label, a), filters.svf_filter_table,
+                        filters.svf_filter_table_ref, a)
+        k1_device(label, a)
+        return err
+
+    def k1_device(label, a):
+        """K1's device time at one case, beside its bound."""
+        bound_ms, bound_by = bound(*svf_table_bytes_ops(a))
+        dev_ms = device_ms(lambda: filters.svf_filter_table(*a), "svf_table_kernel",
+                           100 if a[2].shape[0] < 256 else 20)
+        print(f"    device {dev_ms:.4f} ms a launch, bound {bound_ms * 1e3:.3f} us "
+              f"({bound_by}) [{card}]")
+        k1_dev[label] = dict(device_ms=dev_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    def k1_emulated(label, a):
+        """K1 against its seams composed in torch: bit for bit."""
+        got, want = filters.svf_filter_table(*a), svf_cuda.svf_table_emulated(*a)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"  {svf_label(label, a)} vs svf_table_emulated: "
+              f"{'bit-exact' if same else 'NOT bit-exact'}")
+        if not same:
+            raise AssertionError(f"{label}: K1 is not its seams composed in torch")
 
     def k2(label, a):
         return check_svf(dense_label(label, a), filters.svf_filter, filters.svf_filter_ref, a)
@@ -792,20 +907,40 @@ def main() -> int:
 
     # 3. K1 vs plain on the card
     rng = np.random.default_rng(20261016)
+    t = time.perf_counter()
+    s_render = render_slots(configs, 1024, 30.0)
+    print(f"poly_echo at 1024 voices x 30 s: K1's tables have {s_render} slots a tile "
+          f"(counted from its plan in {time.perf_counter() - t:.1f}s)")
     print(f"K1 svf_table vs svf_filter_table_ref (rms < {TOL_DB} dBFS, "
           f"end state |diff| < {TOL_STATE}):")
+    k1_dev = {}
     song_case = svf_case(rng, 14, CHUNK, 128, 2, 7 * CHUNK, dev)
     poly_case = svf_case(rng, 1024, CHUNK, 128, 2, 5 * CHUNK, dev)
+    ragged_case = svf_case(rng, 3, 2048, 4, 3, 4096, dev)
     ex_chunk = examples.DEFAULT_CHUNK
+    polyphony_case = svf_case(rng, 39, ex_chunk, 32, 2, 3 * ex_chunk, dev)
     svf_err = {
-        "song": max(k1("song shape", song_case),
-                    k1("ragged shape", svf_case(rng, 3, 2048, 4, 3, 4096, dev))),
+        "song": max(k1("song shape", song_case), k1("ragged shape", ragged_case)),
         "poly_echo": k1("poly_echo shape", poly_case),
         # the polyphony examples' chunk: 32 tiles of 512 frames
-        "polyphony": max(k1("polyphony shape", svf_case(rng, 39, ex_chunk, 32, 2,
-                                                        3 * ex_chunk, dev)),
+        "polyphony": max(k1("polyphony shape", polyphony_case),
                          k1("polyphony2 shape", svf_case(rng, 3, ex_chunk, 32, 3,
-                                                         5 * ex_chunk, dev)))}
+                                                         5 * ex_chunk, dev))),
+        # the render's own slot count, every sample active
+        "poly_echo render slots": k1("poly_echo render slots",
+                                     svf_case(rng, 1024, CHUNK, 128, s_render, 5 * CHUNK,
+                                              dev, always_active=True))}
+    # render_wav song --chunk 262144: the cluster walks 16 windows in 2 rounds;
+    # a 35-tile chunk: 4 windows of 4480 frames
+    long_case = svf_case(rng, 14, 4 * CHUNK, 512, 2, 4 * CHUNK, dev)
+    windows_case = svf_case(rng, 3, 35 * 512, 35, 3, CHUNK, dev)
+    svf_err["long chunk"] = max(k1("long chunk", long_case),
+                                k1("4480-frame windows", windows_case))
+    for label, a in (("song shape", song_case), ("polyphony shape", polyphony_case),
+                     ("ragged shape", ragged_case), ("long chunk", long_case),
+                     ("4480-frame windows", windows_case)):
+        k1_emulated(label, a)
+    del long_case
     V, n, nt, t0 = 4, 4096, 8, 1024
     chain = svf_case(rng, V, 2 * n, 2 * nt, 3, t0, dev)
     check_svf_chain(f"chained 2 x {n}", filters.svf_filter_table,
@@ -815,30 +950,121 @@ def main() -> int:
                                      chain[4][:, k * nt:(k + 1) * nt].contiguous(),
                                      chain[5][:, k * nt:(k + 1) * nt].contiguous(), 0.7,
                                      t0 + k * n, chain[8]))
+    k1_device("chained half", (chain[0], chain[1], chain[2][:, :n].contiguous(), "low_pass",
+                               chain[4][:, :nt].contiguous(), chain[5][:, :nt].contiguous(),
+                               0.7, t0, chain[8]))
     svf_t = {"song": k1_time("song", song_case, 100, 10),
              "poly_echo": k1_time("poly_echo", poly_case, 20, 3)}
+    mhz = float(smi("clocks.max.sm").split()[0])
+    cluster = svf_cuda.svf_table_geometry(*song_case[2].shape, *song_case[4].shape[1:]).cluster
+    # an estimate, printed only: the kernels line carries measured times
+    print(f"  K1's latency floor at the song shape, an estimate: "
+          f"{k1_chain_floor_us(cluster, mhz):.3f} us at {mhz:.0f} MHz (the dependent "
+          f"chain at {CYCLES_PER_DEPENDENT_OP} cycles an operation), beside the bytes "
+          f"bound {svf_t['song']['bound_ms'] * 1e3:.3f} us and the device time "
+          f"{svf_t['song']['device_ms'] * 1e3:.1f} us [{card}]")
+    for label in ("ragged shape", "polyphony shape", "polyphony2 shape",
+                  "poly_echo render slots", "chained half", "long chunk", "4480-frame windows"):
+        svf_t[label.replace(" shape", "")] = k1_dev[label]
     del poly_case
 
-    # 4. K4 vs plain on the card
-    print("K4 table_lookup vs table_lookup_ref (bit for bit):")
+    # 4. K4 vs plain on the card: the two-tap entry, then the generic one
+    print("K4 sampler_taps vs sampler_taps_ref and table_lookup vs table_lookup_ref "
+          "(bit for bit):")
     n_drum = configs.SamplerInstrument().table.num_samples
-    sam_case = lookup_case(rng, n_drum, CHUNK // 512, dev)
-    lk_err = max(
-        check_lookup(lookup, sam_case, "sampler shape"),
-        check_lookup(lookup, lookup_case(rng, n_drum, ex_chunk // 512, dev),
-                     "sampler example shape"),
-        check_lookup(lookup, lookup_case(rng, 128 * 2048, CHUNK // 512, dev),
-                     "largest table"),
-        check_lookup(lookup, lookup_case(rng, n_drum, CHUNK // 512, dev, p_sel=0.5,
-                                         out_of_range=True), "one-shot edges"))
-    idx, sel, table = sam_case
-    idx_long = idx.long()  # torch.take wants int64 indices
-    # idx and sel read, out written, the table read; one multiply a sample
-    lk_t = timing(card, "sampler", lambda: lookup.table_lookup(idx, sel, table),
-                  lambda: lookup.table_lookup_ref(idx, sel, table), "table_lookup_kernel",
-                  12 * idx.numel() + 4 * table.numel(), idx.numel(), 200, 50,
-                  library=("torch.take(table, idx) * sel",
-                           lambda: torch.take(table, idx_long) * sel))
+    big = 128 * 2048
+    sam_taps = taps_case(rng, n_drum, CHUNK, dev, -n_drum, 2 * n_drum)
+    lk_err = {
+        "sampler": max(
+            check_taps(lookup, sam_taps, True, "sampler shape"),
+            check_taps(lookup, taps_case(rng, n_drum, ex_chunk, dev, -n_drum, 2 * n_drum),
+                       True, "sampler example shape"),
+            check_taps(lookup, taps_case(rng, n_drum, CHUNK, dev, -n_drum // 4,
+                                         n_drum + n_drum // 4), False, "one-shot edges"),
+            check_taps(lookup, taps_case(rng, big, CHUNK, dev, -big, 2 * big), True,
+                       "largest table"),
+            check_taps(lookup, taps_case(rng, big, CHUNK, dev, -big // 4, big + big // 4),
+                       False, "largest table, one shot")),
+        "generic": max(
+            check_lookup(lookup, lookup_case(rng, n_drum, CHUNK // 512, dev),
+                         "generic, sampler shape"),
+            check_lookup(lookup, lookup_case(rng, n_drum, ex_chunk // 512, dev),
+                         "generic, sampler example shape"),
+            check_lookup(lookup, lookup_case(rng, big, CHUNK // 512, dev),
+                         "generic, largest table"),
+            check_lookup(lookup, lookup_case(rng, n_drum, CHUNK // 512, dev, p_sel=0.5,
+                                             out_of_range=True),
+                         "generic, one-shot edges"))}
+    ia, ib, table = sam_taps
+    taps = {loop: (lambda loop=loop: lookup.sampler_taps(ia, ib, table, n_drum, loop))
+            for loop in (True, False)}
+    pair = torch.stack((ia, ib))
+    # the library call, one torch.take, on indices stacked, wrapped (looped) or
+    # clipped (one shot) and made int64 beforehand, untimed; one shot also
+    # multiplies by a sel made beforehand
+    wrapped = torch.remainder(pair, n_drum).long()
+    clipped = torch.clamp(pair, 0, n_drum - 1).long()
+    sel = ((pair >= 0) & (pair < n_drum)).to(torch.float32)
+    library = {True: ("torch.take on the wrapped int64 indices",
+                      lambda: torch.take(table, wrapped)),
+               False: ("torch.take on the clipped int64 indices * sel",
+                       lambda: torch.take(table, clipped) * sel)}
+    # the yardstick: the fewest PyTorch calls that compute the same function
+    # from the same inputs (the two int32 index arrays)
+    def one_shot():
+        p = torch.stack((ia, ib))
+        return table[p.clamp(0, n_drum - 1)] * ((p >= 0) & (p < n_drum))
+
+    yardstick = {True: lambda: table[torch.stack((ia, ib)) % n_drum], False: one_shot}
+    # the two-launch path the sampler took before: a tap at a time, wrapped
+    # and sel made in torch, then the one-tap entry
+    ones = torch.ones(ia.shape, dtype=torch.float32, device=dev)
+    per_tap = lambda: [lookup.table_lookup(torch.remainder(i, n_drum).to(torch.int32),
+                                           torch.ones_like(ones), table) for i in (ia, ib)]
+    for loop in (True, False):
+        if not (torch.equal(taps[loop](), library[loop][1]())
+                and torch.equal(taps[loop](), yardstick[loop]())):
+            raise AssertionError("sampler_taps differs from torch.take")
+    lk_t = {}
+    for loop, key in ((True, "sampler"), (False, "one shot")):
+        # both taps' indices read and outputs written, the table read; the
+        # wrap and the product a sample
+        lk_t[key] = timing(card, f"sampler taps, {'looped' if loop else 'one shot'}",
+                           taps[loop],
+                           lambda loop=loop: lookup.sampler_taps_ref(ia, ib, table, n_drum,
+                                                                     loop),
+                           "lookup_kernel", 16 * ia.numel() + 4 * table.numel(),
+                           2 * ia.numel(), 500, 50, library=library[loop])
+        y = [time_ms(yardstick[loop], 500) for _ in range(2)]
+        h = [host_us(f, 500) for f in (taps[loop], library[loop][1], yardstick[loop])
+             for _ in range(2)]
+        lk_t[key].update(yardstick_ms=sum(y) / 2, host_us=(h[0] + h[1]) / 2,
+                         library_host_us=(h[2] + h[3]) / 2, yardstick_host_us=(h[4] + h[5]) / 2)
+        what = "table[stack % N]" if loop else "table[stack.clamp(0, N - 1)] * sel"
+        print(f"  the same function from the same inputs, {what} [{card}]: "
+              f"{y[0]:.4f} / {y[1]:.4f} ms; host a call: "
+              f"sampler_taps {h[0]:.1f} / {h[1]:.1f} us, the library call {h[2]:.1f} / "
+              f"{h[3]:.1f} us, the yardstick {h[4]:.1f} / {h[5]:.1f} us")
+        if not lk_t[key]["ms"] <= lk_t[key]["yardstick_ms"]:
+            raise AssertionError("sampler_taps is slower a call than the PyTorch calls for "
+                                 "the same function from the same inputs")
+        if lk_t[key]["ms"] > lk_t[key]["library_ms"]:
+            print(f"  sampler_taps is slower a call than {library[loop][0]} (prepared "
+                  f"indices): {lk_t[key]['ms'] * 1e3:.1f} against "
+                  f"{lk_t[key]['library_ms'] * 1e3:.1f} us")
+    p = [time_ms(per_tap, 500) for _ in range(2)]
+    ph = [host_us(per_tap, 500) for _ in range(2)]
+    lk_t["sampler"].update(per_tap_ms=sum(p) / 2, per_tap_host_us=sum(ph) / 2)
+    print(f"  the two-launch path it replaced (a tap at a time: wrap, sel, table_lookup) "
+          f"[{card}]: {p[0]:.4f} / {p[1]:.4f} ms, host {ph[0]:.1f} / {ph[1]:.1f} us a chunk")
+    idx, sel1 = wrapped[0].to(torch.int32), ones
+    lk_t["generic"] = timing(card, "generic lookup",
+                             lambda: lookup.table_lookup(idx, sel1, table),
+                             lambda: lookup.table_lookup_ref(idx, sel1, table),
+                             "lookup_kernel", 12 * idx.numel() + 4 * table.numel(),
+                             idx.numel(), 200, 50,
+                             library=("torch.take(table, idx) * sel",
+                                      lambda: torch.take(table, wrapped[0]) * sel1))
 
     # 5. K2 vs plain on the card
     print(f"K2 svf_dense vs svf_filter_ref (rms < {TOL_DB} dBFS, "
@@ -947,9 +1173,9 @@ def main() -> int:
     params = json.loads(str(cgold["params"]))
     if params["chunk_size"] != CHUNK:
         raise AssertionError("the configs' golden file is for another chunk size")
-    plain_paths = {"sampler": (lookup, "table_lookup", lookup.table_lookup_ref),
+    plain_paths = {"sampler": (lookup, "sampler_taps", lookup.sampler_taps_ref),
                    "poly_echo": (filters, "svf_filter_table", filters.svf_filter_table_ref)}
-    runs = [("sampler", "sampler", 10.0, None, "table_lookup", 2, "all"),
+    runs = [("sampler", "sampler", 10.0, None, "table_lookup", 1, "all"),
             ("poly_echo", "poly_echo", 30.0, 1024, "svf_table", 1, "all"),
             # the JAX package's capacity sizes (bench.py bench_poly); the
             # plain path's affine scan at 4096 voices fits one chunk
@@ -1051,7 +1277,7 @@ def main() -> int:
         kernel_row("svf_onepass", "svf_onepass.cu", "zang_tpu/ops/pallas_svf.py:650",
                    onepass_err, onepass_t, "v16384"),
         kernel_row("table_lookup", "table_lookup.cu", "zang_tpu/ops/pallas_lookup.py:64",
-                   {"sampler": lk_err}, {"sampler": lk_t}, "sampler"),
+                   lk_err, lk_t, "sampler"),
         kernel_row("fm_feedback", "fm_feedback.cu", "zang_tpu/ops/pallas_fm.py:64",
                    fm_err, fm_t, "fmsynth"),
     ]

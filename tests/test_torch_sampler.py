@@ -1,6 +1,6 @@
-"""The port's sampler path against zang_tpu's: the table lookup (K4), the
-sampler's plans and taps, distortion and the decimator, and the sampler
-config end to end.
+"""The port's sampler path against zang_tpu's: the table lookup (K4) and
+its two-tap entry, the sampler's plans and taps, distortion and the
+decimator, and the sampler config end to end.
 
 JAX runs on the CPU as its own tests run it: the Pallas lookup kernel in
 interpret mode (tests/test_ops_effects.py TestPallasTableLookup), and
@@ -88,6 +88,87 @@ def test_lookup_kernel_raises_on_cpu_tensor():
     idx, sel, table = (torch.from_numpy(a) for a in _lookup_case(0, 100, 1))
     with pytest.raises(ValueError, match="CUDA"):
         lookup.table_lookup_cuda(idx, sel, table)
+
+
+# ---------------------------------------------------------------------------
+# K4's two-tap entry: both of the sampler's taps, wrapped or clipped, at once
+
+
+def _per_tap(idx, table, num_samples, loop):
+    """One tap the per-tap way: wrap (loop) or clip and sel in torch, then
+    the generic lookup."""
+    if loop:
+        sel = torch.ones(idx.shape, dtype=torch.float32)
+        idx = torch.remainder(idx, num_samples)
+    else:
+        sel = ((idx >= 0) & (idx < num_samples)).to(torch.float32)
+        idx = torch.clamp(idx, 0, num_samples - 1)
+    return lookup.table_lookup(idx.to(torch.int32).contiguous(), sel, table)
+
+
+def _taps_case(seed, N, n, lo, hi, step=None):
+    """idx_a from [lo, hi) (or a run from lo by step, as reverse play
+    walks), idx_b = idx_a + 1, [1, n]; a table of N samples."""
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal(N).astype(np.float32)
+    if step is None:
+        a = rng.integers(lo, hi, (1, n))
+    else:
+        a = lo + step * np.arange(n)[None, :]
+    return a.astype(np.int32), (a + 1).astype(np.int32), table
+
+
+TAPS_CASES = {
+    "looped": dict(loop=True, seed=20, N=35280, n=4096, lo=0, hi=35280),
+    "one_shot": dict(loop=False, seed=21, N=35280, n=4096, lo=0, hi=35280),
+    "reverse_looped": dict(loop=True, seed=22, N=35280, n=2048, lo=700, hi=None, step=-3),
+    "reverse_one_shot": dict(loop=False, seed=23, N=35280, n=2048, lo=700, hi=None,
+                             step=-3),
+    "beyond_n_looped": dict(loop=True, seed=24, N=4097, n=2048, lo=-3 * 4097,
+                            hi=3 * 4097),
+    "beyond_n_one_shot": dict(loop=False, seed=25, N=4097, n=2048, lo=-300, hi=4097 + 300),
+    "long_table_looped": dict(loop=True, seed=26, N=300_000, n=1024, lo=-400_000,
+                              hi=700_000),
+    "long_table_one_shot": dict(loop=False, seed=27, N=300_000, n=1024, lo=-1000,
+                                hi=301_000),
+}
+
+
+@pytest.mark.parametrize("name", list(TAPS_CASES))
+def test_sampler_taps_ref_matches_per_tap_and_pallas(name):
+    """The two-tap plain version against one tap at a time (the wrap in
+    torch, then the lookup) and against the JAX package's _pallas_taps (the
+    Pallas lookup in interpret mode), bit for bit: looped and one shot,
+    negative indices, indices >= N, a table longer than 262,144 samples."""
+    kw = dict(TAPS_CASES[name])
+    loop = kw.pop("loop")
+    ia, ib, table = _taps_case(**kw)
+    N = table.shape[0]
+    ta, tb_, tt = torch.from_numpy(ia), torch.from_numpy(ib), torch.from_numpy(table)
+    got = lookup.sampler_taps_ref(ta, tb_, tt, N, loop)
+    assert got.shape == (2, *ia.shape) and got.dtype == torch.float32
+    for k, idx in enumerate((ta, tb_)):
+        assert torch.equal(got[k], _per_tap(idx, tt, N, loop))
+        ok = jnp.ones(idx.shape, dtype=bool)
+        want = np.asarray(jsam._pallas_taps(jnp.asarray(idx.numpy()), ok, jnp.asarray(table),
+                                            N, loop, interpret=True))
+        np.testing.assert_array_equal(got[k].numpy(), want)
+    if loop:
+        assert (got != 0).all()
+    else:
+        outside = (ia < 0) | (ia >= N)
+        assert (got[0].numpy()[outside] == 0).all()
+        assert outside.any() != (name == "one_shot")
+    # the router takes the plain version for CPU tensors and launches nothing
+    before = lookup.table_lookup_launches
+    assert torch.equal(lookup.sampler_taps(ta, tb_, tt, N, loop), got)
+    assert lookup.table_lookup_launches == before
+
+
+def test_sampler_taps_kernel_raises_on_cpu_tensor():
+    ia, ib, table = (torch.from_numpy(a) for a in _taps_case(0, 100, 512, 0, 100))
+    with pytest.raises(ValueError, match="CUDA"):
+        lookup.sampler_taps_cuda(ia, ib, table, 100, True)
 
 
 # ---------------------------------------------------------------------------
@@ -337,6 +418,23 @@ def test_lookup_kernel_matches_plain_on_card(cuda_device, case):
     torch.cuda.synchronize()
     assert lookup.table_lookup_launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TAPS_CASES))
+def test_sampler_taps_kernel_matches_plain_on_card(cuda_device, name):
+    """One launch for both taps, bit for bit with the plain version."""
+    kw = dict(TAPS_CASES[name])
+    loop = kw.pop("loop")
+    ia, ib, table = (torch.from_numpy(a).to(cuda_device) for a in _taps_case(**kw))
+    before = lookup.table_lookup_launches
+    got = lookup.sampler_taps(ia, ib, table, table.shape[0], loop)
+    want = lookup.sampler_taps_ref(ia, ib, table, table.shape[0], loop)
+    torch.cuda.synchronize()
+    assert lookup.table_lookup_launches == before + 1
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="num_samples"):
+        lookup.sampler_taps(ia, ib, table, table.shape[0] - 1, loop)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,8 @@
 """The port's SVF filters (zang_tpu_torch/ops/filters.py, svf_cuda.py)
 against zang_tpu's: the table-cut filter (K1) and the dense-cut one (K2).
+K1's launch geometry, its seams composed in torch (svf_table_emulated) and
+its slot walk are checked here too, since its CUDA body runs only on the
+card.
 
 The plain torch versions are held to the JAX package's CPU fallback and to
 its Pallas kernels in interpret mode, with the bounds of
@@ -159,6 +162,141 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+# ---------------------------------------------------------------------------
+# K1's design: geometry, seams and slot walk
+
+
+# (V, n, nt) -> (W, cluster, rounds): every shape the port sends K1 (the
+# song, poly_echo at 1024 voices, the polyphony examples, the chained and
+# ragged cases, the test shapes), K1 called by name beside K3, and chunks
+# that render_song and render_wav --chunk take (any multiple of 512)
+GEOMETRY = {
+    (14, 65536, 128): (8192, 8, 1),     # the song
+    (1024, 65536, 128): (8192, 8, 1),   # poly_echo at 1024 voices
+    (16384, 65536, 128): (8192, 8, 1),  # K1 by name at the capacity size
+    (39, 16384, 32): (8192, 2, 1),      # polyphony
+    (3, 16384, 32): (8192, 2, 1),       # polyphony2
+    (4096, 16384, 32): (8192, 2, 1),    # beside K3
+    (4, 4096, 8): (4096, 1, 1),         # a chained half
+    (3, 2048, 4): (2048, 1, 1),         # ragged
+    (6, 2048, 128): (2048, 1, 1),       # 16-frame tiles
+    (2, 12288, 24): (6144, 2, 1),       # a window that is not 8192
+    (2, 17920, 35): (4480, 4, 1),       # 35 tiles of 512: 3 windows do not cut it
+    (3, 8208, 8): (2736, 3, 1),         # a multiple of 16 only
+    (2, 131072, 256): (16384, 8, 1),    # the most one round takes
+    (14, 262144, 512): (16384, 8, 2),   # render_wav song --chunk 262144
+    (1, 393216, 768): (16384, 8, 3),
+    (1, 16 * 4099, 1): (16, 1, 4099),   # a prime count of runs: one run a window
+}
+
+
+@pytest.mark.parametrize("shape", list(GEOMETRY), ids=lambda s: "x".join(map(str, s)))
+def test_k1_geometry(shape):
+    V, n, nt = shape
+    g = svf_cuda.svf_table_geometry(V, n, nt, 3)
+    assert (g.window, g.cluster, g.rounds) == GEOMETRY[shape]
+    assert g.run == 16 and g.window * g.cluster * g.rounds == n and g.window % g.run == 0
+    assert 1 <= g.cluster <= 8 and g.window <= 16384
+    assert g.threads % 32 == 0 and g.threads - 32 < g.window // g.run <= g.threads <= 1024
+    tile = n // nt
+    assert g.tiles >= max(((w + 1) * g.window - 1) // tile - w * g.window // tile + 1
+                          for w in range(g.cluster * g.rounds))
+    assert g.shared == 4 * 20 * (g.window // 16) + 8 * g.tiles * 3 <= 227 * 1024
+
+
+def test_k1_geometry_takes_every_render_chunk():
+    """Every chunk size that the renderers accept (a multiple of 512, here
+    up to 307,200 frames), in the song's 512-frame tiles."""
+    for n in range(512, 600 * 512 + 1, 512):
+        g = svf_cuda.svf_table_geometry(14, n, n // 512, 2)
+        assert g.window * g.cluster * g.rounds == n and g.window % 16 == 0, n
+
+
+@pytest.mark.parametrize("shape, match", [
+    ((3, 1000, 8), "multiple of 16"),        # runs do not tile the chunk
+    ((3, 8200, 8), "multiple of 16"),
+    ((3, 2048, 5), "does not split"),        # n % nt
+    ((3, 65536, 65536, 4), "shared memory"),  # tables too large to stage
+    ((0, 2048, 4), "V, n, nt, S >= 1"),
+])
+def test_k1_geometry_raises(shape, match):
+    V, n, nt, *S = shape
+    with pytest.raises(ValueError, match=match):
+        svf_cuda.svf_table_geometry(V, n, nt, S[0] if S else 3)
+
+
+@pytest.mark.parametrize("case", [
+    dict(V=3, nt=128, T=512, S=2, t0=7 * 65536),   # the song's chunk, 3 voices
+    dict(V=5, nt=32, T=512, S=3, t0=3 * 16384),    # polyphony's chunk
+    dict(V=3, nt=4, T=512, S=3, t0=4096),          # ragged
+    dict(V=2, nt=128, T=16, S=3, t0=100),          # 16-frame tiles
+    dict(V=2, nt=512, T=24, S=5, t0=0),            # tiles that runs straddle
+    dict(V=2, nt=35, T=512, S=3, t0=65536),        # four windows of 4480 frames
+    dict(V=2, nt=512, T=512, S=2, t0=0),           # two rounds of the cluster
+], ids=["song", "polyphony", "ragged", "tile16", "tile24", "windows4480", "rounds2"])
+def test_k1_emulation_matches_plain(case):
+    """K1's seams (runs of 16 frames, warps, windows, the cluster's order)
+    composed in torch hold to svf_filter_table_ref within the bounds the
+    kernel is held to on the card."""
+    c = _case(12, **case)
+    args = _torch_args(c, "low_pass")
+    _assert_close(svf_cuda.svf_table_emulated(*args), tfilt.svf_filter_table_ref(*args))
+
+
+def _slot_walk(tb, cv, n, t0, window):
+    """The cutoffs K1's threads read, in plain Python as csrc/svf_table.cu
+    walks them: a window's tables staged with the boundaries as suffix
+    minima, each run's slot found once and moved forward at a boundary or a
+    tile edge."""
+    V, nt, S = tb.shape
+    tile = n // nt
+    out = np.empty((V, n), np.float32)
+    for v in range(V):
+        for lo in range(0, n, window):
+            k0 = lo // tile
+            rows = {}
+            for k in range(k0, (lo + window - 1) // tile + 1):
+                m, row = 2 ** 31 - 1, [0] * S
+                for j in range(S - 1, 0, -1):
+                    m = min(m, int(tb[v, k, j]))
+                    row[j] = m
+                row[0] = -(2 ** 31)
+                rows[k] = row
+            for f0 in range(lo, lo + window, 16):
+                k, j = f0 // tile, 0
+                edge = (k + 1) * tile
+                nxt = rows[k][1] if S > 1 else 2 ** 31 - 1
+                for f in range(f0, f0 + 16):
+                    if f == edge:
+                        k, j, edge = k + 1, 0, edge + tile
+                        nxt = rows[k][1] if S > 1 else 2 ** 31 - 1
+                    while t0 + f >= nxt:
+                        j += 1
+                        nxt = rows[k][j + 1] if j + 1 < S else 2 ** 31 - 1
+                    out[v, f] = cv[v, k, j]
+    return out
+
+
+@pytest.mark.parametrize("T, S, window", [(24, 5, 384), (8, 3, 256), (512, 4, 2048),
+                                          (48, 1, 768)])
+def test_k1_slot_walk_is_the_table_rule(T, S, window):
+    """The slot walk gives eval_tiled_chunk's cutoff on every sample, for
+    tables whose slots are not in order and tiles that are not a multiple
+    of the run (runs straddle tile edges)."""
+    from zang_tpu_torch.ops.segprog import eval_tiled_chunk
+
+    rng = np.random.default_rng(T * S)
+    V, nt, t0 = 3, 2 * window // T, 5000
+    n = nt * T
+    tb = (rng.integers(-T, 2 * T, (V, nt, S)) + t0
+          + np.arange(nt)[None, :, None] * T).astype(np.int32)
+    tb[:, :, 0] = rng.integers(-(2 ** 31), 2 ** 31 - 1, (V, nt))  # never read
+    cv = rng.uniform(0.05, 0.9, (V, nt, S)).astype(np.float32)
+    want = eval_tiled_chunk({"tb": torch.from_numpy(tb), "cut": torch.from_numpy(cv)},
+                            t0 + torch.arange(n, dtype=torch.int32))["cut"].numpy()
+    np.testing.assert_array_equal(_slot_walk(tb, cv, n, t0, window), want)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -178,6 +316,30 @@ def test_kernel_matches_plain_on_card(cuda_device, shape):
     torch.cuda.synchronize()
     assert svf_cuda.svf_table_launches == before + 1
     _assert_close(tuple(v.cpu() for v in got), tuple(v.cpu() for v in ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(14, 128, 512, 2), (5, 32, 512, 3), (2, 512, 24, 5)])
+def test_kernel_matches_emulation_on_card(cuda_device, shape):
+    """The kernel against its seams composed in torch on the card."""
+    V, nt, T, S = shape
+    c = _case(6, V=V, nt=nt, T=T, S=S, t0=3 * 65536)
+    args = _torch_args(c, "low_pass", cuda_device)
+    got = svf_cuda.svf_table_cuda(*args)
+    want = svf_cuda.svf_table_emulated(*args)
+    torch.cuda.synchronize()
+    _assert_close(tuple(v.cpu() for v in got), tuple(v.cpu() for v in want))
+
+
+@pytest.mark.cuda
+def test_kernel_raises_on_refused_shape(cuda_device):
+    """A chunk that runs of 16 frames do not tile raises; nothing falls
+    back to the plain version."""
+    c = _case(7, V=2, nt=8, T=125, S=3)
+    before = svf_cuda.svf_table_launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tfilt.svf_filter_table(*_torch_args(c, "low_pass", cuda_device))
+    assert svf_cuda.svf_table_launches == before
 
 
 # ---------------------------------------------------------------------------

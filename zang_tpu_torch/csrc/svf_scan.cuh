@@ -1,13 +1,12 @@
-// The SVF filter's block-scan body, shared by the table-cut kernel
-// (svf_table.cu, K1) and the dense-cut kernel (svf_dense.cu, K2). Only the
-// source of each sample's cutoff and activity differs between the two; it is
-// the template parameter Src:
+// The SVF filter's block-scan body of the dense-cut kernel (svf_dense.cu,
+// K2), and the pieces the table-cut kernels take from here: the sample step
+// (step), the affine map of a run (Map) and its composition (compose), used
+// by svf_table.cu (K1, which has its own windowed design) and, the step
+// only, by svf_onepass.cu (K3). In svf_voice only the source of each
+// sample's cutoff and activity is a template parameter, Src:
 //
 //   src.active(i)  is sample i of this voice's chunk active?
 //   src.cut(i)     its cutoff, clipped to [0, 1] (read only when active)
-//
-// The one-pass kernel (svf_onepass.cu, K3) takes only the sample step from
-// here (step).
 //
 // For one voice (one CUDA block of kThreads threads) it computes what
 // zang_tpu/ops/filters.py svf_filter computes:
@@ -33,7 +32,8 @@
 // The dependent chain is ~2T steps a thread; kThreads trades chain length
 // against the number of run seams. x (and a dense cutoff) are read with a
 // stride of T between neighbouring threads (uncoalesced): a known cost, left
-// for a later change. No TMA, no wgmma.
+// for a later change (K1's staging through shared memory is the model). No
+// TMA, no wgmma.
 
 #pragma once
 

@@ -1,14 +1,14 @@
-// The cutoff of the table-cut SVF kernels (svf_table.cu, K1; svf_onepass.cu,
-// K3) from per-tile boundary tables, the tiled segment-program format of
+// The cutoff of the one-pass table-cut SVF kernel (svf_onepass.cu, K3) from
+// per-tile boundary tables, the tiled segment-program format of
 // zang_tpu/ops/segprog.py chunkify_tiled: a chunk of n frames is nt time
 // tiles; each tile has S slots (tb absolute boundary frame, cv cutoff), and
 //
 //   cut(t) = cv[j] for the last slot j (in slot order) with tb[j] <= t,
 //            slot 0 always
 //
-// Both kernels select with table_cut, so the rule is written once; they
-// differ in where a tile's slots lie (K1 reads them in place, K3 keeps the
-// current tile's slots in registers).
+// K3 keeps the current tile's slots in registers and selects with
+// table_cut. The table-cut kernel (svf_table.cu, K1) computes the same rule
+// with a slot pointer over tables staged in shared memory.
 
 #pragma once
 
@@ -26,19 +26,5 @@ __device__ __forceinline__ float table_cut(const int32_t* tb, const float* cv, i
   }
   return c;
 }
-
-// cutoff and activity of one voice's chunk from its tables in device memory
-struct TableCut {
-  const int32_t* tb;  // [nt, S] absolute boundary frames, slot 0 always active
-  const float* cv;    // [nt, S] cutoff per slot, clipped to [0, 1]
-  int S, tile, t0, active_from;
-
-  __device__ __forceinline__ bool active(int i) const { return t0 + i >= active_from; }
-
-  __device__ __forceinline__ float cut(int i) const {
-    const int k = i / tile;
-    return table_cut(tb + k * S, cv + k * S, S, t0 + i);
-  }
-};
 
 }  // namespace zt_svf

@@ -131,19 +131,6 @@ def plan_sampler(
     return SegProgram(starts=starts, values=values)
 
 
-def _lookup_taps(idx: torch.Tensor, table: torch.Tensor, num_samples: int,
-                 loop: bool) -> torch.Tensor:
-    """table[idx % N] (looped) or table[idx] with 0 outside [0, N) (one
-    shot), through ops.lookup.table_lookup."""
-    if loop:
-        sel = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
-        idx = torch.remainder(idx, num_samples)  # reverse play makes idx < 0
-    else:
-        sel = ((idx >= 0) & (idx < num_samples)).to(torch.float32)
-        idx = torch.clamp(idx, 0, num_samples - 1)
-    return lookup.table_lookup(idx.to(torch.int32).contiguous(), sel, table)
-
-
 def eval_sampler(
     vals: dict,
     t_idx: torch.Tensor,
@@ -155,8 +142,9 @@ def eval_sampler(
     """Device: per-sample playback from evaluated program values (t0, mode,
     seg_start, each [V, n]). table: f32 [num_samples] on t_idx's device.
 
-    The two taps are read through ops.lookup.table_lookup: the CUDA kernel
-    for CUDA tensors, its plain version for CPU tensors."""
+    The two taps are read through ops.lookup.sampler_taps, which wraps or
+    clips their indices: one launch of the CUDA kernel for CUDA tensors, its
+    plain version for CPU tensors."""
     dt = (t_idx[None, :] - vals["seg_start"]).to(torch.float32)
     mode = vals["mode"]
     if num_samples == 0:
@@ -171,8 +159,8 @@ def eval_sampler(
     # one lookup serves the first tap of the resample and the copy (fast)
     # modes (their indices are program-span disjoint); the second only
     # matters in resample mode (Sampler.zig:105-130)
-    tap_a = _lookup_taps(torch.where(mode == 2, ifast, it0), table, num_samples, loop)
-    tap_b = _lookup_taps(it0 + 1, table, num_samples, loop)
+    tap_a, tap_b = lookup.sampler_taps(torch.where(mode == 2, ifast, it0), it0 + 1,
+                                       table, num_samples, loop)
     s_re = tap_a * (1.0 - tfrac) + tap_b * tfrac
     zero = torch.zeros((), dtype=torch.float32, device=dt.device)
     return torch.where(mode == 1, s_re, torch.where(mode == 2, tap_a, zero))

@@ -2,7 +2,8 @@
 zang_tpu/ops/pallas_svf.py:
 
   svf_table_cuda  the table-cut kernel (csrc/svf_table.cu, K1), for
-                  svf_filter_pallas_table
+                  svf_filter_pallas_table; svf_table_geometry is its launch
+                  geometry and svf_table_emulated its seams composed in torch
   svf_dense_cuda  the dense-cut kernel (csrc/svf_dense.cu, K2), for
                   svf_filter_pallas
   svf_onepass_cuda  the one-pass table-cut kernel for large voice counts
@@ -15,6 +16,8 @@ svf_onepass_launches count the launches.
 """
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,7 +34,8 @@ _I64 = ctypes.c_longlong
 
 # source stem -> its C function and argument types
 _ARGTYPES = {
-    "svf_table": [_C] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [_C],
+    "svf_table": [_C] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [ctypes.c_int] * 4
+    + [_C],
     "svf_onepass": [_C] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [_C],
     "svf_dense": [_C] * 8 + [ctypes.c_int] * 2 + [_I64] * 4 + [ctypes.c_float] * 5 + [_C],
 }
@@ -62,9 +66,11 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _launch_table_cut(stem, l0, b0, x, filter_type, tb, cutv, res, t0, active_from, out):
+def _launch_table_cut(stem, l0, b0, x, filter_type, tb, cutv, res, t0, active_from, out,
+                      extra=lambda V, n, nt, S: ()):
     """Check the arguments that the two table-cut kernels share (see
-    svf_table_cuda), allocate what is not given and launch zt_<stem>.
+    svf_table_cuda), allocate what is not given and launch zt_<stem>;
+    extra(V, n, nt, S) gives the C arguments that follow the shared ones.
     Returns (l_end, b_end, out)."""
     from .filters import FILTER_MULS
 
@@ -77,6 +83,7 @@ def _launch_table_cut(stem, l0, b0, x, filter_type, tb, cutv, res, t0, active_fr
     _, nt, S = tb.shape
     if nt < 1 or S < 1 or n % nt:
         raise ValueError(f"chunk of {n} frames does not split into {nt} tiles")
+    extra_args = extra(V, n, nt, S)
     dev = x.device
     cv = torch.clamp(cutv, 0.0, 1.0).contiguous()
     if active_from is None:
@@ -104,23 +111,180 @@ def _launch_table_cut(stem, l0, b0, x, filter_type, tb, cutv, res, t0, active_fr
             x.data_ptr(), tb.data_ptr(), cv.data_ptr(), active_from.data_ptr(),
             l0.data_ptr(), b0.data_ptr(), out.data_ptr(), l_end.data_ptr(),
             b_end.data_ptr(), V, n, nt, S, int(t0), float(r), l_mul, b_mul,
-            h_mul, stream)
+            h_mul, *extra_args, stream)
     if err != 0:
         raise RuntimeError(f"{stem} kernel launch failed: cudaError_t {err}")
     return l_end, b_end, out
 
 
+# K1's geometry (csrc/svf_table.cu): a thread steps a run of SVF_RUN frames; a
+# block a window of W frames; the blocks of a voice form a cluster, which
+# walks the voice's windows in rounds when there are more than it has blocks
+SVF_RUN = 16
+SVF_WINDOW = 8192  # W up to 65,536-frame chunks; n itself below it
+SVF_MAX_CLUSTER = 8  # the portable cluster size: W = n / 8 up to 131,072 frames
+SVF_MAX_THREADS = 1024  # W at most 16,384 frames: rounds beyond 131,072
+SVF_MAX_SHARED = 227 * 1024  # bytes of shared memory a block may have
+SVF_PITCH = SVF_RUN + 4  # floats from one run to the next in shared memory
+
+
+class SvfTableGeometry(NamedTuple):
+    window: int  # W, frames a block takes at a time
+    cluster: int  # blocks a voice
+    rounds: int  # windows a block: n = W * cluster * rounds
+    run: int  # frames a thread
+    threads: int  # a block's, the runs of a window rounded up to whole warps
+    tiles: int  # time tiles of the tables staged with a window, at most
+    shared: int  # bytes of dynamic shared memory a block: x and the tables
+
+
+@functools.lru_cache(maxsize=256)
+def svf_table_geometry(V: int, n: int, nt: int, S: int) -> SvfTableGeometry:
+    """K1's launch geometry for x [V, n] and tables [V, nt, S]; the C entry
+    of csrc/svf_table.cu takes it as it is and only checks it. The windows
+    of a voice: n / 8192 of them up to 8, and at least n / 16,384, the
+    fewest that cut n into whole runs; the cluster is the largest divisor
+    of their count up to 8. Raises ValueError on a shape the kernel does
+    not take: n % nt != 0, n not a multiple of 16, or more than
+    SVF_MAX_SHARED bytes of window and tables."""
+    if V < 1 or n < 1 or nt < 1 or S < 1:
+        raise ValueError(f"K1 needs V, n, nt, S >= 1, got {V}, {n}, {nt}, {S}")
+    if n % nt:
+        raise ValueError(f"chunk of {n} frames does not split into {nt} tiles")
+    if n % SVF_RUN:
+        raise ValueError(f"K1 cuts a chunk into runs of {SVF_RUN} frames: n = {n} is not "
+                         f"a multiple of {SVF_RUN}")
+    windows = max(min(SVF_MAX_CLUSTER, -(-n // SVF_WINDOW)),
+                  -(-n // (SVF_MAX_THREADS * SVF_RUN)))
+    while n % (windows * SVF_RUN):
+        windows += 1
+    cluster = max(c for c in range(1, SVF_MAX_CLUSTER + 1) if windows % c == 0)
+    W = n // windows
+    runs = W // SVF_RUN
+    threads = -(-runs // 32) * 32
+    tiles = min(nt, (W - 1) // (n // nt) + 2)  # the most any window touches, or more
+    shared = 4 * runs * SVF_PITCH + 8 * tiles * S
+    if shared > SVF_MAX_SHARED:
+        raise ValueError(f"K1 stages a window of {W} frames and {tiles} x {S} table "
+                         f"slots: {shared} bytes of shared memory, more than "
+                         f"{SVF_MAX_SHARED}")
+    return SvfTableGeometry(W, cluster, windows // cluster, SVF_RUN, threads, tiles, shared)
+
+
+def _svf_table_launch(V, n, nt, S):
+    """The geometry arguments of zt_svf_table."""
+    g = svf_table_geometry(V, n, nt, S)
+    return g.cluster, g.rounds, g.threads, g.shared
+
+
 def svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
     """Drop-in for ops.filters.svf_filter_table on CUDA tensors.
 
-    x: [V, n] f32; tb: [V, nt, S] i32; cutv: [V, nt, S] f32 (raw, clipped
-    here to [0, 1]); active_from: [V] i32 or None (always active); l0/b0:
-    [V] f32. n % nt == 0. Returns (l_end [V], b_end [V], out [V, n])."""
+    x: [V, n] f32 on 16 bytes; tb: [V, nt, S] i32; cutv: [V, nt, S] f32 (raw,
+    clipped here to [0, 1]); active_from: [V] i32 or None (always active);
+    l0/b0: [V] f32. The shape must suit svf_table_geometry, which raises
+    otherwise. Returns (l_end [V], b_end [V], out [V, n])."""
     global svf_table_launches
-    ret = _launch_table_cut("svf_table", l0, b0, x, filter_type, tb, cutv, res, t0,
-                            active_from, None)
+    if x.device.type == "cuda" and x.data_ptr() % 16:
+        raise ValueError("svf_table_cuda copies x 16 bytes at a time: x must start "
+                         "on 16 bytes")
+    ret = _launch_table_cut(
+        "svf_table", l0, b0, x, filter_type, tb, cutv, res, t0, active_from, None,
+        extra=_svf_table_launch)
     svf_table_launches += 1
     return ret
+
+
+def svf_table_emulated(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
+    """K1's seams composed in torch, on any device: svf_table_cuda's
+    arguments and function, computed as csrc/svf_table.cu computes it. Runs
+    of SVF_RUN frames step their affine maps (phase A); the maps are scanned
+    across the 32 runs of a warp, then across the warps of a window, then
+    the windows' maps are applied in order to (l0, b0), as the cluster's
+    rounds apply them; each run replays the
+    recurrence from its start state (phase B). The cutoff of each sample is
+    eval_tiled_chunk's, the rule the kernel's slot pointer follows. Every
+    f32 operation is the kernel's, in its order."""
+    from .filters import FILTER_MULS, _svf_step
+    from .scan import _affine2_apply, _affine2_combine, associative_scan
+    from .segprog import eval_tiled_chunk
+
+    def scan32(m):  # warp_scan: the Kogge-Stone order over 32 lanes
+        return associative_scan(_affine2_combine, m)
+
+    V, n = x.shape
+    _, nt, S = tb.shape
+    g = svf_table_geometry(V, n, nt, S)
+    R, dev, nwin = g.run, x.device, g.cluster * g.rounds
+    l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
+    r = torch.tensor(_r(res), device=dev)
+    t_idx = int(t0) + torch.arange(n, dtype=torch.int32, device=dev)
+    cut = eval_tiled_chunk({"tb": tb, "cut": torch.clamp(cutv, 0.0, 1.0)}, t_idx)["cut"]
+    act = torch.ones((V, n), dtype=torch.bool, device=dev) if active_from is None else \
+        t_idx[None, :] >= active_from.to(torch.int32)[:, None]
+    # [V, windows, runs of a window, R], the runs padded to whole warps
+    shape = (V, nwin, g.window // R, R)
+    pad = g.threads - g.window // R
+
+    def runs(a, fill):
+        a = a.reshape(shape)
+        return torch.cat([a, torch.full((*shape[:2], pad, R), fill, dtype=a.dtype,
+                                        device=dev)], dim=2) if pad else a
+
+    xr, cr, ar = runs(x, 0.0), runs(cut, 0.0), runs(act, False)
+
+    # phase A: the basis columns under the homogeneous step, as the kernel
+    # writes them out
+    z, o = torch.zeros(xr.shape[:3], device=dev), torch.ones(xr.shape[:3], device=dev)
+    l00, b00, l10, b10, l01, b01 = z, z, o, z, z, o
+    for u in range(R):
+        k, on = cr[..., u], ar[..., u]
+        nl00, nb00, _ = _svf_step(l00, b00, xr[..., u], k, r)
+        dl = l10 + k * b10
+        db = b10 - k * (b10 * r + dl)
+        nl10 = dl + k * db
+        nb10 = db - k * (db * r + nl10)
+        dl = l01 + k * b01
+        db = b01 - k * (b01 * r + dl)
+        nl01 = dl + k * db
+        nb01 = db - k * (db * r + nl01)
+        l00, b00, l10, b10, l01, b01 = (
+            torch.where(on, new, old) for new, old in
+            ((nl00, l00), (nb00, b00), (nl10, l10), (nb10, b10), (nl01, l01), (nb01, b01)))
+
+    # the scan: runs within a warp, warps within a window, windows in order
+    nw = g.threads // 32
+    m = scan32(tuple(e.reshape(V, nwin, nw, 32)
+                      for e in (l10, l01, b10, b01, l00, b00)))
+    ident = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
+    wt = tuple(torch.cat([e[..., 31], torch.full((V, nwin, 32 - nw), iv, device=dev)],
+                         dim=-1) for e, iv in zip(m, ident))
+    wt = scan32(wt)  # [V, windows, 32]: the warps' inclusive prefixes
+    starts_l, starts_b, l, b = [], [], l0, b0
+    for q in range(nwin):
+        starts_l.append(l)
+        starts_b.append(b)
+        l, b = _affine2_apply(tuple(e[:, q, nw - 1] for e in wt), l, b)
+    sl = torch.stack(starts_l, dim=1)[:, :, None].expand(V, nwin, nw).clone()
+    sb = torch.stack(starts_b, dim=1)[:, :, None].expand(V, nwin, nw).clone()
+    wl, wb = _affine2_apply(tuple(e[..., :nw - 1] for e in wt), sl[..., 1:], sb[..., 1:])
+    sl[..., 1:], sb[..., 1:] = wl, wb  # each warp's start
+    sl, sb = sl[..., None].expand(m[0].shape), sb[..., None].expand(m[0].shape)
+    ll, lb = _affine2_apply(tuple(torch.roll(e, 1, dims=-1) for e in m), sl, sb)
+    lane = torch.arange(32, device=dev)
+    l = torch.where(lane > 0, ll, sl).reshape(xr.shape[:3])
+    b = torch.where(lane > 0, lb, sb).reshape(xr.shape[:3])
+
+    # phase B
+    out = torch.empty_like(xr)
+    for u in range(R):
+        on = ar[..., u]
+        nl, nb, h = _svf_step(l, b, xr[..., u], cr[..., u], r)
+        out[..., u] = torch.where(on, nl * l_mul + nb * b_mul + h * h_mul, 0.0)
+        l, b = torch.where(on, nl, l), torch.where(on, nb, b)
+    last = g.window // R - 1
+    return (l[:, -1, last], b[:, -1, last],
+            out[:, :, :g.window // R].reshape(V, n))
 
 
 # what svf_onepass.cu is built for: 16-byte copies of x, a tile's slots in registers
