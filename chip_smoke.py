@@ -21,7 +21,7 @@ each of which raises on failure:
      states within 1e-5; each case's device time (torch.profiler) beside
      its bound; the song's and poly_echo's shapes also per call (CUDA
      events) beside the plain version, and the song's beside K1's latency
-     floor (an estimate from its dependent chain, k1_chain_floor_us,
+     floor (an estimate from its dependent chain, svf_chain_floor_us,
      printed only). At the song's, the polyphony, the ragged, the long and
      the 35-tile shapes K1 is also held bit for bit to svf_table_emulated,
      its seams composed in torch
@@ -45,20 +45,26 @@ each of which raises on failure:
      detuned example's two calls (V=2, scalar cutoff: 4 Hz, resonance 0, no
      mask; 7040 Hz with a mask), a ragged n with a [V, 1] cutoff, a state
      chain across two calls and V=1024, n=65536 with a dense cutoff and
-     mask; rms < -120 dBFS, end states within 1e-5; timed as K1
-  6. K5, the FM feedback kernel, against fm_feedback_ref on the card at
-     feedback pi/4, waveforms 0-3: the fmsynth example's shape (V=8,
-     n=16384) and V=1024 (beyond the TPU kernel's 128 lanes; the plain
-     loop runs n=2048 there, the kernel is also timed at n=16384);
-     rms < -100 dBFS, end states within 1e-4; waveform 3 is compared up
-     to a voice's first sign flip of sin(2p), and the flips are counted.
-     Its serial-chain floor is estimated by tools/fm_chain_floor.py
+     mask; rms < -120 dBFS, end states within 1e-5; at the play, stereo,
+     detuned and ragged shapes also bit for bit against svf_dense_emulated,
+     its seams composed in torch; timed as K1 (per call at the play and
+     V=1024 shapes, device time at each example's), with its latency floor
+     at play's shape (svf_chain_floor_us, printed only)
+  6. K5, the FM feedback kernel, against fm_feedback_ref on the card, bit
+     for bit in outputs and end states, at feedback pi/4 and waveforms 0-3:
+     the fmsynth example's shape (V=8, n=16384), V=1024 x 16384 (beyond the
+     TPU kernel's 128 lanes) and a ragged V=3 x 777; at the fmsynth shape
+     also with feedback a voice and the waveform as tensors on the card.
+     Its serial-chain floor is estimated by zang_tpu_torch/tools/chain_floor.py
   6b. K3, the one-pass table-cut SVF kernel for large voice counts, against
      svf_onepass_table_ref (the sequential loop) on the card, bit for bit:
      through the router at V=4096, n=2048 with active_from inside the
      chunk, a ragged V=5000 x 1000 with time tiles of 125 frames and four
      slots written over its input, a state chain across two calls, and the
-     main path's V=16384 x 65536 written over its input;
+     main path's V=16384 x 65536 written over its input; the router sends
+     five slots a tile to K1 instead (V=4096, held to
+     svf_filter_table_ref; one K1 launch, no K3), and at V=16384 x 65536
+     with donate_x the peak device memory of that call is read;
      against K1 and K1's plain version at V=4096 (rms < -120 dBFS, end
      states within 1e-5); timed beside K1 called by name at 1024, 4096 and
      16384 voices x 65536 frames
@@ -88,7 +94,8 @@ each of which raises on failure:
      every other count 0), against the JAX
      golden windows and against the card's plain-path render (every
      router patched to its plain version by name; fmsynth at 2 s there,
-     since the plain FM loop is a Python loop over samples). detuned is
+     since the plain FM loop is a Python loop over samples, and bit for
+     bit: K5 is the plain loop's bits). detuned is
      held in two parts, as the JAX package holds its own oracle twin (its
      warble multiplier feeds a phase counter): the multiplier against the
      JAX trajectory a chunk at a time from the JAX filter state (relative
@@ -118,13 +125,12 @@ CHUNK = 65536
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 SVF_OPS_PER_SAMPLE = 21  # one SVF step and its output mix (Filter.zig:123-151)
-# K1's latency floor, an estimate: the dependent f32 operations of one SVF
-# step (svf_scan.cuh step: 11 from the state in to the state out), each at
-# an assumed 4 cycles, as tools/fm_chain_floor.py assumes for K5
+# K1's and K2's latency floor, an estimate: the dependent f32 operations of
+# one SVF step (svf_scan.cuh step: 11 from the state in to the state out),
+# each at an assumed 4 cycles, as zang_tpu_torch/tools/chain_floor.py
+# assumes for K5 and K3
 SVF_STEP_CHAIN = 11
 CYCLES_PER_DEPENDENT_OP = 4
-TOL_FM_DB = -100.0  # FM kernel vs plain (tests/test_ops_effects.py:324-346)
-TOL_FM_STATE = 1e-4
 FB = 0.7853981633974483  # pi / 4, the fmsynth example's modulator feedback
 # a feedback FM sample: 3 for the angle, 1 for the shape, and about 15 for
 # sinf's range reduction and polynomial (an estimate of libdevice's fast path)
@@ -274,9 +280,10 @@ def check_svf_chain(label, kernel, plain, args, half_args, exact=False):
         raise AssertionError(f"{label}: chained kernel calls are not the plain loop's bits")
 
 
-def k1_chain_floor_us(cluster, mhz):
-    """K1's latency floor in microseconds at `mhz`, from its dependent
-    chain (csrc/svf_table.cu): a run of 16 frames stepped twice (phase A's
+def svf_chain_floor_us(cluster, mhz):
+    """The latency floor of K1 and K2 in microseconds at `mhz`, from the
+    dependent chain of their windowed body (csrc/svf_window.cuh) in a
+    cluster of `cluster` blocks: a run of 16 frames stepped twice (phase A's
     zero state, phase B), two Kogge-Stone scans of 32 maps (warps, then
     the block's warps: 5 levels of a 3-deep compose each), the earlier
     windows' maps applied one after another (cluster - 1 applies, 3 deep)
@@ -385,8 +392,10 @@ def run_onepass(card, dev, rng, filters, svf_cuda):
     """K3, the one-pass table-cut SVF kernel: against its plain loop
     (svf_onepass_table_ref; bit for bit), against K1 and K1's plain version
     (TOL_DB, TOL_STATE), and timed beside K1 called by name at 1024, 4096
-    and 16384 voices x 65536 frames. Returns (errs, times, k1_times) by
-    shape; the V=16384 entry carries the plain loop's one timed run."""
+    and 16384 voices x 65536 frames; and the router's K1 branch for five
+    slots a tile. Returns (errs, times, k1_times)
+    by shape, errs["router S=5"] that K1 launch's; the V=16384 entry
+    carries the plain loop's one timed run."""
     import torch
 
     k3, k1 = svf_cuda.svf_onepass_cuda, svf_cuda.svf_table_cuda
@@ -415,6 +424,37 @@ def run_onepass(card, dev, rng, filters, svf_cuda):
     errs["ragged in place"] = check_svf(
         svf_label("ragged, out=x", a), in_place,
         lambda *args: ref(args[0], args[1], x_in, *args[3:]), a, exact=True)
+    # five slots a tile: the router takes K1 (svf_table_route), which returns
+    # its own tensor even with donate_x
+    a = svf_case(rng, 4096, 2048, 128, 5, 1024, dev)
+    x_in = a[2].clone()
+    before = svf_cuda.svf_onepass_launches, svf_cuda.svf_table_launches
+    errs["router S=5"] = check_svf(svf_label("router, 5 slots", a),
+                                   lambda *args: filters.svf_filter_table(*args,
+                                                                          donate_x=True),
+                                   filters.svf_filter_table_ref, a)
+    if (svf_cuda.svf_onepass_launches, svf_cuda.svf_table_launches) != \
+            (before[0], before[1] + 1) or not torch.equal(a[2], x_in):
+        raise AssertionError("svf_filter_table did not take K1 alone at V=4096, S=5, or "
+                             "wrote over x")
+    a = svf_case(rng, 16384, CHUNK, 128, 5, 3 * CHUNK, dev)
+    torch.cuda.synchronize()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    before = svf_cuda.svf_onepass_launches, svf_cuda.svf_table_launches
+    got = filters.svf_filter_table(*a, donate_x=True)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if (svf_cuda.svf_onepass_launches, svf_cuda.svf_table_launches) != \
+            (before[0], before[1] + 1):
+        raise AssertionError("svf_filter_table did not take K1 alone at V=16384, S=5")
+    print(f"  router, 5 slots, V=16384 x {CHUNK} with donate_x: K1 (no K3 launch), "
+          f"{'finite' if bool(torch.isfinite(got[2]).all()) else 'NOT finite'}; peak device "
+          f"memory {peak_gib:.2f} GiB, {peak_gib - base_gib:.2f} GiB above the inputs "
+          f"[{card}]")
+    if not bool(torch.isfinite(got[2]).all()) or not peak_gib < 64.0:
+        raise AssertionError("the K1 route at 16384 voices failed")
+    del a, got, x_in
     V, n, nt, t0 = 4096, 1024, 8, 2048
     chain = svf_case(rng, V, 2 * n, 2 * nt, 3, t0, dev)
     check_svf_chain(f"chained 2 x {n} at V={V}", filters.svf_filter_table, ref, chain,
@@ -563,48 +603,23 @@ def fm_case(rng, V, n, device):
                 fb2=to(rng.uniform(-0.5, 0.5, V)))
 
 
-def fm_args(c, waveform):
-    return (c["base"], FB, waveform, c["fb1"], c["fb2"])
-
-
-def check_fm(fm, c, waveform, label):
-    """K5 (through the fm_feedback router) vs fm_feedback_ref; for waveform
-    3 each voice is compared up to its first flip (|diff| > 0.1 where
-    |sin 2p| < 1e-5), and the flips are counted. Returns max |out diff|
-    over the compared samples."""
-    import numpy as np
+def check_fm(fm, c, waveform, label, feedback=FB):
+    """K5 (through the fm_feedback router) vs fm_feedback_ref, bit for bit in
+    the outputs and the end states. Returns max |out diff| (0.0)."""
     import torch
 
-    ok, f1k, f2k = fm.fm_feedback(*fm_args(c, waveform))
-    orf, f1r, f2r = fm.fm_feedback_ref(*fm_args(c, waveform))
+    args = (c["base"], feedback, waveform, c["fb1"], c["fb2"])
+    ok, f1k, f2k = fm.fm_feedback(*args)
+    orf, f1r, f2r = fm.fm_feedback_ref(*args)
     torch.cuda.synchronize()
-    got, ref = ok.cpu().numpy(), orf.cpu().numpy()
-    keep = np.ones_like(got, bool)
-    flips = 0
-    if waveform == 3:
-        base = c["base"].cpu().numpy()
-        prev1 = np.concatenate([c["fb1"].cpu().numpy()[:, None], ref[:, :-1]], axis=1)
-        prev2 = np.concatenate([c["fb2"].cpu().numpy()[:, None], prev1[:, :-1]], axis=1)
-        p = base + (prev1 + prev2) * np.float32(FB)
-        for v in range(got.shape[0]):
-            bad = np.abs(got[v] - ref[v]) > 0.1
-            if bad.any():
-                first = int(np.argmax(bad))
-                if abs(np.sin(2.0 * float(p[v, first]))) >= 1e-5:
-                    raise AssertionError(f"{label}: voice {v} differs away from a flip")
-                keep[v, first:] = False
-                flips += 1
-    db = rms_db(got[keep], ref[keep])
-    err = float(np.abs(got - ref)[keep].max())
-    full = keep.all(axis=1)  # voices compared to their end
-    d1 = (f1k - f1r).abs().cpu().numpy()[full]
-    d2 = (f2k - f2r).abs().cpu().numpy()[full]
-    dstate = float(max(d1.max(), d2.max())) if full.any() else 0.0
-    print(f"  {label}: V={got.shape[0]} n={got.shape[1]} waveform {waveform}: "
-          f"rms {db:.1f} dBFS, max |diff| {err:.3e}, end state |diff| {dstate:.3e}, "
-          f"{flips} sign flips of sin(2p)")
-    if not (db < TOL_FM_DB and dstate < TOL_FM_STATE and flips <= max(1, got.shape[0] // 64)):
-        raise AssertionError(f"{label}: the FM kernel disagrees with fm_feedback_ref")
+    same = torch.equal(ok, orf) and torch.equal(f1k, f1r) and torch.equal(f2k, f2r)
+    err = float((ok - orf).abs().max())
+    V, n = ok.shape
+    print(f"  {label}: V={V} n={n} waveform {int(waveform)}: "
+          f"{'bit-exact' if same else 'NOT bit-exact'}, max |diff| {err:.3e}, end state "
+          f"|diff| {max(float((f1k - f1r).abs().max()), float((f2k - f2r).abs().max())):.3e}")
+    if not same:
+        raise AssertionError(f"{label}: the FM kernel is not fm_feedback_ref bit for bit")
     return err
 
 
@@ -828,6 +843,8 @@ def run_examples(examples, filters, fm, lookup, svf_cuda, card, launches):
         if any(counts(svf_cuda, lookup, fm).values()):
             raise AssertionError(f"{name}: the plain path launched a kernel")
         check_plain(ours, plain, f"{name} ({plain_s:g} s)")
+        if name == "fmsynth" and not np.array_equal(ours, plain):
+            raise AssertionError("fmsynth: the render is not the plain path's bits")
 
 
 def main() -> int:
@@ -895,6 +912,24 @@ def main() -> int:
     def k2(label, a):
         return check_svf(dense_label(label, a), filters.svf_filter, filters.svf_filter_ref, a)
 
+    def k2_emulated(label, a):
+        """K2 against its seams composed in torch: bit for bit."""
+        got, want = filters.svf_filter(*a), svf_cuda.svf_dense_emulated(*a)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"  {dense_label(label, a)} vs svf_dense_emulated: "
+              f"{'bit-exact' if same else 'NOT bit-exact'}")
+        if not same:
+            raise AssertionError(f"{label}: K2 is not its seams composed in torch")
+
+    def k2_device(label, a):
+        """K2's device time at one case, beside its bound."""
+        bound_ms, bound_by = bound(*dense_bytes_ops(a))
+        dev_ms = device_ms(lambda: filters.svf_filter(*a), "svf_dense_kernel", 100)
+        print(f"    {label}: device {dev_ms:.4f} ms a launch, bound {bound_ms * 1e3:.3f} us "
+              f"({bound_by}) [{card}]")
+        return dict(device_ms=dev_ms, bound_ms=bound_ms, bound_by=bound_by)
+
     def k1_time(label, a, reps_k, reps_p):
         return timing(card, label, lambda: filters.svf_filter_table(*a),
                       lambda: filters.svf_filter_table_ref(*a), "svf_table_kernel",
@@ -959,7 +994,7 @@ def main() -> int:
     cluster = svf_cuda.svf_table_geometry(*song_case[2].shape, *song_case[4].shape[1:]).cluster
     # an estimate, printed only: the kernels line carries measured times
     print(f"  K1's latency floor at the song shape, an estimate: "
-          f"{k1_chain_floor_us(cluster, mhz):.3f} us at {mhz:.0f} MHz (the dependent "
+          f"{svf_chain_floor_us(cluster, mhz):.3f} us at {mhz:.0f} MHz (the dependent "
           f"chain at {CYCLES_PER_DEPENDENT_OP} cycles an operation), beside the bytes "
           f"bound {svf_t['song']['bound_ms'] * 1e3:.3f} us and the device time "
           f"{svf_t['song']['device_ms'] * 1e3:.1f} us [{card}]")
@@ -1071,56 +1106,73 @@ def main() -> int:
           f"end state |diff| < {TOL_STATE}):")
     play_case = dense_case(rng, 1, ex_chunk, "scalar", True, dev)
     wide_case = dense_case(rng, 1024, CHUNK, "dense", True, dev)
+    ragged_dense = dense_case(rng, 3, 1000, "column", True, dev)
+    # the stereo example: a [2, 1] cutoff, no mask, resonance 0.4
+    stereo_case = dense_case(rng, 2, ex_chunk, "column", False, dev, res=0.4)
+    # the detuned example's two calls a chunk: the 4 Hz warble lowpass
+    # (resonance 0, no mask), then the 7040 Hz lowpass under the note mask
+    warble_case = dense_case(rng, 2, ex_chunk, "scalar", False, dev, res=0.0,
+                             scalar_cut=filters.cutoff_from_frequency(4.0, 48000.0))
+    voice_case = dense_case(rng, 2, ex_chunk, "scalar", True, dev,
+                            scalar_cut=filters.cutoff_from_frequency(7040.0, 48000.0))
     dense_err = {
         "play": max(k2("play shape", play_case),
-                    k2("ragged n, [V, 1] cutoff", dense_case(rng, 3, 1000, "column", True,
-                                                              dev)),
+                    k2("ragged n, [V, 1] cutoff", ragged_dense),
                     k2("dense cutoff, no mask", dense_case(rng, 2, 4096, "dense", False,
                                                            dev))),
-        # the stereo example: a [2, 1] cutoff, no mask, resonance 0.4
-        "stereo": k2("stereo shape", dense_case(rng, 2, ex_chunk, "column", False, dev,
-                                                res=0.4)),
-        # the detuned example's two calls a chunk: the 4 Hz warble lowpass
-        # (resonance 0, no mask), then the 7040 Hz lowpass under the note mask
-        "detuned": max(k2("detuned warble shape",
-                          dense_case(rng, 2, ex_chunk, "scalar", False, dev, res=0.0,
-                                     scalar_cut=filters.cutoff_from_frequency(
-                                         4.0, 48000.0))),
-                       k2("detuned voice shape",
-                          dense_case(rng, 2, ex_chunk, "scalar", True, dev,
-                                     scalar_cut=filters.cutoff_from_frequency(
-                                         7040.0, 48000.0)))),
+        "stereo": k2("stereo shape", stereo_case),
+        "detuned": max(k2("detuned warble shape", warble_case),
+                       k2("detuned voice shape", voice_case)),
         "v1024": k2("V=1024 shape", wide_case)}
+    for label, a in (("play shape", play_case), ("stereo shape", stereo_case),
+                     ("detuned warble shape", warble_case),
+                     ("detuned voice shape", voice_case), ("ragged shape", ragged_dense)):
+        k2_emulated(label, a)
     chain = dense_case(rng, 4, 2 * n, "dense", True, dev)
     check_svf_chain(f"chained 2 x {n}", filters.svf_filter, filters.svf_filter_ref, chain,
                     lambda k, l, b: (l, b, chain[2][:, k * n:(k + 1) * n].contiguous(),
                                      "low_pass", chain[4][:, k * n:(k + 1) * n], 0.7,
                                      chain[6][:, k * n:(k + 1) * n]))
     dense_t = {"play": k2_time("play", play_case, 100, 10),
-               "v1024": k2_time("V=1024", wide_case, 20, 2)}
+               "v1024": k2_time("V=1024", wide_case, 20, 2),
+               "stereo": k2_device("stereo shape", stereo_case),
+               "detuned": k2_device("detuned voice shape", voice_case),
+               "detuned warble": k2_device("detuned warble shape", warble_case)}
+    play_cluster = svf_cuda.svf_dense_geometry(*play_case[2].shape).cluster
+    print(f"  K2's latency floor at the play shape, an estimate: "
+          f"{svf_chain_floor_us(play_cluster, mhz):.3f} us at {mhz:.0f} MHz, beside the "
+          f"bytes bound {dense_t['play']['bound_ms'] * 1e3:.3f} us and the device time "
+          f"{dense_t['play']['device_ms'] * 1e3:.1f} us [{card}]")
     del wide_case, chain
 
     # 6. K5 vs plain on the card
-    print(f"K5 fm_feedback vs fm_feedback_ref at feedback pi/4 (rms < {TOL_FM_DB} "
-          f"dBFS, end state |diff| < {TOL_FM_STATE}):")
+    print("K5 fm_feedback vs fm_feedback_ref at feedback pi/4 (bit for bit):")
     fm_cases = {"fmsynth": fm_case(rng, 8, ex_chunk, dev),
-                "v1024 (n=2048)": fm_case(rng, 1024, 2048, dev)}  # the plain loop's n
+                "v1024": fm_case(rng, 1024, ex_chunk, dev),  # beyond the TPU's 128 lanes
+                "ragged": fm_case(rng, 3, 777, dev)}
     fm_err = {k: max(check_fm(fm, c, w, k) for w in range(4)) for k, c in fm_cases.items()}
-    fm_cases["v1024"] = fm_case(rng, 1024, ex_chunk, dev)
+    # the operands by pointer: feedback a voice, the waveform an int32 on the card
+    c = fm_cases["fmsynth"]
+    fb_voices = torch.full((8,), FB, dtype=torch.float32, device=dev)
+    fb_voices[::2] = 0.5
+    fm_err["by pointer"] = max(
+        check_fm(fm, c, torch.tensor(w, dtype=torch.int32, device=dev),
+                 "fmsynth, operands on the card", feedback=fb_voices) for w in range(4))
     fm_t = {}
-    for k, c in fm_cases.items():
+    for k in ("fmsynth", "v1024"):
+        c = fm_cases[k]
         V, n = c["base"].shape
-        kernel = lambda c=c: fm.fm_feedback(*fm_args(c, 0))
-        plain = lambda c=c: fm.fm_feedback_ref(*fm_args(c, 0))
-        # the plain loop is timed at n=2048 only at V=1024 (see "v1024 (n=2048)")
-        fm_t[k] = timing(card, f"{k}, V={V} n={n}", kernel, None if k == "v1024" else plain,
-                         "fm_feedback_kernel", *fm_bytes_ops(V, n), 20 if V < 1024 else 10, 1)
+        args = (c["base"], FB, 0, c["fb1"], c["fb2"])
+        fm_t[k] = timing(card, f"{k}, V={V} n={n}", lambda a=args: fm.fm_feedback(*a),
+                         lambda a=args: fm.fm_feedback_ref(*a), "fm_feedback_kernel",
+                         *fm_bytes_ops(V, n), 20 if V < 1024 else 10, 1)
         print(f"  {fm_t[k]['device_ms'] * 1e6 / n:.2f} ns of device a step of the "
               f"{n}-step serial chain")
     del fm_cases
 
     # 6b. K3 vs its plain loop, K1 and K1's plain version on the card
     onepass_err, onepass_t, k1_by_name = run_onepass(card, dev, rng, filters, svf_cuda)
+    svf_err["router S=5"] = onepass_err.pop("router S=5")  # a K1 launch
     svf_t.update({k: v for k, v in k1_by_name.items() if k != "v1024"})
 
     launches = {}

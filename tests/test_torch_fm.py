@@ -105,6 +105,48 @@ def test_plain_matches_pallas_interpret(waveform):
         assert np.abs(f2 - np.asarray(jf2)).max() < 1e-4
 
 
+@pytest.mark.parametrize("waveform", WAVEFORMS)
+def test_plain_per_voice_operands_match_pallas_interpret(waveform):
+    """feedback as a per-voice array and waveform as an int32 tensor, as the
+    TPU kernel takes them (pallas_fm.py:94-97): fm_feedback_ref against the
+    kernel in interpret mode with the same per-voice feedback."""
+    rng = np.random.default_rng(80 + waveform)
+    V, n = 6, 700
+    base = _base(_freqs(rng, V, n))
+    fb = rng.uniform(0.1, 0.9, V).astype(np.float32)
+    fb1 = rng.uniform(-0.5, 0.5, V).astype(np.float32)
+    fb2 = rng.uniform(-0.5, 0.5, V).astype(np.float32)
+    out, f1, f2 = _plain(base, torch.from_numpy(fb), torch.tensor(waveform, dtype=torch.int32),
+                         fb1, fb2)
+    jo, jf1, jf2 = fm_feedback_pallas(jnp.asarray(base), jnp.asarray(fb), waveform,
+                                      jnp.asarray(fb1), jnp.asarray(fb2), interpret=True)
+    if not _hold(out, jo, waveform, _angles(base, out, fb1, fb2, fb)):
+        assert np.abs(f1 - np.asarray(jf1)).max() < 1e-4
+        assert np.abs(f2 - np.asarray(jf2)).max() < 1e-4
+
+
+@pytest.mark.parametrize("form", ["feedback [V]", "feedback []", "feedback [1]",
+                                  "waveform []", "waveform [1]"])
+def test_plain_operand_forms_give_the_number_bits(form):
+    """A tensor feedback that holds the same value for every voice, or a
+    waveform tensor, gives the bits of the number."""
+    rng = np.random.default_rng(90)
+    V, n = 4, 300
+    base = _base(_freqs(rng, V, n))
+    fb1 = rng.uniform(-0.5, 0.5, V).astype(np.float32)
+    fb2 = rng.uniform(-0.5, 0.5, V).astype(np.float32)
+    fb, w = float(FB), 3
+    want = _plain(base, fb, w, fb1, fb2)
+    shape = {"[V]": (V,), "[]": (), "[1]": (1,)}[form.split()[1]]
+    if form.startswith("feedback"):
+        fb = torch.full(shape, FB, dtype=torch.float32)
+    else:
+        w = torch.full(shape, w, dtype=torch.int32)
+    got = _plain(base, fb, w, fb1, fb2)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g, x)
+
+
 def _fm_osc_pair(rng, V, n, waveform, calls=2, masked=True):
     """fm_osc through both packages (the port's plain loop on the CPU, the
     JAX package's lax.scan), chained over `calls` calls with the counters and
@@ -237,3 +279,23 @@ def test_kernel_matches_plain_on_card(cuda_device, waveform, shape):
     out, ro = got[0].cpu().numpy(), ref[0].cpu().numpy()
     if not _hold(out, ro, waveform, _angles(base, ro, fb1, fb2, FB)):
         assert (got[1] - ref[1]).abs().max() < 1e-4 and (got[2] - ref[2]).abs().max() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("waveform", WAVEFORMS)
+@pytest.mark.parametrize("shape", [(8, 16384), (40, 1000), (3, 777)])
+def test_kernel_is_the_plain_bits_on_card(cuda_device, waveform, shape):
+    """Full-precision sinf and no contraction: the kernel gives the plain
+    loop's bits, with feedback and waveform by value and by pointer."""
+    V, n = shape
+    rng = np.random.default_rng(100 + waveform)
+    base, fb1, fb2 = (torch.from_numpy(a).to(cuda_device) for a in (
+        _base(_freqs(rng, V, n)), rng.uniform(-0.5, 0.5, V).astype(np.float32),
+        rng.uniform(-0.5, 0.5, V).astype(np.float32)))
+    fb = torch.from_numpy(rng.uniform(0.1, 0.9, V).astype(np.float32)).to(cuda_device)
+    w = torch.tensor([waveform], dtype=torch.int32, device=cuda_device)
+    for args in ((float(FB), waveform), (fb, w)):
+        got = tfm.fm_feedback_cuda(base, *args, fb1, fb2)
+        want = tfm.fm_feedback_ref(base, *args, fb1, fb2)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, x) for g, x in zip(got, want))

@@ -159,6 +159,48 @@ def test_router_donated_x_gives_the_same_result():
     assert torch.equal(x, args[2])
 
 
+# (V, S) -> the kernel svf_filter_table launches for a CUDA x: the one-pass
+# kernel keeps a tile's slots in registers (at most 4); the table-cut kernel
+# takes any S at any V, as the JAX package's table path does
+ROUTES = {
+    (ONEPASS_V_MIN, 1): "onepass", (ONEPASS_V_MIN, 2): "onepass",
+    (16384, 4): "onepass", (ONEPASS_V_MIN, 5): "table", (16384, 9): "table",
+    (ONEPASS_V_MIN - 1, 2): "table", (14, 5): "table", (1, 1): "table",
+}
+
+
+@pytest.mark.parametrize("shape", list(ROUTES), ids=lambda s: "V{}xS{}".format(*s))
+def test_router_route(shape):
+    assert tfilt.svf_table_route(*shape) == ROUTES[shape]
+
+
+@pytest.mark.parametrize("S", [4, 5])
+def test_router_sends_cuda_x_where_the_route_says(monkeypatch, S):
+    """svf_filter_table on a tensor that reports a CUDA device reaches the
+    wrapper the route names and no other; donate_x reaches only K3."""
+    seen = []
+
+    def wrapper(name):
+        def call(*args, **kw):
+            seen.append((name, kw.get("out") is not None))
+            return args[0], args[1], args[2]
+        return call
+
+    class CudaX(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda")
+
+    monkeypatch.setattr(svf_cuda, "svf_onepass_cuda", wrapper("onepass"))
+    monkeypatch.setattr(svf_cuda, "svf_table_cuda", wrapper("table"))
+    c = _case(14, ONEPASS_V_MIN, 16, 1, S, 0)
+    args = list(_args(c, "low_pass"))
+    args[2] = args[2].as_subclass(CudaX)
+    tfilt.svf_filter_table(*args, donate_x=True)
+    assert seen == [("onepass", True)] if S <= tfilt.ONEPASS_MAX_SLOTS else \
+        seen == [("table", False)]
+
+
 def test_onepass_wrapper_raises_on_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA"):
         svf_cuda.svf_onepass_cuda(*_args(_case(11, 2, 256, 2, 2, 0), "low_pass"))

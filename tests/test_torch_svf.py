@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from zang_tpu.ops import filters as jfilt
 from zang_tpu.ops.pallas_svf import GATE_V_MIN, svf_filter_pallas, svf_filter_pallas_table
+from zang_tpu_torch.core import twelve_tet
 from zang_tpu_torch.ops import _build, svf_cuda
 from zang_tpu_torch.ops import filters as tfilt
 
@@ -430,6 +431,156 @@ def test_table_ref_never_reaches_the_router(monkeypatch):
     tfilt.svf_filter_table_ref(*_torch_args(c, "low_pass"))
 
 
+# ---------------------------------------------------------------------------
+# K2's design: geometry and seams (its body is K1's, csrc/svf_window.cuh)
+
+
+# (V, n) -> (W, cluster, rounds): the examples' chunks (play, stereo, detuned:
+# 16384), the card's cases (V=1024 x 65,536, the ragged ones) and chunks past
+# one round and with no whole runs
+DENSE_GEOMETRY = {
+    (1, 16384): (8192, 2, 1),        # play
+    (2, 16384): (8192, 2, 1),        # stereo, detuned
+    (1024, 65536): (8192, 8, 1),     # the card's wide case
+    (3, 1000): (1008, 1, 1),         # ragged: 62.5 runs
+    (5, 777): (784, 1, 1),
+    (2, 1): (16, 1, 1),
+    (4, 8192): (8192, 1, 1),
+    (1, 131072): (16384, 8, 1),      # the most one round takes
+    (1, 200000): (12512, 8, 2),      # 13 windows' worth, walked in 2 rounds
+    (1, 16 * 4099): (8208, 8, 1),    # K1 would take a window of 16 frames here
+}
+
+
+@pytest.mark.parametrize("shape", list(DENSE_GEOMETRY),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k2_geometry(shape):
+    V, n = shape
+    g = svf_cuda.svf_dense_geometry(V, n)
+    assert (g.window, g.cluster, g.rounds) == DENSE_GEOMETRY[shape]
+    assert g.run == 16 and g.window % 16 == 0 and g.window <= 16384
+    # the windows cover n, and the last round's first window starts inside it
+    assert g.window * g.cluster * g.rounds >= n > g.window * g.cluster * (g.rounds - 1)
+    assert 1 <= g.cluster <= 8
+    assert g.threads % 32 == 0 and g.threads - 32 < g.window // 16 <= g.threads <= 1024
+    for dense, mask in ((False, False), (True, True)):
+        assert svf_cuda.svf_dense_shared(g, dense, mask) <= 227 * 1024
+
+
+def test_k2_geometry_takes_every_n():
+    for n in list(range(1, 2000)) + list(range(2000, 400000, 997)):
+        g = svf_cuda.svf_dense_geometry(1, n)
+        assert g.window * g.cluster * g.rounds >= n > g.window * (g.cluster * g.rounds - 1)
+        assert svf_cuda.svf_dense_shared(g, True, True) <= 227 * 1024, n
+
+
+@pytest.mark.parametrize("shape", [(0, 16), (2, 0)])
+def test_k2_geometry_raises(shape):
+    with pytest.raises(ValueError, match="V, n >= 1"):
+        svf_cuda.svf_dense_geometry(*shape)
+
+
+def _example_case(name, seed=20):
+    """K2's arguments at an example's call: play (V=1, FilteredSawtooth: a
+    scalar cutoff, resonance 0.7, the note mask), stereo (V=2, a [2, 1]
+    cutoff, resonance 0.4, no mask), detuned's two calls (V=2: the 4 Hz
+    warble lowpass, resonance 0, no mask; the 7040 Hz lowpass under the
+    note mask), all at the examples' chunk of 16384, and a ragged chunk
+    with a [V, 1] cutoff and a mask."""
+    rng = np.random.default_rng(seed)
+    V, n, cut, res, masked = {
+        "play": (1, 16384, float(tfilt.cutoff_from_frequency(
+            np.float32(440.0) * np.float32(twelve_tet.c5), 48000.0)), 0.7, True),
+        "stereo": (2, 16384, "column", 0.4, False),
+        "detuned warble": (2, 16384, float(tfilt.cutoff_from_frequency(4.0, 48000.0)),
+                           0.0, False),
+        "detuned voice": (2, 16384, float(tfilt.cutoff_from_frequency(7040.0, 48000.0)),
+                          0.7, True),
+        "ragged": (3, 1000, "column", 0.7, True),
+        "dense ragged": (5, 777, "dense", 0.3, True),
+    }[name]
+    if cut == "column":
+        cut = torch.from_numpy(rng.uniform(0.05, 0.6, (V, 1)).astype(np.float32))
+    elif cut == "dense":
+        cut = torch.from_numpy(rng.uniform(-0.1, 1.1, (V, n)).astype(np.float32))
+    act = None
+    if masked:  # notes that start and stop inside the chunk
+        on = rng.integers(0, n // 2, V)[:, None] <= np.arange(n)[None, :]
+        act = torch.from_numpy(on & (rng.uniform(size=(V, n)) > 0.05))
+    t = lambda a: torch.from_numpy(a.astype(np.float32))
+    return (t(rng.standard_normal(V) * 0.1), t(rng.standard_normal(V) * 0.1),
+            t(rng.standard_normal((V, n)) * 0.3), "low_pass", cut, res, act)
+
+
+EXAMPLE_CASES = ["play", "stereo", "detuned warble", "detuned voice", "ragged",
+                 "dense ragged"]
+
+
+@pytest.mark.parametrize("name", EXAMPLE_CASES)
+def test_k2_emulation_matches_jax(name):
+    """K2's seams composed in torch (svf_dense_emulated) against the JAX
+    package's svf_filter on the CPU (its affine-scan path, as its own
+    tests run it there) and against svf_filter_ref, at the examples' calls:
+    rms < -120 dBFS, end states within 1e-5."""
+    args = _example_case(name)
+    got = svf_cuda.svf_dense_emulated(*args)
+    j = jfilt.svf_filter(*(jnp.asarray(a.numpy()) if isinstance(a, torch.Tensor) else a
+                           for a in args))
+    _assert_close(got, j)
+    _assert_close(got, tfilt.svf_filter_ref(*args))
+
+
+@pytest.mark.parametrize("form", ["scalar", "column", "dense", "row", "dense strided"])
+@pytest.mark.parametrize("masked", ["mask", "mask column", "no mask"])
+def test_k2_emulation_forms(form, masked):
+    """Every cutoff and mask form K2 reads, at a chunk of two windows with a
+    ragged end (n = 8200 + 7): the emulation within the bounds of
+    svf_filter_ref, and a broadcast form the same bits as written out."""
+    rng = np.random.default_rng(21)
+    V, n = 3, 8207
+    cut = {"scalar": 0.3,
+           "column": torch.from_numpy(rng.uniform(0.05, 0.6, (V, 1)).astype(np.float32)),
+           "dense": torch.from_numpy(rng.uniform(0.05, 0.6, (V, n)).astype(np.float32)),
+           "row": torch.from_numpy(rng.uniform(0.05, 0.6, (n,)).astype(np.float32)),
+           "dense strided": torch.from_numpy(
+               rng.uniform(0.05, 0.6, (V, 2 * n)).astype(np.float32))[:, ::2]}[form]
+    act = {"mask": torch.from_numpy(rng.uniform(size=(V, n)) > 0.1),
+           "mask column": torch.tensor([[True], [False], [True]]),
+           "no mask": None}[masked]
+    x = torch.from_numpy((rng.standard_normal((V, n)) * 0.3).astype(np.float32))
+    l0 = torch.from_numpy((rng.standard_normal(V) * 0.1).astype(np.float32))
+    args = (l0, -l0, x, "band_pass", cut, 0.6, act)
+    got = svf_cuda.svf_dense_emulated(*args)
+    _assert_close(got, tfilt.svf_filter_ref(*args))
+    if not isinstance(cut, float):
+        full = cut.broadcast_to((V, n)).contiguous()
+        written = svf_cuda.svf_dense_emulated(*args[:4], full, *args[5:])
+        assert all(torch.equal(g, w) for g, w in zip(got, written))
+
+
+@pytest.mark.parametrize("form", ["0-dim", "column", "row", "dense", "strided",
+                                  "transposed", "n=1"])
+def test_k2_reads_each_form_through_its_strides(form):
+    """The forms K2's wrapper hands the kernel: a tensor broadcast to
+    [V, n] and read at [v * sv + t * st] with st 0 or 1 gives the broadcast
+    values (other strides are made contiguous first)."""
+    rng = np.random.default_rng(22)
+    V, n = (3, 1) if form == "n=1" else (3, 50)
+    t = torch.from_numpy(rng.uniform(size={
+        "0-dim": (), "column": (V, 1), "row": (n,), "dense": (V, n),
+        "strided": (V, 2 * n), "transposed": (n, V), "n=1": (V, 1)}[form]).astype(np.float32))
+    t = {"strided": lambda a: a[:, ::2], "transposed": lambda a: a.t()}.get(form,
+                                                                           lambda a: a)(t)
+    for a in (t, t > 0.5):
+        view, sv, st = svf_cuda._along_time(a, V, n)
+        assert st in (0, 1)
+        flat = torch.as_strided(view, (view.untyped_storage().nbytes()
+                                       // view.element_size(),), (1,), 0)
+        got = torch.stack([torch.stack([flat[view.storage_offset() + v * sv + i * st]
+                                        for i in range(n)]) for v in range(V)])
+        assert torch.equal(got, a.broadcast_to((V, n)))
+
+
 def test_dense_wrapper_raises_on_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA"):
         svf_cuda.svf_dense_cuda(*_dense_torch(_dense_case(12, 2, 256), "low_pass"))
@@ -450,3 +601,15 @@ def test_dense_kernel_matches_plain_on_card(cuda_device, shape):
     torch.cuda.synchronize()
     assert svf_cuda.svf_dense_launches == before + 1
     _assert_close(tuple(v.cpu() for v in got), tuple(v.cpu() for v in ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EXAMPLE_CASES)
+def test_dense_kernel_is_its_emulation_on_card(cuda_device, name):
+    """K2 against its seams composed in torch on the card, bit for bit."""
+    args = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+                 for a in _example_case(name))
+    got = svf_cuda.svf_dense_cuda(*args)
+    want = svf_cuda.svf_dense_emulated(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -10,8 +10,10 @@ a CUDA tensor x [V, n] with a scalar res launches the dense-cut kernel
 (ops/svf_cuda.py svf_dense_cuda); every other call, and every CPU tensor,
 takes svf_filter_ref. svf_filter_table takes the cutoff as per-tile
 boundary tables (the tiled segment-program format): svf_filter_table_ref
-for a CPU tensor; for a CUDA one the one-pass kernel (svf_onepass_cuda) at
-ONEPASS_V_MIN voices or more and the table-cut kernel (svf_table_cuda) below.
+for a CPU tensor; for a CUDA one the kernel that svf_table_route names: the
+one-pass kernel (svf_onepass_cuda) at ONEPASS_V_MIN voices or more when a
+time tile has at most ONEPASS_MAX_SLOTS slots, else the table-cut kernel
+(svf_table_cuda), which takes any slot count.
 svf_onepass_table_ref is the one-pass kernel's plain version, the sequential
 recurrence as a loop over samples. No router has a fallback or a switch.
 """
@@ -31,6 +33,9 @@ FCDCOFFSET = 3.814697265625e-6  # 2^-18, Filter.zig:8 (exact in f32)
 # voices at which the one-pass kernel takes over from the two-phase one
 # (zang_tpu/ops/pallas_svf.py ONEPASS_V_MIN, here on the true voice count)
 ONEPASS_V_MIN = 4096
+# the most slots a time tile may have for the one-pass kernel, which keeps a
+# tile's slots in registers (csrc/svf_onepass.cu kRegSlots)
+ONEPASS_MAX_SLOTS = 4
 
 FILTER_MULS = {  # (l, b, h) output weights; bypass is not ported
     "low_pass": (1.0, 0.0, 0.0),
@@ -194,6 +199,13 @@ def svf_onepass_table_ref(
     return l, b, out.t().contiguous()
 
 
+def svf_table_route(V: int, S: int) -> str:
+    """The CUDA kernel svf_filter_table takes for x [V, n] and tables of S
+    slots a tile: "onepass" (svf_onepass_cuda) from ONEPASS_V_MIN voices on
+    when S <= ONEPASS_MAX_SLOTS, else "table" (svf_table_cuda, any S)."""
+    return "onepass" if V >= ONEPASS_V_MIN and S <= ONEPASS_MAX_SLOTS else "table"
+
+
 def svf_filter_table(
     l0: Tensor,
     b0: Tensor,
@@ -214,10 +226,11 @@ def svf_filter_table(
     active_from: [V] first-active frame. donate_x: the caller has no further
     use for x, so the output may be written over it (the one-pass kernel
     then filters in place; the other paths return a tensor of their own
-    and leave x as it was). Returns (l_end, b_end, out)."""
+    and leave x as it was, so a table-cut call at 16384 voices x 65,536
+    frames holds a second 4 GiB buffer). Returns (l_end, b_end, out)."""
     if x.device.type == "cpu":
         return svf_filter_table_ref(l0, b0, x, filter_type, tb, cutv, res, t0, active_from)
-    if x.shape[0] >= ONEPASS_V_MIN:
+    if svf_table_route(x.shape[0], tb.shape[-1]) == "onepass":
         from .svf_cuda import svf_onepass_cuda
 
         return svf_onepass_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from,

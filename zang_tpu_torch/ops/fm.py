@@ -8,11 +8,17 @@ a nonlinear per-sample recurrence, so no scan applies.
 - feedback == 0: fully parallel, the phase prefix sum and
   elementwise shaping. No kernel.
 - feedback != 0: fm_feedback. For a CUDA base [V, n] it launches the
-  hand-written kernel csrc/fm_feedback.cu (one thread a voice walking time
-  in order, the counterpart of zang_tpu/ops/pallas_fm.py), built at first
-  use (ops/_build.py), with no fallback; fm_feedback_launches counts the
-  launches. For a CPU tensor, or a base of any other rank, it is
-  fm_feedback_ref, the plain sequential loop of zang_tpu/ops/fm.py:99-107.
+  hand-written kernel csrc/fm_feedback.cu (a chain lane a voice walking
+  time in order, fed from shared memory by a copy warp; the counterpart of
+  zang_tpu/ops/pallas_fm.py), built at first use (ops/_build.py), with no
+  fallback; fm_feedback_launches counts the launches. For a CPU tensor, or
+  a base of any other rank, it is fm_feedback_ref, the plain sequential
+  loop of zang_tpu/ops/fm.py:99-107.
+
+feedback is a number or an f32 tensor broadcastable to the voices, and
+waveform an int or an int32 scalar tensor, as the TPU kernel takes them
+(pallas_fm.py:94-97): the kernel reads tensors in device memory, so
+operator settings that live on the card are never read back.
 """
 
 import ctypes
@@ -33,6 +39,9 @@ fm_feedback_launches = 0
 _C = ctypes.c_void_p
 
 
+Number = Union[int, float]
+
+
 def _shape_wave(p: Tensor, waveform: int) -> Tensor:
     """waveform 0: sin, 1: half-rectified, 2: |sin|, 3 (and any other
     value): |sin| where sin(2p) >= 0, else 0 (example_fmsynth.zig:74-79)."""
@@ -47,15 +56,18 @@ def _shape_wave(p: Tensor, waveform: int) -> Tensor:
     return torch.where(torch.sin(p * 2.0) >= 0, s.abs(), zero)
 
 
-def fm_feedback_ref(base: Tensor, feedback: float, waveform: int, fb1: Tensor,
+def fm_feedback_ref(base: Tensor, feedback: Union[Number, Tensor],
+                    waveform: Union[int, Tensor], fb1: Tensor,
                     fb2: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain version of fm_feedback, on any device: a Python loop over the
     samples of base [..., n] (phase angles, f32) with the carry (fb1, fb2)
     [...], the previous two outputs. Per sample p = base + (fb1 + fb2) *
-    feedback, out = shape(p), for one feedback (a number) and one waveform
-    (an int). Returns (out [..., n], fb1', fb2'): the last two outputs,
-    unmasked."""
+    feedback, out = shape(p); feedback is a number or a tensor
+    broadcastable to [...], waveform an int or an integer scalar tensor
+    (read back once). Returns (out [..., n], fb1', fb2'): the last two
+    outputs, unmasked."""
     fb = as_f32(feedback, base)
+    waveform = int(waveform)
     c1, c2 = fb1, fb2
     out = torch.empty_like(base)
     for i in range(base.shape[-1]):
@@ -69,16 +81,21 @@ def _lib():
     lib = _build.library("fm_feedback")
     fn = lib.zt_fm_feedback
     if fn.argtypes is None:
-        fn.argtypes = [_C] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3 + [_C]
+        fn.argtypes = [_C] * 7 + [ctypes.c_longlong, ctypes.c_float, _C] \
+            + [ctypes.c_int] * 3 + [_C]
         fn.restype = ctypes.c_int
     return lib
 
 
-def fm_feedback_cuda(base: Tensor, feedback: float, waveform: int, fb1: Tensor,
+def fm_feedback_cuda(base: Tensor, feedback: Union[Number, Tensor],
+                     waveform: Union[int, Tensor], fb1: Tensor,
                      fb2: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """The kernel: base f32 [V, n] contiguous on a CUDA device; feedback a
-    number (rounded to f32); waveform an int; fb1/fb2 f32 [V]. Any V and
-    any n >= 1. Returns (out [V, n], fb1', fb2')."""
+    number (rounded to f32, passed by value) or an f32 tensor on base's
+    device broadcastable to [V]; waveform an int (by value) or an int32
+    tensor of one element on base's device; fb1/fb2 f32 [V]. Any V and any
+    n >= 1. Nothing is copied between host and card. Returns (out [V, n],
+    fb1', fb2')."""
     global fm_feedback_launches
     dev = base.device
     if dev.type != "cuda":
@@ -93,6 +110,25 @@ def fm_feedback_cuda(base: Tensor, feedback: float, waveform: int, fb1: Tensor,
         if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (V,) \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous f32 [{V}] on {dev}")
+    fbp, fb_stride, fb = None, 0, 0.0
+    if isinstance(feedback, torch.Tensor):
+        if feedback.device != dev or feedback.dtype != torch.float32:
+            raise ValueError(f"feedback must be f32 on {dev}, got {feedback.dtype} on "
+                             f"{feedback.device}")
+        fbp = feedback.broadcast_to((V,))
+        if V > 1 and fbp.stride(0) not in (0, 1):
+            fbp = fbp.contiguous()
+        fb_stride = fbp.stride(0) if V > 1 else 0
+    else:
+        fb = float(np.float32(feedback))
+    wp, w = None, 0
+    if isinstance(waveform, torch.Tensor):
+        if waveform.device != dev or waveform.dtype != torch.int32 or waveform.numel() != 1:
+            raise ValueError(f"waveform must be one int32 on {dev}, got {waveform.dtype} "
+                             f"{tuple(waveform.shape)} on {waveform.device}")
+        wp = waveform
+    else:
+        w = int(waveform)
     out = torch.empty((V, n), dtype=torch.float32, device=dev)
     f1 = torch.empty((V,), dtype=torch.float32, device=dev)
     f2 = torch.empty((V,), dtype=torch.float32, device=dev)
@@ -100,16 +136,16 @@ def fm_feedback_cuda(base: Tensor, feedback: float, waveform: int, fb1: Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().zt_fm_feedback(base.data_ptr(), fb1.data_ptr(), fb2.data_ptr(),
                                     out.data_ptr(), f1.data_ptr(), f2.data_ptr(),
-                                    float(np.float32(feedback)), int(waveform), V, n,
-                                    stream)
+                                    None if fbp is None else fbp.data_ptr(), fb_stride, fb,
+                                    None if wp is None else wp.data_ptr(), w, V, n, stream)
     if err != 0:
         raise RuntimeError(f"fm_feedback kernel launch failed: cudaError_t {err}")
     fm_feedback_launches += 1
     return out, f1, f2
 
 
-def fm_feedback(base: Tensor, feedback: float, waveform: int, fb1: Tensor,
-                fb2: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+def fm_feedback(base: Tensor, feedback: Union[Number, Tensor], waveform: Union[int, Tensor],
+                fb1: Tensor, fb2: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """The feedback recurrence (see fm_feedback_ref): the CUDA kernel for a
     CUDA base [V, n], else the plain version."""
     if base.device.type == "cuda" and base.dim() == 2:

@@ -5,9 +5,13 @@ zang_tpu/ops/pallas_svf.py:
                   svf_filter_pallas_table; svf_table_geometry is its launch
                   geometry and svf_table_emulated its seams composed in torch
   svf_dense_cuda  the dense-cut kernel (csrc/svf_dense.cu, K2), for
-                  svf_filter_pallas
+                  svf_filter_pallas; svf_dense_geometry and
+                  svf_dense_emulated are its own
   svf_onepass_cuda  the one-pass table-cut kernel for large voice counts
                   (csrc/svf_onepass.cu, K3), for svf_onepass_table
+
+K1 and K2 share one windowed body (csrc/svf_window.cuh) and one emulation
+of its seams (_windows_emulated).
 
 Each checks device, dtype, shape and contiguity, allocates the outputs with
 torch.empty, launches on torch.cuda.current_stream() and raises if the
@@ -37,7 +41,8 @@ _ARGTYPES = {
     "svf_table": [_C] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [ctypes.c_int] * 4
     + [_C],
     "svf_onepass": [_C] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [_C],
-    "svf_dense": [_C] * 8 + [ctypes.c_int] * 2 + [_I64] * 4 + [ctypes.c_float] * 5 + [_C],
+    "svf_dense": [_C] * 8 + [ctypes.c_int] * 2 + [_I64] * 4 + [ctypes.c_float] * 5
+    + [ctypes.c_int] * 5 + [_C],
 }
 
 
@@ -117,9 +122,10 @@ def _launch_table_cut(stem, l0, b0, x, filter_type, tb, cutv, res, t0, active_fr
     return l_end, b_end, out
 
 
-# K1's geometry (csrc/svf_table.cu): a thread steps a run of SVF_RUN frames; a
-# block a window of W frames; the blocks of a voice form a cluster, which
-# walks the voice's windows in rounds when there are more than it has blocks
+# The windowed body's geometry (csrc/svf_window.cuh), K1's and K2's: a thread
+# steps a run of SVF_RUN frames; a block a window of W frames; the blocks of a
+# voice form a cluster, which walks the voice's windows in rounds when there
+# are more than it has blocks
 SVF_RUN = 16
 SVF_WINDOW = 8192  # W up to 65,536-frame chunks; n itself below it
 SVF_MAX_CLUSTER = 8  # the portable cluster size: W = n / 8 up to 131,072 frames
@@ -195,39 +201,33 @@ def svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
     return ret
 
 
-def svf_table_emulated(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
-    """K1's seams composed in torch, on any device: svf_table_cuda's
-    arguments and function, computed as csrc/svf_table.cu computes it. Runs
-    of SVF_RUN frames step their affine maps (phase A); the maps are scanned
-    across the 32 runs of a warp, then across the warps of a window, then
-    the windows' maps are applied in order to (l0, b0), as the cluster's
-    rounds apply them; each run replays the
-    recurrence from its start state (phase B). The cutoff of each sample is
-    eval_tiled_chunk's, the rule the kernel's slot pointer follows. Every
-    f32 operation is the kernel's, in its order."""
+def _windows_emulated(l0, b0, x, cut, act, filter_type, res, window, windows, threads):
+    """The windowed body's seams composed in torch, on any device: x, cut
+    (clipped) and act (bool) [V, n]; `windows` windows of `window` frames
+    (their frames from n on inactive), each of `threads` runs of SVF_RUN
+    frames (the runs past the window inactive). Runs step their affine maps
+    (phase A); the maps are scanned across the 32 runs of a warp, then
+    across the warps of a window, then the windows' maps are applied in
+    order to (l0, b0), as the cluster's rounds apply them; each run replays
+    the recurrence from its start state (phase B). Every f32 operation is
+    the kernel's, in its order. Returns (l_end, b_end, out)."""
     from .filters import FILTER_MULS, _svf_step
     from .scan import _affine2_apply, _affine2_combine, associative_scan
-    from .segprog import eval_tiled_chunk
 
     def scan32(m):  # warp_scan: the Kogge-Stone order over 32 lanes
         return associative_scan(_affine2_combine, m)
 
     V, n = x.shape
-    _, nt, S = tb.shape
-    g = svf_table_geometry(V, n, nt, S)
-    R, dev, nwin = g.run, x.device, g.cluster * g.rounds
+    R, dev, nwin = SVF_RUN, x.device, windows
     l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
     r = torch.tensor(_r(res), device=dev)
-    t_idx = int(t0) + torch.arange(n, dtype=torch.int32, device=dev)
-    cut = eval_tiled_chunk({"tb": tb, "cut": torch.clamp(cutv, 0.0, 1.0)}, t_idx)["cut"]
-    act = torch.ones((V, n), dtype=torch.bool, device=dev) if active_from is None else \
-        t_idx[None, :] >= active_from.to(torch.int32)[:, None]
-    # [V, windows, runs of a window, R], the runs padded to whole warps
-    shape = (V, nwin, g.window // R, R)
-    pad = g.threads - g.window // R
+    # [V, windows, runs of a window, R], the chunk padded to whole windows
+    # and the runs to whole warps
+    shape = (V, nwin, window // R, R)
+    pad = threads - window // R
 
     def runs(a, fill):
-        a = a.reshape(shape)
+        a = torch.nn.functional.pad(a, (0, nwin * window - n), value=fill).reshape(shape)
         return torch.cat([a, torch.full((*shape[:2], pad, R), fill, dtype=a.dtype,
                                         device=dev)], dim=2) if pad else a
 
@@ -253,7 +253,7 @@ def svf_table_emulated(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=No
             ((nl00, l00), (nb00, b00), (nl10, l10), (nb10, b10), (nl01, l01), (nb01, b01)))
 
     # the scan: runs within a warp, warps within a window, windows in order
-    nw = g.threads // 32
+    nw = threads // 32
     m = scan32(tuple(e.reshape(V, nwin, nw, 32)
                       for e in (l10, l01, b10, b01, l00, b00)))
     ident = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
@@ -282,14 +282,34 @@ def svf_table_emulated(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=No
         nl, nb, h = _svf_step(l, b, xr[..., u], cr[..., u], r)
         out[..., u] = torch.where(on, nl * l_mul + nb * b_mul + h * h_mul, 0.0)
         l, b = torch.where(on, nl, l), torch.where(on, nb, b)
-    last = g.window // R - 1
-    return (l[:, -1, last], b[:, -1, last],
-            out[:, :, :g.window // R].reshape(V, n))
+    # the end state: the run that steps frame n - 1 (the frames after it inactive)
+    last_w, last_r = (n - 1) // window, (n - 1) % window // R
+    out = out[:, :, :window // R].reshape(V, nwin * window)[:, :n]
+    return l[:, last_w, last_r], b[:, last_w, last_r], out
 
 
-# what svf_onepass.cu is built for: 16-byte copies of x, a tile's slots in registers
+def svf_table_emulated(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
+    """K1's seams composed in torch, on any device: svf_table_cuda's
+    arguments and function, computed as csrc/svf_table.cu computes it
+    (_windows_emulated at svf_table_geometry's windows). The cutoff of each
+    sample is eval_tiled_chunk's, the rule the kernel's slot pointer
+    follows."""
+    from .segprog import eval_tiled_chunk
+
+    V, n = x.shape
+    _, nt, S = tb.shape
+    g = svf_table_geometry(V, n, nt, S)
+    t_idx = int(t0) + torch.arange(n, dtype=torch.int32, device=x.device)
+    cut = eval_tiled_chunk({"tb": tb, "cut": torch.clamp(cutv, 0.0, 1.0)}, t_idx)["cut"]
+    act = torch.ones((V, n), dtype=torch.bool, device=x.device) if active_from is None \
+        else t_idx[None, :] >= active_from.to(torch.int32)[:, None]
+    return _windows_emulated(l0, b0, x, cut, act, filter_type, res, g.window,
+                             g.cluster * g.rounds, g.threads)
+
+
+# what svf_onepass.cu is built for: 16-byte copies of x (a tile's slots are
+# held in registers: filters.ONEPASS_MAX_SLOTS)
 ONEPASS_N_MULTIPLE = 4
-ONEPASS_MAX_SLOTS = 4
 
 
 def svf_onepass_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None,
@@ -302,6 +322,8 @@ def svf_onepass_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None
     of 512) and a time tile may have at most 4 slots; svf_table_cuda takes
     the other shapes."""
     global svf_onepass_launches
+    from .filters import ONEPASS_MAX_SLOTS
+
     if x.dim() == 2 and x.shape[1] % ONEPASS_N_MULTIPLE:
         raise ValueError(f"svf_onepass_cuda needs a chunk that is a multiple of "
                          f"{ONEPASS_N_MULTIPLE} frames, got {x.shape[1]}")
@@ -319,6 +341,70 @@ def svf_onepass_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None
     return ret
 
 
+class SvfDenseGeometry(NamedTuple):
+    window: int  # W, frames a block takes at a time (whole runs)
+    cluster: int  # blocks a voice
+    rounds: int  # windows a block: W * cluster * rounds >= n, the rest inactive
+    run: int  # frames a thread
+    threads: int  # a block's, the runs of a window rounded up to whole warps
+
+
+@functools.lru_cache(maxsize=256)
+def svf_dense_geometry(V: int, n: int) -> SvfDenseGeometry:
+    """K2's launch geometry for x [V, n], any V, n >= 1; the C entry of
+    csrc/svf_dense.cu takes it as it is and only checks it. As K1's
+    windows, without K1's need to cut n whole: n / 8192 windows up to 8 and
+    at least n / 16,384, the cluster their count up to 8 and the rounds the
+    rest; the window is the fewest whole runs that cover n in that many
+    windows, so the last window (and, at most, a round's last few) may end
+    past n."""
+    if V < 1 or n < 1:
+        raise ValueError(f"K2 needs V, n >= 1, got {V}, {n}")
+    windows = max(min(SVF_MAX_CLUSTER, -(-n // SVF_WINDOW)),
+                  -(-n // (SVF_MAX_THREADS * SVF_RUN)))
+    cluster = min(windows, SVF_MAX_CLUSTER)
+    rounds = -(-windows // cluster)
+    runs = -(-(-(-n // SVF_RUN)) // (cluster * rounds))
+    return SvfDenseGeometry(runs * SVF_RUN, cluster, rounds, SVF_RUN, -(-runs // 32) * 32)
+
+
+def svf_dense_shared(g: SvfDenseGeometry, dense_cut: bool, mask_row: bool) -> int:
+    """Bytes of dynamic shared memory a K2 block stages: the window of x, and
+    of a cutoff row and a mask row where given."""
+    runs = g.window // g.run
+    return 4 * runs * SVF_PITCH * (2 if dense_cut else 1) + (16 * runs if mask_row else 0)
+
+
+def _along_time(t, V, n):
+    """t broadcast to [V, n] as K2 reads it: (the view, its stride from voice
+    to voice, its stride along time, 0 or 1). A tensor that runs along time
+    with another stride is made contiguous first."""
+    t = t.broadcast_to((V, n))
+    if n > 1 and t.stride(1) not in (0, 1):
+        t = t.contiguous()
+    return t, t.stride(0), t.stride(1) if n > 1 else 0
+
+
+def _dense_forms(V, n, cutoff, active, dev):
+    """K2's cutoff and mask forms: (cut [V, n] view or None, its strides, the
+    clipped scalar c0, act [V, n] view or None, its strides)."""
+    cut, c_sv, c_st, c0 = None, 0, 0, 0.0
+    if isinstance(cutoff, torch.Tensor):
+        if cutoff.device != dev or cutoff.dtype != torch.float32:
+            raise ValueError(f"cutoff must be f32 on {dev}, got {cutoff.dtype} on "
+                             f"{cutoff.device}")
+        cut, c_sv, c_st = _along_time(cutoff, V, n)
+    else:
+        c0 = float(np.clip(np.float32(cutoff), np.float32(0.0), np.float32(1.0)))
+    act, a_sv, a_st = None, 0, 0
+    if active is not None:
+        if active.device != dev or active.dtype != torch.bool:
+            raise ValueError(f"active must be bool on {dev}, got {active.dtype} on "
+                             f"{active.device}")
+        act, a_sv, a_st = _along_time(active, V, n)
+    return cut, c_sv, c_st, c0, act, a_sv, a_st
+
+
 def svf_dense_cuda(l0, b0, x, filter_type, cutoff, res, active=None):
     """Drop-in for ops.filters.svf_filter on a CUDA x [V, n] with a scalar res.
 
@@ -326,7 +412,8 @@ def svf_dense_cuda(l0, b0, x, filter_type, cutoff, res, active=None):
     [V, 1] or [V, n] tensor is read through its broadcast strides, never
     materialised); it is clipped to [0, 1] in the kernel. active: a bool
     tensor broadcastable to [V, n], or None (always active). l0/b0: [V] f32.
-    Returns (l_end [V], b_end [V], out [V, n])."""
+    Any V, n >= 1 (svf_dense_geometry). Returns (l_end [V], b_end [V],
+    out [V, n])."""
     global svf_dense_launches
     from .filters import FILTER_MULS
 
@@ -344,23 +431,9 @@ def svf_dense_cuda(l0, b0, x, filter_type, cutoff, res, active=None):
         raise ValueError(f"filter type {filter_type!r} has no dense kernel")
     l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
     r = _r(float(res))
-
-    cut, c_sv, c_st, c0 = None, 0, 0, 0.0
-    if isinstance(cutoff, torch.Tensor):
-        if cutoff.device != dev or cutoff.dtype != torch.float32:
-            raise ValueError(f"cutoff must be f32 on {dev}, got {cutoff.dtype} on "
-                             f"{cutoff.device}")
-        cut = cutoff.broadcast_to((V, n))
-        c_sv, c_st = cut.stride()
-    else:
-        c0 = float(np.clip(np.float32(cutoff), np.float32(0.0), np.float32(1.0)))
-    act, a_sv, a_st = None, 0, 0
-    if active is not None:
-        if active.device != dev or active.dtype != torch.bool:
-            raise ValueError(f"active must be bool on {dev}, got {active.dtype} on "
-                             f"{active.device}")
-        act = active.broadcast_to((V, n))
-        a_sv, a_st = act.stride()
+    g = svf_dense_geometry(V, n)
+    cut, c_sv, c_st, c0, act, a_sv, a_st = _dense_forms(V, n, cutoff, active, dev)
+    shared = svf_dense_shared(g, cut is not None and c_st == 1, act is not None and a_st == 1)
 
     out = torch.empty((V, n), dtype=torch.float32, device=dev)
     l_end = torch.empty((V,), dtype=torch.float32, device=dev)
@@ -371,8 +444,24 @@ def svf_dense_cuda(l0, b0, x, filter_type, cutoff, res, active=None):
             x.data_ptr(), None if cut is None else cut.data_ptr(),
             None if act is None else act.data_ptr(), l0.data_ptr(), b0.data_ptr(),
             out.data_ptr(), l_end.data_ptr(), b_end.data_ptr(), V, n, c_sv, c_st,
-            a_sv, a_st, c0, float(r), l_mul, b_mul, h_mul, stream)
+            a_sv, a_st, c0, float(r), l_mul, b_mul, h_mul, g.window, g.cluster, g.rounds,
+            g.threads, shared, stream)
     if err != 0:
         raise RuntimeError(f"svf_dense kernel launch failed: cudaError_t {err}")
     svf_dense_launches += 1
     return l_end, b_end, out
+
+
+def svf_dense_emulated(l0, b0, x, filter_type, cutoff, res, active=None):
+    """K2's seams composed in torch, on any device: svf_dense_cuda's
+    arguments and function, computed as csrc/svf_dense.cu computes it
+    (_windows_emulated at svf_dense_geometry's windows)."""
+    from .scan import as_f32
+
+    V, n = x.shape
+    g = svf_dense_geometry(V, n)
+    cut = torch.clamp(as_f32(cutoff, x), 0.0, 1.0).broadcast_to((V, n))
+    act = torch.ones((V, n), dtype=torch.bool, device=x.device) if active is None \
+        else active.broadcast_to((V, n))
+    return _windows_emulated(l0, b0, x, cut, act, filter_type, res, g.window,
+                             g.cluster * g.rounds, g.threads)

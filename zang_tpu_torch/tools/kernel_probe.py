@@ -1,24 +1,32 @@
 #!/usr/bin/env python3
-"""Read K1 (the table-cut SVF) and two renders of one checkout of the port
-on one NVIDIA GPU, so that two checkouts (a change and its parent) can be
-read in turns in one call on one card.
+"""Read the five kernels and a few renders of one checkout of the port on
+one NVIDIA GPU, so that two checkouts (a change and its parent) can be read
+in turns in one call on one card.
 
     python3 zang_tpu_torch/tools/kernel_probe.py [--root DIR]
 
 DIR is the root of the checkout whose zang_tpu_torch is imported (default:
-the one holding this script); the timing helpers are chip_smoke.py's, from
-the checkout holding this script. Prints one JSON line, with the card's
-nvidia-smi name and power limit:
+the one holding this script); the inputs and timing helpers are
+chip_smoke.py's, from the checkout holding this script, and every kernel is
+called through the entry that both checkouts have. Prints one JSON line,
+with the card's nvidia-smi name and power limit:
 
-  k1_render_S  the largest slot count of the tables K1 gets in poly_echo's
-               1024-voice x 30 s render (chip_smoke.render_slots)
-  k1           K1's device time a launch (torch.profiler), ms: random
-               inputs at the song's shape (V = 14 x 65,536, S = 2) and at
-               V = 1024 x 65,536 with S = 2, with a random active_from and
-               with every sample active; and the arguments of that
-               render's chunk 10, captured
-  render_s     render_song_s16 (the 385 s song) and the 10 s sampler config
-               (render_config_s16), end to end, twice each
+  device_ms  each kernel's device time a launch (torch.profiler), ms, on
+             random inputs made from one seed:
+               K5 fm_feedback, waveform 0, feedback pi/4: the fmsynth
+                  example's V = 8 x 16,384 and V = 1024 x 16,384
+               K2 svf_filter: play's shape (V = 1 x 16,384, scalar cutoff,
+                  mask), stereo's (V = 2, [2, 1] cutoff), detuned's two
+                  calls, and V = 1024 x 65,536 with a dense cutoff and mask
+               K1 svf_filter_table: the song's shape (V = 14 x 65,536,
+                  S = 2) and V = 1024 x 65,536
+               K3 svf_onepass_cuda: V = 4096 x 65,536, S = 2
+               K4 sampler_taps: the sampler's two taps of a 65,536 chunk
+  host_us    the host's microseconds a call of K5 at fmsynth's shape and K2
+             at play's, enqueue only (chip_smoke.host_us)
+  render_s   end to end, three times each: render_song_s16 (the 385 s
+             song), the 10 s sampler config, and the fmsynth, play, stereo
+             and detuned examples
 """
 
 import argparse
@@ -27,10 +35,8 @@ import os
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from unittest import mock
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-CAPTURED_CHUNK = 10
 
 
 def main() -> int:
@@ -54,50 +60,66 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from zang_tpu_torch.core import native
-    from zang_tpu_torch.graph.render import render_performance
-    from zang_tpu_torch.host import configs, song
-    from zang_tpu_torch.ops import _build, filters
+    from zang_tpu_torch.host import configs, examples, song
+    from zang_tpu_torch.ops import _build, filters, fm, lookup, svf_cuda
 
     out = {"root": root, "card": cs.smi()}
-    with ThreadPoolExecutor(3) as pool:
-        jobs = [pool.submit(_build.build, s) for s in ("svf_table", "table_lookup")]
+    stems = ("svf_table", "svf_dense", "svf_onepass", "table_lookup", "fm_feedback")
+    with ThreadPoolExecutor(6) as pool:
+        jobs = [pool.submit(_build.build, s) for s in stems]
         jobs.append(pool.submit(native.build))
         for j in jobs:
             j.result()
 
-    # K1 on a chunk of poly_echo's render, and on random inputs
-    out["k1_render_S"] = cs.render_slots(configs, 1024, 30.0)
-    perf, total = configs.build_poly_echo_performance(num_voices=1024, seconds=30.0)
-    real, captured = filters.svf_filter_table, {}
-
-    def capture(*args, **kw):
-        if args[7] == CAPTURED_CHUNK * cs.CHUNK:  # t0 of the chunk
-            captured["args"] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                                     for a in args[:9])
-        return real(*args, **kw)
-
-    with mock.patch.object(filters, "svf_filter_table", capture):
-        render_performance(perf, total, cs.CHUNK, device="cuda")
-    torch.cuda.synchronize()
-    del perf
-    rng = np.random.default_rng(20261016)
+    rng = np.random.default_rng(20261017)
     dev = torch.device("cuda")
-    cases = {"song S=2": cs.svf_case(rng, 14, cs.CHUNK, 128, 2, 7 * cs.CHUNK, dev),
-             "v1024 S=2": cs.svf_case(rng, 1024, cs.CHUNK, 128, 2, 5 * cs.CHUNK, dev),
-             "v1024 S=2 all active": cs.svf_case(rng, 1024, cs.CHUNK, 128, 2, 5 * cs.CHUNK,
-                                                 dev, always_active=True),
-             f"v1024 render chunk {CAPTURED_CHUNK}": captured["args"]}
-    out["k1"] = {label: cs.device_ms(lambda a=a: filters.svf_filter_table(*a),
-                                     "svf_table_kernel", 100 if a[2].shape[0] < 64 else 20)
-                 for label, a in cases.items()}
-    del cases, captured
+    ex = examples.DEFAULT_CHUNK
+    fm_args = lambda c: (c["base"], cs.FB, 0, c["fb1"], c["fb2"])
+    cut = lambda f: filters.cutoff_from_frequency(f, 48000.0)
+    n_drum = configs.SamplerInstrument().table.num_samples
+    ia, ib, table = cs.taps_case(rng, n_drum, cs.CHUNK, dev, -n_drum, 2 * n_drum)
+    cases = {
+        "K5 fmsynth": ("fm_feedback_kernel", fm.fm_feedback,
+                       fm_args(cs.fm_case(rng, 8, ex, dev))),
+        "K5 v1024": ("fm_feedback_kernel", fm.fm_feedback,
+                     fm_args(cs.fm_case(rng, 1024, ex, dev))),
+        "K2 play": ("svf_dense_kernel", filters.svf_filter,
+                    cs.dense_case(rng, 1, ex, "scalar", True, dev)),
+        "K2 stereo": ("svf_dense_kernel", filters.svf_filter,
+                      cs.dense_case(rng, 2, ex, "column", False, dev, res=0.4)),
+        "K2 detuned warble": ("svf_dense_kernel", filters.svf_filter,
+                              cs.dense_case(rng, 2, ex, "scalar", False, dev, res=0.0,
+                                            scalar_cut=cut(4.0))),
+        "K2 detuned voice": ("svf_dense_kernel", filters.svf_filter,
+                             cs.dense_case(rng, 2, ex, "scalar", True, dev,
+                                           scalar_cut=cut(7040.0))),
+        "K2 v1024": ("svf_dense_kernel", filters.svf_filter,
+                     cs.dense_case(rng, 1024, cs.CHUNK, "dense", True, dev)),
+        "K1 song": ("svf_table_kernel", filters.svf_filter_table,
+                    cs.svf_case(rng, 14, cs.CHUNK, 128, 2, 7 * cs.CHUNK, dev)),
+        "K1 v1024": ("svf_table_kernel", filters.svf_filter_table,
+                     cs.svf_case(rng, 1024, cs.CHUNK, 128, 2, 5 * cs.CHUNK, dev)),
+        "K3 v4096": ("svf_onepass_kernel", svf_cuda.svf_onepass_cuda,
+                     cs.svf_case(rng, 4096, cs.CHUNK, 128, 2, 3 * cs.CHUNK, dev)),
+        "K4 sampler": ("lookup_kernel", lookup.sampler_taps, (ia, ib, table, n_drum, True)),
+    }
+    out["device_ms"] = {}
+    for label, (kname, fn, args) in cases.items():
+        reps = 20 if "v1024" in label or "v4096" in label else 100
+        out["device_ms"][label] = cs.device_ms(lambda fn=fn, a=args: fn(*a), kname, reps)
+    out["host_us"] = {label: cs.host_us(lambda fn=cases[label][1], a=cases[label][2]: fn(*a),
+                                        reps)
+                      for label, reps in (("K5 fmsynth", 50), ("K2 play", 500))}
+    del cases
 
     renders = {"song": lambda: song.render_song_s16(device="cuda"),
-               "sampler": lambda: configs.render_config_s16("sampler", 10.0, device="cuda")}
+               "sampler": lambda: configs.render_config_s16("sampler", 10.0, device="cuda"),
+               **{f"ex_{name}": (lambda name=name: examples.EXAMPLES[name](device="cuda"))
+                  for name in ("fmsynth", "play", "stereo", "detuned")}}
     out["render_s"] = {}
     for name, fn in renders.items():
         secs = []
-        for _ in range(2):
+        for _ in range(3):
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()
