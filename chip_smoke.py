@@ -44,12 +44,16 @@ each of which raises on failure:
      stereo example's (V=2, [2, 1] cutoff, no mask, resonance 0.4), the
      detuned example's two calls (V=2, scalar cutoff: 4 Hz, resonance 0, no
      mask; 7040 Hz with a mask), a ragged n with a [V, 1] cutoff, a state
-     chain across two calls and V=1024, n=65536 with a dense cutoff and
-     mask; rms < -120 dBFS, end states within 1e-5; at the play, stereo,
-     detuned and ragged shapes also bit for bit against svf_dense_emulated,
-     its seams composed in torch; timed as K1 (per call at the play and
-     V=1024 shapes, device time at each example's), with its latency floor
-     at play's shape (svf_chain_floor_us, printed only)
+     chain across two calls, V=1024, n=65536 with a dense cutoff and
+     mask, the flat song's chunk (V=14, n=65000: the organ part's dense
+     cutoff over the song's first chunk and its activity mask) and
+     render_midi's filteredsaw part (its voices, n=16384, its scalar
+     cutoff, a mask); rms < -120 dBFS, end states within 1e-5; at the
+     play, stereo, detuned, ragged, flat song and filteredsaw shapes also
+     bit for bit against svf_dense_emulated, its seams composed in torch;
+     timed as K1 (per call at the play, V=1024, flat song and filteredsaw
+     shapes, device time at each example's), with its latency floor at
+     play's shape (svf_chain_floor_us, printed only)
   6. K5, the FM feedback kernel, against fm_feedback_ref on the card, bit
      for bit in outputs and end states, at feedback pi/4 and waveforms 0-3:
      the fmsynth example's shape (V=8, n=16384), V=1024 x 16384 (beyond the
@@ -80,12 +84,29 @@ each of which raises on failure:
                   capacity sizes), render_config_s16("poly_echo", 8.0,
                   voices=N, device="cuda"): 6 K3 launches and no K1 each,
                   peak device memory under 64 GiB
-     then each again in its two timed steps (plan, device render)
+     then each again in its two timed steps (plan, device render); then
+       song_flat  the full song at a 65,000-frame chunk (the flat chunk
+                  format), song.build_performance and
+                  render_performance(..., device="cuda"): 285 K2 launches
+                  and no K1 (the organ's dense-cut branch)
+       midi_toccata  zang_tpu_torch/data/toccata.mid (the song as a
+                  Standard MIDI File) through render_midi with the nice
+                  instrument at its defaults (48 kHz, 2 s of tail, chunk
+                  16384, each part's peak polyphony): 3 K1 launches a chunk
+       midi_mixed the same file with pmosc, filteredsaw and weirdsquare
+                  cycled over the parts, 60 s: 176 K2 launches
+       the zang-midi CLI, python -m zang_tpu_torch.host.midi toccata.mid
+                  OUT.wav --device cuda, a process of its own: its WAV is
+                  midi_toccata's render mixed down (mixdown_s16_np)
+  7b. the song streamed: stream_performance at chunk 65536 on the card,
+     282 K1 launches, the blocks concatenated equal to phase 7's render bit
+     for bit
   8. fidelity without JAX: each render against the JAX package's golden
      windows (zang_tpu_torch/data/*_golden_jax.npz, < -90 dBFS RMS, every
-     channel) and against the card's own plain-path render (4096 voices:
-     the first chunk; 16384 voices: K3 is held to its loop at that shape in
-     6b instead)
+     channel; song_flat also against the tiled song's windows, printed
+     only) and against the card's own plain-path render (4096 voices,
+     song_flat, midi_toccata and midi_mixed: the first chunk; 16384
+     voices: K3 is held to its loop at that shape in 6b instead)
   9. the twelve examples (zang_tpu_torch/host/examples.py EXAMPLES), each
      through its ex_* entry on the card at its default seconds, with the
      launch counts checked (ceil(frames / chunk) a chunk-launched kernel:
@@ -847,6 +868,207 @@ def run_examples(examples, filters, fm, lookup, svf_cuda, card, launches):
             raise AssertionError("fmsynth: the render is not the plain path's bits")
 
 
+# ---------------------------------------------------------------------------
+# the flat chunk format, MIDI input and streaming
+
+SONG_FLAT_CHUNK = 65000  # not a whole number of 512-frame tiles: the flat format
+MIDI_FILE = os.path.join(ROOT, "zang_tpu_torch", "data", "toccata.mid")
+MIDI_MIXED = ("pmosc", "filteredsaw", "weirdsquare")  # cycled over the parts
+MIDI_MIXED_SECONDS = 60.0
+
+
+def flat_song_case(rng, perf, total, device):
+    """K2's inputs at the flat song's shape: the merged organ part's dense
+    cutoff and activity over the song's first 65,000-frame chunk, as
+    NiceInstrument's flat branch evaluates them (V=14), and a random x."""
+    import numpy as np
+    import torch
+
+    from zang_tpu_torch.ops.segprog import eval_chunk
+
+    xs, _ = perf.chunk_xs(total, SONG_FLAT_CHUNK)
+    phase = xs[1]["phase"]
+    t_idx = torch.arange(SONG_FLAT_CHUNK, dtype=torch.int32, device=device)
+    cut = eval_chunk({k: torch.as_tensor(phase[k][0], device=device)
+                      for k in ("starts", "cut")}, t_idx)["cut"]
+    af = torch.as_tensor(perf.programs[1]["active_from"], device=device)
+    act = t_idx[None, :] >= af[:, None]
+    V = cut.shape[0]
+    to = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return (to(rng.standard_normal(V) * 0.1), to(rng.standard_normal(V) * 0.1),
+            to(rng.standard_normal((V, SONG_FLAT_CHUNK)) * 0.3), "low_pass", cut, 0.7, act)
+
+
+def midi_mixed_maker(midi):
+    stock = midi.stock_instruments()
+    return lambda pi, label: stock[MIDI_MIXED[pi % len(MIDI_MIXED)]]()
+
+
+def first_chunk_plain(perf, total, chunk, filters, fm, lookup, svf_cuda):
+    """The first chunk of perf's render through every plain version on the
+    card (a stream's first block), f32 numpy [C, chunk]."""
+    from zang_tpu_torch.graph.render import stream_performance
+
+    reset_counts(svf_cuda, lookup, fm)
+    with plain_routers(filters, fm, lookup):
+        block = next(stream_performance(perf, total, chunk, device="cuda"))
+    if any(counts(svf_cuda, lookup, fm).values()):
+        raise AssertionError("the plain path launched a kernel")
+    return block
+
+
+def run_flat_midi_stream(card, filters, fm, lookup, svf_cuda, launches, song_mix):
+    """Phases 7 (song_flat, midi_toccata, midi_mixed, the zang-midi CLI),
+    7b (the song streamed) and 8 (their golden windows and first chunks on
+    the plain path). song_mix: phase 7's render of the song, f32 numpy
+    [1, total]. Adds each run's launch counts to `launches`."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from zang_tpu_torch.core.mixdown import mixdown_s16_np
+    from zang_tpu_torch.core.wav import read_wav
+    from zang_tpu_torch.graph.fidelity import deviation_dbfs
+    from zang_tpu_torch.graph.render import render_performance, stream_performance
+    from zang_tpu_torch.host import midi, song
+
+    data_dir = os.path.join(ROOT, "zang_tpu_torch", "data")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # song_flat: the whole song at a 65,000-frame chunk, every chunk flat
+    total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
+    reset_counts(svf_cuda, lookup, fm)
+    perf, plan_s = timed(lambda: song.build_performance(total))
+    mix, render_s = timed(lambda: render_performance(perf, total, SONG_FLAT_CHUNK,
+                                                     device="cuda"))
+    launches["song_flat"] = counts(svf_cuda, lookup, fm)
+    print(f"song_flat: render_performance(song, {total}, chunk_size={SONG_FLAT_CHUNK}, "
+          f"device='cuda'): plan {plan_s:.3f}s, device render {render_s:.3f}s (RTF "
+          f"{song.NUM_SECONDS / render_s:.1f} render only), launches "
+          f"{launches['song_flat']} [{card}]")
+    want = expect_counts(svf_dense=-(-total // SONG_FLAT_CHUNK))
+    if launches["song_flat"] != want:
+        raise AssertionError(f"song_flat: launches {launches['song_flat']}, expected {want}")
+    if tuple(mix.shape) != (1, total) or not bool(torch.isfinite(mix).all()):
+        raise AssertionError(f"song_flat: {tuple(mix.shape)}, or non-finite samples")
+    flat_np = mix.cpu().numpy()
+    del mix
+    gold = np.load(os.path.join(data_dir, "song_flat_golden_jax.npz"))
+    p = json.loads(str(gold["params"]))
+    if (p["chunk_size"], p["total"]) != (SONG_FLAT_CHUNK, total):
+        raise AssertionError(f"the song_flat golden was made for {p}")
+    check_golden(gold["windows"], gold["offsets"], gold["chunk_rms"], flat_np[0],
+                 "song_flat", chunk=SONG_FLAT_CHUNK)
+    tiled = np.load(os.path.join(data_dir, "song_golden_jax.npz"))
+    w = tiled["windows"].shape[-1]
+    db, peak = deviation_dbfs(np.stack([flat_np[0, o:o + w] for o in tiled["offsets"]]),
+                              tiled["windows"])
+    print(f"  song_flat vs the tiled song's JAX golden ({len(tiled['offsets'])} windows "
+          f"of {w}), printed only: rms {db:.1f} dBFS, peak {peak:.1f} dBFS")
+    check_plain(flat_np[:, :SONG_FLAT_CHUNK],
+                first_chunk_plain(perf, total, SONG_FLAT_CHUNK, filters, fm, lookup,
+                                  svf_cuda), "song_flat (first chunk)")
+    del perf, flat_np
+
+    # the Toccata as an SMF through render_midi: all nice, then three instruments
+    with open(MIDI_FILE, "rb") as f:
+        data = f.read()
+    mgold = np.load(os.path.join(data_dir, "midi_golden_jax.npz"))
+    mp = json.loads(str(mgold["params"]))
+    if mp["sha256"] != hashlib.sha256(data).hexdigest():
+        raise AssertionError("the midi golden was made from another file")
+    nice = midi.stock_instruments()["nice"]
+    runs = [("midi_toccata", "toccata", lambda pi, label: nice(), None, "svf_table"),
+            ("midi_mixed", "mixed", midi_mixed_maker(midi), MIDI_MIXED_SECONDS, "svf_dense")]
+    rendered = {}
+    for name, entry, maker, seconds, kname in runs:
+        g = mp[entry]
+        names = ["nice"] if entry == "toccata" else list(MIDI_MIXED)
+        if (g["instruments"], g["seconds"], g["tail"], g["sample_rate"], g["chunk_size"]) \
+                != (names, seconds, 2.0, 48000.0, 16384):
+            raise AssertionError(f"the midi golden's {entry} was made for {g}")
+        reset_counts(svf_cuda, lookup, fm)
+        audio, wall = timed(lambda: midi.render_midi(data, maker, seconds=seconds,
+                                                     device="cuda"))
+        launches[name] = counts(svf_cuda, lookup, fm)
+        perf, plan_s = timed(lambda: midi.midi_performance(data, maker, seconds=seconds))
+        perf, total = perf
+        chunk = midi.midi_chunk(total)
+        again, render_s = timed(lambda: render_performance(perf, total, chunk, device="cuda"))
+        polys = [len(tls) for _, tls in perf.parts]
+        print(f"{name}: render_midi(toccata.mid, {'nice' if entry == 'toccata' else MIDI_MIXED}"
+              f"{'' if seconds is None else f', seconds={seconds:g}'}, device='cuda'): "
+              f"{total} frames ({total / 48000.0:.2f} s) at chunk {chunk}, polyphony "
+              f"{polys}; {wall:.3f}s end to end; plan {plan_s:.3f}s, device render "
+              f"{render_s:.3f}s (RTF {total / 48000.0 / render_s:.1f} render only), "
+              f"launches {launches[name]} [{card}]")
+        n_chunks = -(-total // chunk)
+        per_chunk = len(perf.parts) if kname == "svf_table" else 1
+        want = expect_counts(**{kname: per_chunk * n_chunks})
+        if launches[name] != want:
+            raise AssertionError(f"{name}: launches {launches[name]}, expected {want}")
+        if g["total"] != total or tuple(audio.shape) != (1, total):
+            raise AssertionError(f"{name}: {tuple(audio.shape)}, the golden's total "
+                                 f"{g['total']}")
+        if not bool(torch.isfinite(audio).all()) or not torch.equal(audio, again):
+            raise AssertionError(f"{name}: non-finite samples, or two renders differ")
+        audio_np = audio.cpu().numpy()
+        del audio, again
+        check_golden(mgold[f"{entry}_windows"], mgold[f"{entry}_offsets"],
+                     mgold[f"{entry}_chunk_rms"], audio_np, name, chunk=chunk)
+        check_plain(audio_np[:, :chunk],
+                    first_chunk_plain(perf, total, chunk, filters, fm, lookup, svf_cuda),
+                    f"{name} (first chunk)")
+        rendered[name] = audio_np
+        del perf
+
+    # the zang-midi CLI of the port, as a user runs it
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "toccata.wav")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "zang_tpu_torch.host.midi", MIDI_FILE, out,
+             "--device", "cuda"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m zang_tpu_torch.host.midi failed:\n{proc.stderr}")
+        w = read_wav(out)
+        pcm = np.frombuffer(w.data, np.int16)
+    want = mixdown_s16_np(rendered["midi_toccata"], 0.25).reshape(-1)
+    same = (w.num_channels, w.sample_rate) == (1, 48000) and np.array_equal(pcm, want)
+    print(f"zang-midi CLI: python -m zang_tpu_torch.host.midi toccata.mid OUT.wav --device "
+          f"cuda: {proc.stdout.strip()} in {wall:.1f}s (a process of its own); the WAV "
+          f"{'equals' if same else 'DIFFERS from'} mixdown_s16_np of midi_toccata's render")
+    if not same:
+        raise AssertionError("the CLI's WAV is not midi_toccata's render mixed down")
+
+    # 7b. the song streamed at the tiled chunk: the render's bits, block by block
+    total = song_mix.shape[1]
+    perf = song.build_performance(total)
+    reset_counts(svf_cuda, lookup, fm)
+    blocks, wall = timed(lambda: list(stream_performance(perf, total, CHUNK,
+                                                         device="cuda")))
+    launches["song_stream"] = counts(svf_cuda, lookup, fm)
+    streamed = np.concatenate(blocks, axis=1)
+    same = streamed.shape == song_mix.shape and np.array_equal(streamed, song_mix)
+    print(f"song streamed: stream_performance(song, {total}, {CHUNK}, device='cuda'): "
+          f"{len(blocks)} blocks in {wall:.3f}s, launches {launches['song_stream']}; "
+          f"concatenated {'equal' if same else 'NOT equal'} to the render bit for bit "
+          f"[{card}]")
+    if launches["song_stream"] != expect_counts(svf_table=-(-total // CHUNK)):
+        raise AssertionError(f"song stream: launches {launches['song_stream']}")
+    if not same:
+        raise AssertionError("the streamed song is not the song's render")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -863,7 +1085,7 @@ def main() -> int:
     from zang_tpu_torch.core import native
     from zang_tpu_torch.core.mixdown import mixdown_s16
     from zang_tpu_torch.graph.render import render_performance
-    from zang_tpu_torch.host import configs, examples, song
+    from zang_tpu_torch.host import configs, examples, midi, song
     from zang_tpu_torch.ops import _build, filters, fm, lookup, svf_cuda
 
     # 1. the card
@@ -1124,9 +1346,22 @@ def main() -> int:
         "detuned": max(k2("detuned warble shape", warble_case),
                        k2("detuned voice shape", voice_case)),
         "v1024": k2("V=1024 shape", wide_case)}
+    # the flat song's chunk (V=14 x 65,000, the organ's dense cutoff and mask)
+    # and render_midi's filteredsaw part (its voices x 16,384, its cutoff, mask)
+    song_total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
+    flat_case = flat_song_case(rng, song.build_performance(song_total), song_total, dev)
+    with open(MIDI_FILE, "rb") as f:
+        mixed, _ = midi.midi_performance(f.read(), midi_mixed_maker(midi),
+                                         seconds=MIDI_MIXED_SECONDS)
+    saw = MIDI_MIXED.index("filteredsaw")
+    saw_case = dense_case(rng, len(mixed.parts[saw][1]), ex_chunk, "scalar", True, dev,
+                          scalar_cut=mixed.programs[saw]["cutoff"])
+    dense_err["song_flat"] = k2("flat song shape", flat_case)
+    dense_err["midi filteredsaw"] = k2("midi filteredsaw shape", saw_case)
     for label, a in (("play shape", play_case), ("stereo shape", stereo_case),
                      ("detuned warble shape", warble_case),
-                     ("detuned voice shape", voice_case), ("ragged shape", ragged_dense)):
+                     ("detuned voice shape", voice_case), ("ragged shape", ragged_dense),
+                     ("flat song shape", flat_case), ("midi filteredsaw shape", saw_case)):
         k2_emulated(label, a)
     chain = dense_case(rng, 4, 2 * n, "dense", True, dev)
     check_svf_chain(f"chained 2 x {n}", filters.svf_filter, filters.svf_filter_ref, chain,
@@ -1137,13 +1372,15 @@ def main() -> int:
                "v1024": k2_time("V=1024", wide_case, 20, 2),
                "stereo": k2_device("stereo shape", stereo_case),
                "detuned": k2_device("detuned voice shape", voice_case),
-               "detuned warble": k2_device("detuned warble shape", warble_case)}
+               "detuned warble": k2_device("detuned warble shape", warble_case),
+               "song_flat": k2_time("flat song", flat_case, 100, 5),
+               "midi filteredsaw": k2_time("midi filteredsaw", saw_case, 100, 10)}
     play_cluster = svf_cuda.svf_dense_geometry(*play_case[2].shape).cluster
     print(f"  K2's latency floor at the play shape, an estimate: "
           f"{svf_chain_floor_us(play_cluster, mhz):.3f} us at {mhz:.0f} MHz, beside the "
           f"bytes bound {dense_t['play']['bound_ms'] * 1e3:.3f} us and the device time "
           f"{dense_t['play']['device_ms'] * 1e3:.1f} us [{card}]")
-    del wide_case, chain
+    del wide_case, chain, flat_case, mixed
 
     # 6. K5 vs plain on the card
     print("K5 fm_feedback vs fm_feedback_ref at feedback pi/4 (bit for bit):")
@@ -1216,6 +1453,7 @@ def main() -> int:
     with mock.patch.object(filters, "svf_filter_table", filters.svf_filter_table_ref):
         plain = render_performance(perf, total, CHUNK, device="cuda").cpu().numpy()
     check_plain(mix_np, plain, "song")
+    song_mix = mix_np
     del perf, mix, plain
 
     # 7-8. the sampler and poly_echo configs: (golden entry, config, seconds,
@@ -1301,6 +1539,10 @@ def main() -> int:
             check_plain(audio_np[:, :frames], plain, f"{name} ({frames} frames)")
             del plain
         del perf
+
+    # 7, 7b, 8. the flat song, the Toccata as an SMF, the zang-midi CLI, streaming
+    run_flat_midi_stream(card, filters, fm, lookup, svf_cuda, launches, song_mix)
+    del song_mix
 
     # 9. the examples
     run_examples(examples, filters, fm, lookup, svf_cuda, card, launches)

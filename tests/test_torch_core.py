@@ -12,14 +12,23 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
+from zang_tpu.core import mixdown as jmix
 from zang_tpu.core import native as jnative
+from zang_tpu.core import notes as jnotes
+from zang_tpu.core import span as jspan
+from zang_tpu.core import trigger as jtrigger
 from zang_tpu.core import timeline as jtl
 from zang_tpu.core import wav as jwav
 from zang_tpu.host import configs as jconfigs
 from zang_tpu.host import song as jsong
 from zang_tpu.ops import control as jctl
+from zang_tpu_torch.core import mixdown as tmix
 from zang_tpu_torch.core import native as tnative
+from zang_tpu_torch.core import notes as tnotes
+from zang_tpu_torch.core import span as tspan
+from zang_tpu_torch.core import trigger as ttrigger
 from zang_tpu_torch.core import timeline as ttl
 from zang_tpu_torch.core import wav as twav
 from zang_tpu_torch.core.notes import SongEvent
@@ -116,6 +125,68 @@ def test_envelopes_native(songs):
     np.testing.assert_array_equal(tp.starts, jp.starts)
     for k in jp.values:
         np.testing.assert_array_equal(tp.values[k], jp.values[k])
+
+
+def _note_walk(notes, span, trigger, song, polyphony, total, block=1024):
+    """The Python note walk of one part, a mix block of `block` frames at a
+    time (the script backend's and the live session's): NoteTracker ->
+    PolyphonyDispatcher -> a Trigger a voice. Returns every impulse and
+    every note span, as plain tuples."""
+    tracker = notes.NoteTracker(song)
+    dispatcher = notes.PolyphonyDispatcher(polyphony)
+    triggers = [trigger.Trigger() for _ in range(polyphony)]
+    out = []
+    for b0 in range(0, total, block):
+        sp = span.Span(0, min(block, total - b0))
+        iap = tracker.consume(48000.0, sp)
+        out.append(("block", b0, len(sp), float(tracker.t),
+                    [(i.frame, i.note_id, i.event_id) for i in iap.impulses]))
+        for v, (trig, viap) in enumerate(zip(triggers, dispatcher.dispatch(iap))):
+            for r in trig.iterate(sp, viap):
+                out.append((v, r.span.start, r.span.end, r.note_id_changed,
+                            sorted(r.params.items())))
+    return out
+
+
+@pytest.mark.parametrize("part", [0, 1, 2])
+def test_python_note_walk_matches(songs, part):
+    """Span, NoteTracker, PolyphonyDispatcher and Trigger over the whole
+    385 s song, each part walked in 1,024-frame blocks: identical outputs."""
+    jsongs, tsongs = songs
+    total = int(tsong.NUM_SECONDS * tsong.SAMPLE_RATE)
+    poly = tsong.POLYPHONY[part]
+    got = _note_walk(tnotes, tspan, ttrigger, tsongs[part], poly, total)
+    want = _note_walk(jnotes, jspan, jtrigger, jsongs[part], poly, total)
+    assert len(got) > total // 1024 and got == want
+
+
+def test_note_core_queue_and_ids():
+    """ImpulseQueue's capacity and order rules, IdGenerator and Span's
+    check, in both packages."""
+    res = []
+    for notes, span in ((jnotes, jspan), (tnotes, tspan)):
+        q, ids = notes.ImpulseQueue(), notes.IdGenerator()
+        for f in (5, 3, 9, 9, *range(10, 50)):  # 3 is out of order; past 32 dropped
+            q.push(f, ids.next(), {"note_on": True, "f": f})
+        iap = q.consume()
+        res.append(([(i.frame, i.note_id, i.event_id) for i in iap.impulses],
+                    iap.paramses, len(q.consume()), len(span.Span(3, 10))))
+        with pytest.raises(ValueError):
+            span.Span(4, 3)
+    assert res[0] == res[1] and len(res[0][0]) == notes.QUEUE_CAPACITY
+
+
+@pytest.mark.parametrize("vol", [0.25, 1.0])
+def test_mixdown_s8_equal(vol):
+    rng = np.random.default_rng(11)
+    mix = (rng.standard_normal(5000) * 2.5).astype(np.float32)
+    mix[:8] = [np.nan, np.inf, -np.inf, 4.0, -4.0, 0.99999, -0.99999, -0.0]
+    ref = jmix.mixdown_s8_np(mix, vol)
+    np.testing.assert_array_equal(tmix.mixdown_s8_np(mix, vol), ref)
+    got = tmix.mixdown_s8(torch.from_numpy(mix), vol)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert ref[0] == 0 and ref[1] == 126 and ref[2] == -127
 
 
 def test_native_builds_into_the_port(tmp_path, monkeypatch):

@@ -1,7 +1,7 @@
 """The port's host planners against zang_tpu's, bit for bit (host only).
 
 The JAX package's planners live in modules that import jax, so the port
-keeps numpy twins: chunkify_tiled, plan_phase_segments, painter_program,
+keeps numpy twins: chunkify, chunkify_tiled, plan_phase_segments, painter_program,
 NiceInstrument's cutoff table, mixdown_s16 and deviation_dbfs. On the
 song's first 10 s every array they make must equal the JAX package's.
 """
@@ -74,8 +74,14 @@ def test_chunk_xs_equal(perfs, chunk):
 
 
 def test_chunk_xs_rejects_flat_format(perfs):
-    with pytest.raises(ValueError, match="tiled"):
-        perfs[1].chunk_xs(TOTAL, 1000)
+    """A chunk that is not a whole number of tiles, once refused, is sliced
+    in the flat format, as the JAX package slices it: the same arrays."""
+    jp, tp = perfs
+    jxs, jn = jp.chunk_xs(TOTAL, 1000)
+    txs, tn = tp.chunk_xs(TOTAL, 1000)
+    assert jn == tn == -(-TOTAL // 1000)
+    assert "starts" in txs[1]["phase"] and "tb" not in txs[1]["phase"]
+    _assert_same_arrays(jxs, txs)
 
 
 def _mix_input():

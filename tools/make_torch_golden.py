@@ -41,11 +41,26 @@ rendering with JAX. This tool writes them:
       detuned_warble_state  f32 [nc, 2, 2]   the 4 Hz filter's (l, b) of the
                                              two voices before each chunk
 
+    zang_tpu_torch/data/song_flat_golden_jax.npz (the song in the flat chunk
+    format: the JAX render_performance of the 385 s song at chunk 65,000)
+      params     str  JSON: seconds, sample rate, chunk size, window length
+      offsets, windows [W, 4096], chunk_rms [nc] (on the 65,000 grid)
+
+    zang_tpu_torch/data/midi_golden_jax.npz (zang_tpu_torch/data/toccata.mid
+    through the JAX render_midi)
+      params     str  JSON: the file's SHA-256, the window length, and each
+                      entry's instruments (cycled over the parts), seconds,
+                      tail, sample rate, render chunk and total frames
+      <name>_offsets, <name>_windows [W, C, 4096], <name>_chunk_rms [C, nc]
+    for <name> in toccata (nice, at render_midi's defaults: the whole file
+    plus 2 s of tail, chunk 16,384) and mixed (pmosc, filteredsaw and
+    weirdsquare cycled over the three parts, 60 s).
+
 The windows spread evenly over the render, plus windows that straddle chunk
 boundaries (where the state carries across chunks) and the last window of
 the final, partial chunk. Run from the repo root on the CPU:
 
-    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [song|configs|examples|all] [NAME ...]
+    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [song|configs|examples|song_flat|midi|all] [NAME ...]
 
 The song takes about a minute, the examples about a minute, the configs
 about 40 minutes on 8 cores (poly_echo_16384 most of it, with ~20 GB
@@ -67,6 +82,9 @@ DATA = os.path.join(ROOT, "zang_tpu_torch", "data")
 OUT = os.path.join(DATA, "song_golden_jax.npz")
 OUT_CONFIGS = os.path.join(DATA, "configs_golden_jax.npz")
 OUT_EXAMPLES = os.path.join(DATA, "examples_golden_jax.npz")
+OUT_SONG_FLAT = os.path.join(DATA, "song_flat_golden_jax.npz")
+OUT_MIDI = os.path.join(DATA, "midi_golden_jax.npz")
+MIDI_FILE = os.path.join(DATA, "toccata.mid")
 WINDOW = 8192
 CONFIG_WINDOW = 4096
 CHUNK = 65536
@@ -249,13 +267,81 @@ def make_examples(only=()):
     print(f"wrote {OUT_EXAMPLES}: {os.path.getsize(OUT_EXAMPLES)} bytes")
 
 
+SONG_FLAT_CHUNK = 65000  # not a whole number of 512-frame tiles: the flat format
+
+
+def make_song_flat():
+    from zang_tpu.graph.render import render_performance
+    from zang_tpu.host import song
+
+    total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
+    t = time.time()
+    mix = np.asarray(render_performance(song.build_performance(total), total,
+                                        chunk_size=SONG_FLAT_CHUNK), np.float32)[0]
+    print(f"song_flat: rendered {mix.size} frames in {time.time() - t:.1f}s on the CPU")
+    offs = window_offsets(total, chunk=SONG_FLAT_CHUNK, window=CONFIG_WINDOW, n_spread=12,
+                          n_seams=6)
+    params = {"seconds": song.NUM_SECONDS, "sample_rate": song.SAMPLE_RATE,
+              "chunk_size": SONG_FLAT_CHUNK, "window": CONFIG_WINDOW, "total": total}
+    np.savez_compressed(
+        OUT_SONG_FLAT, params=np.array(json.dumps(params, sort_keys=True)), offsets=offs,
+        windows=np.stack([mix[o:o + CONFIG_WINDOW] for o in offs]),
+        chunk_rms=chunk_rms(mix, SONG_FLAT_CHUNK))
+    print(f"wrote {OUT_SONG_FLAT}: {len(offs)} windows, {os.path.getsize(OUT_SONG_FLAT)} bytes")
+
+
+# render_midi's settings of each midi entry; seconds None = the whole file
+MIDI = {"toccata": {"instruments": ["nice"], "seconds": None, "tail": 2.0,
+                    "sample_rate": 48000.0, "chunk_size": 16384, "n_spread": 10,
+                    "n_seams": 6},
+        "mixed": {"instruments": ["pmosc", "filteredsaw", "weirdsquare"], "seconds": 60.0,
+                  "tail": 2.0, "sample_rate": 48000.0, "chunk_size": 16384,
+                  "n_spread": 6, "n_seams": 4}}
+
+
+def midi_sha256() -> str:
+    import hashlib
+
+    with open(MIDI_FILE, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def make_midi():
+    from zang_tpu.host import midi
+
+    with open(MIDI_FILE, "rb") as f:
+        data = f.read()
+    arrays, params = {}, {"sha256": midi_sha256(), "window": CONFIG_WINDOW}
+    for name, p in MIDI.items():
+        makers = [midi.stock_instruments()[i] for i in p["instruments"]]
+        t = time.time()
+        audio = np.asarray(midi.render_midi(
+            data, lambda pi, label, m=makers: m[pi % len(m)](), sample_rate=p["sample_rate"],
+            seconds=p["seconds"], tail=p["tail"], chunk_size=p["chunk_size"]), np.float32)
+        print(f"midi {name}: rendered {audio.shape} in {time.time() - t:.1f}s on the CPU",
+              flush=True)
+        total = audio.shape[-1]
+        chunk = min(p["chunk_size"], max(256, total))
+        offs = window_offsets(total, chunk=chunk, window=CONFIG_WINDOW,
+                              n_spread=p["n_spread"], n_seams=p["n_seams"])
+        arrays[f"{name}_offsets"] = offs
+        arrays[f"{name}_windows"] = np.stack([audio[:, o:o + CONFIG_WINDOW] for o in offs])
+        arrays[f"{name}_chunk_rms"] = chunk_rms(audio, chunk)
+        params[name] = {**{k: v for k, v in p.items() if not k.startswith("n_")},
+                        "total": total, "render_chunk": chunk}
+    np.savez_compressed(OUT_MIDI, params=np.array(json.dumps(params, sort_keys=True)),
+                        **arrays)
+    print(f"wrote {OUT_MIDI}: {os.path.getsize(OUT_MIDI)} bytes")
+
+
 def main(argv=None):
     import jax
 
     which, *only = argv or sys.argv[1:] or ["all"]
-    if which not in ("song", "configs", "examples", "all") or \
+    if which not in ("song", "configs", "examples", "song_flat", "midi", "all") or \
             (only and which not in ("configs", "examples")):
-        raise SystemExit(f"usage: {sys.argv[0]} [song|configs|examples|all] [NAME ...]")
+        raise SystemExit(f"usage: {sys.argv[0]} "
+                         "[song|configs|examples|song_flat|midi|all] [NAME ...]")
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(DATA, exist_ok=True)
     if which in ("song", "all"):
@@ -264,6 +350,10 @@ def main(argv=None):
         make_configs(only)
     if which in ("examples", "all"):
         make_examples(only)
+    if which in ("song_flat", "all"):
+        make_song_flat()
+    if which in ("midi", "all"):
+        make_midi()
 
 
 if __name__ == "__main__":

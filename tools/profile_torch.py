@@ -2,7 +2,11 @@
 
 For each config named (song, sampler, poly_echo; all three by default;
 poly_echo_4096 and poly_echo_16384 are poly_echo at that many voices x 8 s,
-the JAX package's capacity sizes) or
+the JAX package's capacity sizes; song_flat is the song at a 65,000-frame
+chunk, the flat chunk format; midi_toccata and midi_mixed are
+zang_tpu_torch/data/toccata.mid through render_midi's planning and chunk,
+with the nice instrument, and with pmosc, filteredsaw and weirdsquare over
+60 s) or
 example (ex_<name>, an entry of zang_tpu_torch/host/examples.py EXAMPLES
 at its default seconds) it plans, renders once to warm up, renders again
 with the host clock (ending in torch.cuda.synchronize()), then renders a
@@ -19,7 +23,7 @@ third time under torch.profiler and prints, per config:
 Run from the repo root on a machine with CUDA:
 
     python tools/profile_torch.py [song] [sampler] [poly_echo] [poly_echo_16384]
-                                  [ex_fmsynth ...] [--top N]
+                                  [song_flat] [midi_toccata] [ex_fmsynth ...] [--top N]
 
 The card's nvidia-smi name and power limit are printed first; the last line
 is one JSON object with the numbers above.
@@ -39,6 +43,10 @@ sys.path.insert(0, ROOT)
 CHUNK = 65536
 LARGE_POLY = {"poly_echo_4096": 4096, "poly_echo_16384": 16384}
 LARGE_POLY_SECONDS = 8.0
+SONG_FLAT_CHUNK = 65000
+MIDI_FILE = os.path.join(ROOT, "zang_tpu_torch", "data", "toccata.mid")
+MIDI = {"midi_toccata": (("nice",), None), "midi_mixed": (("pmosc", "filteredsaw",
+                                                           "weirdsquare"), 60.0)}
 
 
 def _runner(name):
@@ -48,7 +56,7 @@ def _runner(name):
     that cuts the programs into per-chunk tiles (Performance.chunk_xs,
     which render_performance runs before its first chunk), timed alone."""
     from zang_tpu_torch.graph.render import render_performance
-    from zang_tpu_torch.host import configs, examples, song
+    from zang_tpu_torch.host import configs, examples, midi, song
 
     if name.startswith("ex_"):
         fn = examples.EXAMPLES[name[3:]]
@@ -57,9 +65,18 @@ def _runner(name):
         frames = fn(seconds=seconds, device="cuda")[0].shape[-1]
         return lambda: fn(device="cuda"), seconds, -(-frames // chunk), 0.0, None
     t = time.perf_counter()
-    if name == "song":
+    chunk = CHUNK
+    if name in ("song", "song_flat"):
         total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
         perf, seconds = song.build_performance(total), song.NUM_SECONDS
+        chunk = SONG_FLAT_CHUNK if name == "song_flat" else CHUNK
+    elif name in MIDI:
+        names, cap = MIDI[name]
+        stock = midi.stock_instruments()
+        with open(MIDI_FILE, "rb") as f:
+            perf, total = midi.midi_performance(
+                f.read(), lambda pi, label: stock[names[pi % len(names)]](), seconds=cap)
+        seconds, chunk = total / perf.sample_rate, midi.midi_chunk(total)
     elif name in LARGE_POLY:
         seconds = LARGE_POLY_SECONDS
         perf, total = configs.build_poly_echo_performance(num_voices=LARGE_POLY[name],
@@ -70,10 +87,10 @@ def _runner(name):
         seconds = configs.DEFAULT_SECONDS[name]
     plan_s = time.perf_counter() - t
     t = time.perf_counter()
-    perf.chunk_xs(total, CHUNK)
+    perf.chunk_xs(total, chunk)
     slice_s = time.perf_counter() - t
-    return (lambda: render_performance(perf, total, CHUNK, device="cuda"), seconds,
-            -(-total // CHUNK), plan_s, slice_s)
+    return (lambda: render_performance(perf, total, chunk, device="cuda"), seconds,
+            -(-total // chunk), plan_s, slice_s)
 
 
 def _device_us(evt) -> float:
@@ -128,7 +145,7 @@ def main(argv=None):
     from zang_tpu_torch.host.examples import EXAMPLES
 
     ap.add_argument("configs", nargs="*",
-                    choices=["song", "sampler", "poly_echo", *LARGE_POLY]
+                    choices=["song", "sampler", "poly_echo", *LARGE_POLY, "song_flat", *MIDI]
                     + [f"ex_{n}" for n in EXAMPLES],
                     help="default: song, sampler and poly_echo")
     ap.add_argument("--top", type=int, default=12)

@@ -7,13 +7,15 @@ Its layout mirrors zang_tpu's, so each counterpart sits at the same path:
   core      the host core (notes, timeline, native, curves, span, trigger,
             wav: copies of zang_tpu.core's, the C++ compiler in csrc/) and
             mixdown (torch on the device, numpy twin)
-  ops       u32 phase math, tiled segment programs, oscillators, painter
-            envelopes, the SVF filter, the sampler, effects and delays
-            (plain torch, plus hand-written CUDA kernels for the table-cut
-            SVF and the sample-table lookup)
-  graph     the chunked offline renderer and the fidelity metric
+  ops       u32 phase math, segment programs (tiled and flat chunks),
+            oscillators, painter envelopes, the SVF filter, the sampler,
+            FM, noise, effects and delays (plain torch, plus hand-written
+            CUDA kernels for the SVF, the sample-table lookup and the FM
+            feedback oscillator)
+  graph     the chunked offline and streaming renderer and the fidelity
+            metric
   host      instruments, the Bach song, the sampler and poly_echo configs,
-            the render_wav CLI
+            the examples, MIDI files and tracker text, the CLIs
   convert   carry a zang_tpu Performance's programs and state across
 
 It imports torch and numpy, never jax and nothing of zang_tpu: it reads

@@ -1,21 +1,24 @@
-"""Chunked offline renderer (port of zang_tpu/graph/render.py).
+"""Chunked offline and streaming renderer (port of zang_tpu/graph/render.py).
 
 The JAX package renders the piece as one lax.scan over chunks; here it is a
 host loop over chunks that carries the state ((per-part states, post
-state): filter l/b, decimator counters, delay lines). Each chunk's program
-slices go to the device as the chunk is rendered, and the audio lands in
-one preallocated device tensor [C, n_chunks * chunk].
+state): filter l/b, decimator counters, delay lines). One chunk is one call
+of the step that make_stream_step returns: the chunk's program slices go
+to the device and every part renders. render_performance writes the chunks
+into one preallocated device tensor [C, n_chunks * chunk]; stream_blocks
+yields them one at a time as f32 numpy blocks, the same bits.
 
 An Instrument provides:
   plan(timelines, sample_rate) -> program dict (host, numpy); SegProgram
       leaves get sliced per chunk, other numpy leaves go to the device once
   init_state(num_voices, device) -> state (dict of tensors, or ())
   render(state, prog, ctx) -> (state', audio)
-      prog has SegProgram leaves replaced by tiled chunk slices
-      {"tb": [V, nt, S], name: [V, nt, S]} on the device. audio is [V, n]
-      (voices summed into the mono mix), or [C, n] pre-mixed when the
-      instrument has `output_channels`.
-Only the tiled chunk format is supported (chunk_size % 512 == 0).
+      prog has SegProgram leaves replaced by chunk slices on the device
+      (ops/segprog.py): tiled {"tb": [V, nt, S], name: [V, nt, S]} when the
+      chunk is a whole number of 512-frame tiles, else flat
+      {"starts": [V, Kc], name: [V, Kc]}. audio is [V, n] (voices summed
+      into the mono mix), or [C, n] pre-mixed when the instrument has
+      `output_channels`.
 """
 
 from dataclasses import dataclass
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from ..device import require_device
-from ..ops.segprog import SegProgram, chunkify_tiled
+from ..ops.segprog import SegProgram, chunkify, chunkify_tiled
 
 TILE = 512
 
@@ -78,17 +81,20 @@ class Performance:
         return states, post
 
     def chunk_xs(self, total_frames: int, chunk_size: int, tile: int = TILE):
-        """Host: per-chunk tiled slices of every SegProgram ([n_chunks, ...]
-        arrays); other leaves become () and are merged back per chunk."""
-        if chunk_size % tile or chunk_size < tile:
-            raise ValueError(
-                f"chunk_size {chunk_size} must be a multiple of {tile}: "
-                "only the tiled chunk format is ported")
+        """Host: per-chunk slices of every SegProgram ([n_chunks, ...]
+        arrays), tiled when the chunk is a whole number of tiles, flat
+        otherwise; other leaves become () and are merged back per chunk."""
         n_chunks = -(-total_frames // chunk_size)
+
+        def conv(sp: SegProgram):
+            if chunk_size % tile == 0 and chunk_size >= tile:
+                return chunkify_tiled(sp, chunk_size, n_chunks, total_frames, tile)
+            ch = chunkify(sp, chunk_size, n_chunks, total_frames)
+            return {"starts": ch.starts, **ch.values}
 
         def walk(prog):
             if isinstance(prog, SegProgram):
-                return chunkify_tiled(prog, chunk_size, n_chunks, total_frames, tile)
+                return conv(prog)
             if isinstance(prog, dict):
                 return {k: walk(v) for k, v in prog.items()}
             if isinstance(prog, (list, tuple)):
@@ -148,6 +154,58 @@ def _map_arrays(tree, fn):
     return tree
 
 
+def make_stream_step(perf: Performance, chunk_size: int = 65536, *, device="cuda"):
+    """One chunk's render of `perf` on `device` (the card unless the caller
+    asks for the CPU), as a plain function
+
+        step(state, c0, xs_chunk) -> (state', audio [C, chunk_size])
+
+    state: ((per-part states), post state), or None for perf.init_state;
+    c0: the chunk's first frame; xs_chunk: that chunk's slice of
+    perf.chunk_xs (numpy), uploaded here. The static programs go to the
+    device once, when the step is made, so one step serves any number of
+    streams of the same perf."""
+    dev = require_device(device)
+    static = [_map_arrays(p, lambda a: _to_device(a, dev)) for p in perf.programs]
+    base = torch.arange(chunk_size, dtype=torch.int32, device=dev)
+
+    def step(state, c0: int, xs_chunk):
+        if state is None:
+            state = perf.init_state(dev)
+        ctx = RenderCtx(perf.sample_rate, base + c0, c0, chunk_size)
+        chunk_progs = _map_arrays(xs_chunk, lambda a: _to_device(a, dev))
+        return perf.render_chunk(state, chunk_progs, ctx, static)
+
+    return step
+
+
+def _chunks(perf: Performance, total_frames: int, chunk_size: int, step, state):
+    """(c0, audio [C, chunk_size]) of each chunk in order, the state carried."""
+    xs, n_chunks = perf.chunk_xs(total_frames, chunk_size)
+    for i in range(n_chunks):
+        c0 = i * chunk_size
+        state, audio = step(state, c0, _map_arrays(xs, lambda a, i=i: a[i]))
+        yield c0, audio
+
+
+def stream_blocks(perf: Performance, total_frames: int, step, chunk_size: int = 65536):
+    """Drive a make_stream_step step over the piece, yielding f32 numpy
+    blocks [C, <= chunk_size] in order (the state carried across chunks).
+    `step` must have been made from the same perf and chunk_size."""
+    for c0, audio in _chunks(perf, total_frames, chunk_size, step, None):
+        yield audio[:, :min(chunk_size, total_frames - c0)].cpu().numpy()
+
+
+def stream_performance(perf: Performance, total_frames: int, chunk_size: int = 65536, *,
+                       device="cuda"):
+    """Incremental render on `device`: an iterator of f32 numpy blocks
+    [C, <= chunk_size] in order, each yielded as soon as it is rendered.
+    Concatenated they are render_performance's output, bit for bit. The
+    device is checked here, before the first block is asked for."""
+    step = make_stream_step(perf, chunk_size, device=device)
+    return stream_blocks(perf, total_frames, step, chunk_size)
+
+
 def render_performance(
     perf: Performance,
     total_frames: int,
@@ -161,17 +219,10 @@ def render_performance(
     the initial ((per-part states), post state) (default
     perf.init_state(device))."""
     dev = require_device(device)
-    xs, n_chunks = perf.chunk_xs(total_frames, chunk_size)
-    static = [_map_arrays(p, lambda a: _to_device(a, dev)) for p in perf.programs]
-    if state is None:
-        state = perf.init_state(dev)
+    step = make_stream_step(perf, chunk_size, device=dev)
+    n_chunks = -(-total_frames // chunk_size)
     out = torch.empty((perf.num_channels, n_chunks * chunk_size),
                       dtype=torch.float32, device=dev)
-    base = torch.arange(chunk_size, dtype=torch.int32, device=dev)
-    for i in range(n_chunks):
-        c0 = i * chunk_size
-        ctx = RenderCtx(perf.sample_rate, base + c0, c0, chunk_size)
-        chunk_progs = _map_arrays(xs, lambda a, i=i: _to_device(a[i], dev))
-        state, audio = perf.render_chunk(state, chunk_progs, ctx, static)
+    for c0, audio in _chunks(perf, total_frames, chunk_size, step, state):
         out[:, c0:c0 + chunk_size] = audio
     return out[:, :total_frames]

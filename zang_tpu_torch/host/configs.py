@@ -26,7 +26,7 @@ from ..graph.render import Performance, render_performance
 from ..ops import delay as d_ops
 from ..ops import effects
 from ..ops import sampler as sampler_ops
-from ..ops.segprog import SegProgram, eval_tiled_chunk
+from ..ops.segprog import SegProgram, eval_chunk
 from . import instruments as ti
 
 F32 = np.float32
@@ -106,7 +106,7 @@ class SamplerInstrument:
         return self._device_tables[device]
 
     def render(self, state, prog, ctx):
-        vals = eval_tiled_chunk(ti._tiled(prog["sampler"], "sampler"), ctx.t_idx)
+        vals = eval_chunk(prog["sampler"], ctx.t_idx)
         out = sampler_ops.eval_sampler(
             vals, ctx.t_idx, self._device_table(ctx.t_idx.device),
             self.table.num_samples, self.ratio, self.loop)

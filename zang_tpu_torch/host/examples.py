@@ -38,7 +38,7 @@ from ..device import require_device
 from ..graph.render import Performance, render_performance
 from ..ops import control, effects, filters, noise, oscillators
 from ..ops import delay as d_ops
-from ..ops.segprog import eval_tiled_chunk
+from ..ops.segprog import eval_chunk
 from . import configs
 from . import instruments as ti
 from . import song as song_mod
@@ -289,7 +289,7 @@ class DetunedInstrument:
                 mul = torch.nn.functional.pad(mul, (0, ctx.n - mul.shape[1]), value=1.0)
         else:
             nl, nb, mul = self.warble(nl, nb, ctx)
-        freq = eval_tiled_chunk(ti._tiled(prog["phase"], "phase"), ctx.t_idx)["freq"] * mul
+        freq = eval_chunk(prog["phase"], ctx.t_idx)["freq"] * mul
         cnt, osc = oscillators.trisaw_naive(state["cnt"], freq, 0.0, ctx.sample_rate, act)
         cutm = float(filters.cutoff_from_frequency(880.0 * 8.0, ctx.sample_rate))
         l, b, out = filters.svf_filter(state["l"], state["b"], osc * ti._env(prog, ctx),

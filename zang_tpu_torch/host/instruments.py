@@ -5,7 +5,7 @@ voice and the FM synth of example_fmsynth.zig).
 Same protocol as the JAX package: plan() compiles note timelines into
 segment programs on the host (numpy, bit-identical to the JAX plans),
 init_state() makes the carried state, render() evaluates one chunk for all
-subvoices on the device. Only the tiled chunk format is supported. The live
+subvoices on the device, in either chunk format (ops/segprog.py). The live
 parameter surface (param_specs, device_params, live_planner, the
 "__params__" vector) is not ported.
 """
@@ -20,7 +20,7 @@ from ..core.curves import PaintCurve
 from ..core.timeline import SubvoiceTimeline, active_from
 from ..ops import control, filters, fm, oscillators
 from ..ops.scan import freq_to_ifreq, u32
-from ..ops.segprog import SegProgram, eval_tiled_chunk
+from ..ops.segprog import SegProgram, eval_chunk
 
 F32 = np.float32
 
@@ -56,15 +56,8 @@ def _cubed_adsr(release: float = 1.0) -> dict:
             "release": PaintCurve.cubed(release), "sustain_volume": 0.5}
 
 
-def _tiled(chunk_prog, name):
-    if not (isinstance(chunk_prog, dict) and "tb" in chunk_prog):
-        raise ValueError(f"{name}: only the tiled chunk format is supported")
-    return chunk_prog
-
-
 def _painter(prog, name, ctx):
-    return control.eval_painter(eval_tiled_chunk(_tiled(prog[name], name), ctx.t_idx),
-                                ctx.t_idx)
+    return control.eval_painter(eval_chunk(prog[name], ctx.t_idx), ctx.t_idx)
 
 
 def _env(prog, ctx):
@@ -76,8 +69,7 @@ def _active(prog, ctx):
 
 
 def _phase(prog, ctx):
-    return oscillators.phase_from_chunk(
-        eval_tiled_chunk(_tiled(prog["phase"], "phase"), ctx.t_idx), ctx.t_idx)
+    return oscillators.phase_from_chunk(eval_chunk(prog["phase"], ctx.t_idx), ctx.t_idx)
 
 
 def _freq_program(timelines) -> SegProgram:
@@ -132,8 +124,11 @@ class NiceInstrument:
     """Pulse -> lowpass -> ADSR (examples/modules.zig:189-248).
 
     color is a scalar or a per-voice [V] array, so the song's two organs
-    render as one part. The lowpass runs through filters.svf_filter_table
-    (the CUDA kernel for CUDA tensors)."""
+    render as one part. In the tiled chunk format the lowpass takes the
+    cutoff as per-tile tables through filters.svf_filter_table; in the flat
+    format as a dense [V, n] cutoff with the activity mask through
+    filters.svf_filter, as the JAX package does (the CUDA kernels for CUDA
+    tensors)."""
 
     def __init__(self, color, freq_fn=None) -> None:
         self.color = color
@@ -173,9 +168,8 @@ class NiceInstrument:
 
     def _osc(self, prog, ctx, voices):
         """The pulse oscillator of the voices in the slice `voices`, [v, n]."""
-        phase = _tiled(prog["phase"], "phase")
-        vals = eval_tiled_chunk({k: v[voices] for k, v in phase.items() if k != "cut"},
-                                ctx.t_idx)
+        vals = eval_chunk({k: v[voices] for k, v in prog["phase"].items() if k != "cut"},
+                          ctx.t_idx)
         cnt, ifreq, valid = oscillators.phase_from_chunk(vals, ctx.t_idx)
         act = ctx.t_idx[None, :] >= prog["active_from"][voices, None]
         color = self.color
@@ -185,7 +179,7 @@ class NiceInstrument:
         return oscillators.pulse_wave(cnt, ifreq, color, valid & act) * 0.5
 
     def render(self, state, prog, ctx):
-        phase = _tiled(prog["phase"], "phase")
+        phase = prog["phase"]
         af = prog["active_from"]
         V = af.shape[0]
         # the oscillator and the envelope by groups of voices (one group
@@ -200,11 +194,17 @@ class NiceInstrument:
             buf = torch.empty((V, ctx.n), dtype=torch.float32, device=ctx.t_idx.device)
             for g in groups:
                 buf[g] = self._osc(prog, ctx, g)
-        l, b, buf = filters.svf_filter_table(
-            state["l"], state["b"], buf, "low_pass", phase["tb"], phase["cut"], 0.7,
-            ctx.t0, af, donate_x=True,
-        )
-        env = _tiled(prog["env"], "env")
+        if "tb" in phase:
+            l, b, buf = filters.svf_filter_table(
+                state["l"], state["b"], buf, "low_pass", phase["tb"], phase["cut"], 0.7,
+                ctx.t0, af, donate_x=True,
+            )
+        else:  # flat: the cutoff evaluated alone gives the same bits per name
+            cut = eval_chunk({"starts": phase["starts"], "cut": phase["cut"]},
+                             ctx.t_idx)["cut"]
+            l, b, buf = filters.svf_filter(state["l"], state["b"], buf, "low_pass", cut,
+                                           0.7, _active(prog, ctx))
+        env = prog["env"]
         for g in groups:
             buf[g] *= _env({"env": {k: v[g] for k, v in env.items()}}, ctx)
         return {"l": l, "b": b}, buf
@@ -351,7 +351,7 @@ class MousePMInstrument:
         act = _active(prog, ctx)
         ratio = _painter(prog, "ratio", ctx)  # [1, n]
         mult = _painter(prog, "mult", ctx)
-        freq = eval_tiled_chunk(_tiled(prog["freqs"], "freqs"), ctx.t_idx)["freq"]
+        freq = eval_chunk(prog["freqs"], ctx.t_idx)["freq"]
         base = torch.ones_like(freq) if self.cfg["mode"] else freq
         mod_cnt, mod_sig = oscillators.sine_osc(
             state["mod_cnt"], base * ratio, 0.0, ctx.sample_rate, act)
@@ -512,7 +512,7 @@ class FMSynthInstrument:
 
     def render(self, state, prog, ctx):
         act = _active(prog, ctx)
-        freq = eval_tiled_chunk(_tiled(prog["freqs"], "freqs"), ctx.t_idx)["freq"]
+        freq = eval_chunk(prog["freqs"], ctx.t_idx)["freq"]
         f32 = lambda v: float(F32(v))  # noqa: E731 (the JAX package's f32 constants)
         if any(op["tremolo"] != 0.0 or op["vibrato"] != 0.0
                for op in (self.mod, self.car)):

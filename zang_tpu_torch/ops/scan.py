@@ -1,4 +1,5 @@
-"""u32 phase arithmetic and the affine scan (port of zang_tpu/ops/scan.py).
+"""u32 phase arithmetic, the masked delta sum of flat segment tables and the
+affine scan (port of zang_tpu/ops/scan.py).
 
 u32 convention: torch has no add, sub, compare or shift on uint32 (on the
 CPU each raises), so phase counters ride int64 tensors holding 0..2^32-1,
@@ -50,6 +51,35 @@ def freq_to_ifreq(freq: torch.Tensor, sample_rate: float) -> torch.Tensor:
     scaled = as_f32(freq, freq) * as_f32(srbase, freq)
     mag = torch.clamp(scaled.abs(), max=4294967296.0).to(torch.int64).clamp(max=U32)
     return u32(torch.where(scaled >= 0, mag, -mag))
+
+
+def pconst_multi(starts: torch.Tensor, values: dict, t_idx: torch.Tensor) -> dict:
+    """Piecewise-constant segment tables evaluated at samples, gather-free
+    (zang_tpu/ops/scan.py pconst_multi).
+
+    starts: [V, K] int32, sorted per voice; values: {name: [V, K]} (f32,
+    int32, or u32 riding int64); t_idx: [n] int32. Returns {name: [V, n]}.
+
+    value(t) = sum_k [t >= starts_k] * (v_k - v_{k-1}), a masked delta sum
+    unrolled over K in the JAX package's order: in f32 the sum of deltas is
+    not v_k bit for bit, and the reference computes the sum. u32 values
+    wrap mod 2^32, as the JAX package's uint32 arithmetic does. Padding
+    entries need start > t_idx[-1] or a zero delta."""
+    K = starts.shape[-1]
+    out, deltas = {}, {}
+    for name, v in values.items():
+        d = torch.cat([v[:, :1], v[:, 1:] - v[:, :-1]], dim=1)
+        deltas[name] = u32(d) if v.dtype == torch.int64 else d
+        out[name] = torch.zeros((starts.shape[0], t_idx.shape[0]), dtype=v.dtype,
+                                device=v.device)
+    zero = {name: torch.zeros((), dtype=v.dtype, device=v.device)
+            for name, v in values.items()}
+    for k in range(K):
+        mask = t_idx[None, :] >= starts[:, k:k + 1]
+        for name, d in deltas.items():
+            out[name] = out[name] + torch.where(mask, d[:, k:k + 1], zero[name])
+    # int64 sums of K u32 deltas cannot overflow: wrap once at the end
+    return {name: u32(o) if o.dtype == torch.int64 else o for name, o in out.items()}
 
 
 def _prepend(s0: torch.Tensor, post: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,14 @@
-"""Segment programs: host tables sliced per render tile, evaluated on the
-device (port of zang_tpu/ops/segprog.py, tiled format only).
+"""Segment programs: host tables sliced per render chunk, evaluated on the
+device (port of zang_tpu/ops/segprog.py).
 
-chunkify_tiled is the numpy twin of zang_tpu.ops.segprog.chunkify_tiled
-(that module imports jax); its arrays are bit-identical.
+Two chunk formats, as in the JAX package:
+- tiled: {"tb": [V, nt, S] i32, name: [V, nt, S]} (chunkify_tiled), a
+  chunk that is a whole number of 512-frame tiles; per-tile selects;
+- flat: {"starts": [V, Kc] i32, name: [V, Kc]} (chunkify), any chunk;
+  masked delta sums over the chunk's segments (ops/scan.pconst_multi).
+
+chunkify and chunkify_tiled are numpy twins of zang_tpu.ops.segprog's
+(that module imports jax); their arrays are bit-identical.
 """
 
 from dataclasses import dataclass
@@ -11,6 +17,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .scan import pconst_multi
+
 
 @dataclass
 class SegProgram:
@@ -18,6 +26,57 @@ class SegProgram:
 
     starts: np.ndarray
     values: Dict[str, np.ndarray]
+
+
+@dataclass
+class ChunkedSegProgram:
+    """Per-chunk slices: starts [n_chunks, V, Kc] int32, values {name:
+    [n_chunks, V, Kc]}."""
+
+    starts: np.ndarray
+    values: Dict[str, np.ndarray]
+
+
+def chunkify(sp: SegProgram, chunk_size: int, n_chunks: int, total: int) -> ChunkedSegProgram:
+    """Per (chunk, voice): the segment covering the chunk start plus all
+    segments starting inside the chunk, padded to the largest count with
+    start = total (never selected) and repeated values (zero delta)."""
+    V, K = sp.starts.shape
+    c0s = np.arange(n_chunks, dtype=np.int64) * chunk_size
+    firsts = np.empty((n_chunks, V), dtype=np.int64)
+    lasts = np.empty((n_chunks, V), dtype=np.int64)
+    for v in range(V):
+        s = sp.starts[v]
+        firsts[:, v] = np.maximum(np.searchsorted(s, c0s, side="right") - 1, 0)
+        lasts[:, v] = np.searchsorted(s, c0s + chunk_size, side="left")
+        # boundaries at/after `total` only touch the trimmed tail; keeping
+        # them would put the padding into the final chunk's window and set
+        # the count Kc for every chunk
+        lasts[:, v] = np.minimum(
+            lasts[:, v], max(np.searchsorted(s, total, side="left"), 1)
+        )
+    counts = np.maximum(lasts - firsts, 1)
+    Kc = int(counts.max())
+    idx = firsts[:, :, None] + np.arange(Kc)[None, None, :]  # [nc, V, Kc]
+    in_window = idx < lasts[:, :, None]
+    idx_vals = np.minimum(np.maximum(idx, 0), np.maximum(lasts - 1, 0)[:, :, None])
+    idx_vals = np.minimum(idx_vals, K - 1)
+    vix = np.arange(V)[None, :, None]
+    starts_c = np.where(
+        in_window, sp.starts[vix, np.minimum(idx, K - 1)], np.int64(total)
+    )
+    values_c = {name: arr[vix, idx_vals] for name, arr in sp.values.items()}
+    return ChunkedSegProgram(starts=starts_c.astype(np.int32), values=values_c)
+
+
+def eval_chunk(chunk_prog: dict, t_idx: torch.Tensor) -> dict:
+    """Evaluate one chunk's program slice at t_idx [n] -> {name: [V, n]}, in
+    either format: tiled ("tb": per-tile selects, t_idx one whole
+    tile-aligned chunk) or flat ("starts": masked delta sums)."""
+    if "tb" in chunk_prog:
+        return eval_tiled_chunk(chunk_prog, t_idx)
+    values = {k: v for k, v in chunk_prog.items() if k != "starts"}
+    return pconst_multi(chunk_prog["starts"], values, t_idx)
 
 
 def chunkify_tiled(
