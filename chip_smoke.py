@@ -48,12 +48,16 @@ each of which raises on failure:
      mask, the flat song's chunk (V=14, n=65000: the organ part's dense
      cutoff over the song's first chunk and its activity mask) and
      render_midi's filteredsaw part (its voices, n=16384, its scalar
-     cutoff, a mask); rms < -120 dBFS, end states within 1e-5; at the
-     play, stereo, detuned, ragged, flat song and filteredsaw shapes also
-     bit for bit against svf_dense_emulated, its seams composed in torch;
-     timed as K1 (per call at the play, V=1024, flat song and filteredsaw
-     shapes, device time at each example's), with its latency floor at
-     play's shape (svf_chain_floor_us, printed only)
+     cutoff, a mask), and the zangscript shapes: the script example's
+     delay sub-chunk (V=1 x 8192, the feedback Filter's scalar cutoff 0.2,
+     res 0, the active window's mask as a slice of the chunk's) and the
+     midi_script parts' sub-chunks (V=8 and 2 x 8192); rms < -120 dBFS,
+     end states within 1e-5; at the play, stereo, detuned, ragged, flat
+     song, filteredsaw and script shapes also bit for bit against
+     svf_dense_emulated, its seams composed in torch; timed as K1 (per call
+     at the play, V=1024, flat song, filteredsaw and script shapes, device
+     time at each example's), with its latency floor at play's shape
+     (svf_chain_floor_us, printed only)
   6. K5, the FM feedback kernel, against fm_feedback_ref on the card, bit
      for bit in outputs and end states, at feedback pi/4 and waveforms 0-3:
      the fmsynth example's shape (V=8, n=16384), V=1024 x 16384 (beyond the
@@ -98,6 +102,13 @@ each of which raises on failure:
        the zang-midi CLI, python -m zang_tpu_torch.host.midi toccata.mid
                   OUT.wav --device cuda, a process of its own: its WAV is
                   midi_toccata's render mixed down (mixdown_s16_np)
+       midi_script the whole file through render_midi with the zangscript
+                  instrument zang_tpu_torch/data/demo_synth.txt:DemoSynth
+                  (the script example's synth) on every part: K2 in each
+                  delay's feedback loop, two sub-chunks a chunk and part,
+                  6,780 launches; then the same through the CLI
+                  (--instrument demo_synth.txt:DemoSynth), its WAV the
+                  render mixed down
   7b. the song streamed: stream_performance at chunk 65536 on the card,
      282 K1 launches, the blocks concatenated equal to phase 7's render bit
      for bit
@@ -105,14 +116,17 @@ each of which raises on failure:
      windows (zang_tpu_torch/data/*_golden_jax.npz, < -90 dBFS RMS, every
      channel; song_flat also against the tiled song's windows, printed
      only) and against the card's own plain-path render (4096 voices,
-     song_flat, midi_toccata and midi_mixed: the first chunk; 16384
-     voices: K3 is held to its loop at that shape in 6b instead)
-  9. the twelve examples (zang_tpu_torch/host/examples.py EXAMPLES), each
+     song_flat, midi_toccata, midi_mixed and midi_script: the first
+     chunk; 16384 voices: K3 is held to its loop at that shape in 6b
+     instead); midi_script's golden holds windows only, and the script
+     file's SHA-256
+  9. the twenty examples (zang_tpu_torch/host/examples.py EXAMPLES), each
      through its ex_* entry on the card at its default seconds, with the
      launch counts checked (ceil(frames / chunk) a chunk-launched kernel:
      play 18 K2, fmsynth 12 K5, polyphony 15 K1, polyphony2 18 K1,
      sampler 17 K4, song 15 K1, stereo 18 K2, detuned 30 K2 (two a chunk),
-     every other count 0), against the JAX
+     script 34 K2 (two sub-chunks a chunk), script_runtime 36 K2 (two
+     halves of 9 chunks), every other count 0), against the JAX
      golden windows and against the card's plain-path render (every
      router patched to its plain version by name; fmsynth at 2 s there,
      since the plain FM loop is a Python loop over samples, and bit for
@@ -678,7 +692,7 @@ def expect_counts(**n):
 def check_golden(gold_windows, offsets, chunk_rms_gold, audio, label, chunk=CHUNK):
     """audio: f32 numpy [C, total]. Windows within the parity budget and
     each chunk's RMS within 10^(budget/20) of the golden's (|rms(a) - rms(b)|
-    <= rms(a - b))."""
+    <= rms(a - b)); chunk_rms_gold None: the windows only."""
     import numpy as np
 
     from zang_tpu_torch.graph.fidelity import deviation_dbfs
@@ -695,6 +709,8 @@ def check_golden(gold_windows, offsets, chunk_rms_gold, audio, label, chunk=CHUN
               f"rms {db:.1f} dBFS, peak {peak:.1f} dBFS (budget {PARITY_DB})")
         if not db < PARITY_DB:
             raise AssertionError(f"{label}: {db:.1f} dBFS from the JAX golden")
+    if chunk_rms_gold is None:
+        return max(db for db, _ in dbs)
     n_chunks = chunk_rms_gold.shape[-1]
     ours_rms = np.stack([
         np.sqrt(np.mean(audio[..., i * chunk:(i + 1) * chunk].astype(np.float64) ** 2,
@@ -723,7 +739,13 @@ def check_plain(audio, plain_audio, label):
 EXAMPLE_KERNEL = {"play": ("svf_dense", 1), "fmsynth": ("fm_feedback", 1),
                   "polyphony": ("svf_table", 1), "polyphony2": ("svf_table", 1),
                   "sampler": ("table_lookup", 1), "song": ("svf_table", 1),
-                  "stereo": ("svf_dense", 1), "detuned": ("svf_dense", 2)}
+                  "stereo": ("svf_dense", 1), "detuned": ("svf_dense", 2),
+                  # the delay of 11,025 halves a 16,384-frame chunk: the
+                  # feedback Filter runs once a sub-chunk
+                  "script": ("svf_dense", 2), "script_runtime": ("svf_dense", 2)}
+# examples rendered in parts: script_runtime renders its two halves (before
+# and after the reload) each from frame 0
+EXAMPLE_PARTS = {"script_runtime": 2}
 TOL_WARBLE = 1e-5  # detuned's warble multiplier vs the JAX trajectory, relative
 FM_PLAIN_SECONDS = 2.0  # fmsynth's plain-path render (a Python loop over samples)
 
@@ -835,7 +857,9 @@ def run_examples(examples, filters, fm, lookup, svf_cuda, card, launches):
         got = counts(svf_cuda, lookup, fm)
         launches[f"ex_{name}"] = got
         kname, taps = EXAMPLE_KERNEL.get(name, (None, 0))
-        want = expect_counts(**({kname: taps * -(-total // chunk)} if kname else {}))
+        parts = EXAMPLE_PARTS.get(name, 1)
+        want = expect_counts(**({kname: taps * parts * -(-(total // parts) // chunk)}
+                                if kname else {}))
         render_s = sum(spent)
         print(f"{name}: ex_{name}(device='cuda'): {tuple(audio.shape)} at {sr:g} Hz in "
               f"{wall:.3f}s end to end (plan {wall - render_s:.3f}s, device render "
@@ -875,6 +899,8 @@ SONG_FLAT_CHUNK = 65000  # not a whole number of 512-frame tiles: the flat forma
 MIDI_FILE = os.path.join(ROOT, "zang_tpu_torch", "data", "toccata.mid")
 MIDI_MIXED = ("pmosc", "filteredsaw", "weirdsquare")  # cycled over the parts
 MIDI_MIXED_SECONDS = 60.0
+SCRIPT_FILE = os.path.join(ROOT, "zang_tpu_torch", "data", "demo_synth.txt")
+SCRIPT_DELAY = 11025  # DemoSynth's delay: a 16,384-frame chunk halves to 8,192
 
 
 def flat_song_case(rng, perf, total, device):
@@ -897,6 +923,24 @@ def flat_song_case(rng, perf, total, device):
     to = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     return (to(rng.standard_normal(V) * 0.1), to(rng.standard_normal(V) * 0.1),
             to(rng.standard_normal((V, SONG_FLAT_CHUNK)) * 0.3), "low_pass", cut, 0.7, act)
+
+
+def script_case(rng, V, chunk, device):
+    """K2's inputs at a zangscript delay sub-chunk: the chunk halved to
+    chunk / 2 <= the delay of 11,025 frames, the feedback Filter's scalar
+    cutoff 0.2 and res 0 (both plan-time constants), the active window's
+    mask the second sub-chunk's slice of the chunk's (a strided view, as
+    the backend passes it), x contiguous."""
+    import numpy as np
+    import torch
+
+    to = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    s = chunk // 2
+    act = to(rng.uniform(size=(V, chunk)) > 0.1, torch.bool)[:, s:]
+    return (to(rng.standard_normal(V) * 0.1, torch.float32),
+            to(rng.standard_normal(V) * 0.1, torch.float32),
+            to(rng.standard_normal((V, s)) * 0.3, torch.float32), "low_pass",
+            float(np.float32(0.2)), 0.0, act)
 
 
 def midi_mixed_maker(midi):
@@ -1049,6 +1093,74 @@ def run_flat_midi_stream(card, filters, fm, lookup, svf_cuda, launches, song_mix
           f"{'equals' if same else 'DIFFERS from'} mixdown_s16_np of midi_toccata's render")
     if not same:
         raise AssertionError("the CLI's WAV is not midi_toccata's render mixed down")
+
+    # midi_script: the whole file with the zangscript DemoSynth on every part
+    sgold = np.load(os.path.join(data_dir, "midi_script_golden_jax.npz"))
+    sp = json.loads(str(sgold["params"]))
+    with open(SCRIPT_FILE, "rb") as f:
+        script_sha = hashlib.sha256(f.read()).hexdigest()
+    if (sp["midi_sha256"], sp["script_sha256"]) != (mp["sha256"], script_sha):
+        raise AssertionError("the midi_script golden was made from another file or script")
+    if (sp["module"], sp["seconds"], sp["tail"], sp["sample_rate"], sp["chunk_size"]) \
+            != ("DemoSynth", None, 2.0, 48000.0, 16384):
+        raise AssertionError(f"the midi_script golden was made for {sp}")
+    script_inst = midi._instrument_maker(f"{SCRIPT_FILE}:DemoSynth")
+    maker = lambda pi, label: script_inst()
+    reset_counts(svf_cuda, lookup, fm)
+    audio, wall = timed(lambda: midi.render_midi(data, maker, device="cuda"))
+    launches["midi_script"] = counts(svf_cuda, lookup, fm)
+    (perf, total), plan_s = timed(lambda: midi.midi_performance(data, maker))
+    chunk = midi.midi_chunk(total)
+    again, render_s = timed(lambda: render_performance(perf, total, chunk, device="cuda"))
+    sub = chunk
+    while sub > SCRIPT_DELAY:
+        sub //= 2
+    polys = [len(tls) for _, tls in perf.parts]
+    print(f"midi_script: render_midi(toccata.mid, demo_synth.txt:DemoSynth, "
+          f"device='cuda'): {total} frames ({total / 48000.0:.2f} s) at chunk {chunk}, "
+          f"sub-chunks of {sub} in the delay loop, polyphony {polys}; {wall:.3f}s end to "
+          f"end; plan {plan_s:.3f}s, device render {render_s:.3f}s (RTF "
+          f"{total / 48000.0 / render_s:.1f} render only), launches "
+          f"{launches['midi_script']} [{card}]")
+    want = expect_counts(svf_dense=(chunk // sub) * len(perf.parts) * -(-total // chunk))
+    if launches["midi_script"] != want:
+        raise AssertionError(f"midi_script: launches {launches['midi_script']}, "
+                             f"expected {want}")
+    if sp["total"] != total or tuple(audio.shape) != (1, total):
+        raise AssertionError(f"midi_script: {tuple(audio.shape)}, the golden's total "
+                             f"{sp['total']}")
+    if not bool(torch.isfinite(audio).all()) or not torch.equal(audio, again):
+        raise AssertionError("midi_script: non-finite samples, or two renders differ")
+    script_np = audio.cpu().numpy()
+    del audio, again
+    check_golden(sgold["windows"], sgold["offsets"], None, script_np, "midi_script",
+                 chunk=chunk)
+    check_plain(script_np[:, :chunk],
+                first_chunk_plain(perf, total, chunk, filters, fm, lookup, svf_cuda),
+                "midi_script (first chunk)")
+    del perf
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "toccata_script.wav")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "zang_tpu_torch.host.midi", MIDI_FILE, out,
+             "--instrument", f"{SCRIPT_FILE}:DemoSynth", "--device", "cuda"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"the zang-midi CLI with a script instrument failed:\n"
+                                 f"{proc.stderr}")
+        w = read_wav(out)
+        pcm = np.frombuffer(w.data, np.int16)
+    same = (w.num_channels, w.sample_rate) == (1, 48000) and np.array_equal(
+        pcm, mixdown_s16_np(script_np, 0.25).reshape(-1))
+    print(f"zang-midi CLI: python -m zang_tpu_torch.host.midi toccata.mid OUT.wav "
+          f"--instrument demo_synth.txt:DemoSynth --device cuda: {proc.stdout.strip()} in "
+          f"{wall:.1f}s (a process of its own); the WAV "
+          f"{'equals' if same else 'DIFFERS from'} mixdown_s16_np of midi_script's render")
+    if not same:
+        raise AssertionError("the CLI's WAV is not midi_script's render mixed down")
+    del script_np
 
     # 7b. the song streamed at the tiled chunk: the render's bits, block by block
     total = song_mix.shape[1]
@@ -1358,10 +1470,18 @@ def main() -> int:
                           scalar_cut=mixed.programs[saw]["cutoff"])
     dense_err["song_flat"] = k2("flat song shape", flat_case)
     dense_err["midi filteredsaw"] = k2("midi filteredsaw shape", saw_case)
+    # the zangscript shapes: the script example's delay sub-chunk (one
+    # voice) and the midi_script parts' (the Toccata's peak polyphony, 8 and 2)
+    script_cases = {key: script_case(rng, V, ex_chunk, dev)
+                    for key, V in (("script", 1), ("midi_script v8", 8),
+                                   ("midi_script v2", 2))}
+    for key, a in script_cases.items():
+        dense_err[key] = k2(f"{key} sub-chunk", a)
     for label, a in (("play shape", play_case), ("stereo shape", stereo_case),
                      ("detuned warble shape", warble_case),
                      ("detuned voice shape", voice_case), ("ragged shape", ragged_dense),
-                     ("flat song shape", flat_case), ("midi filteredsaw shape", saw_case)):
+                     ("flat song shape", flat_case), ("midi filteredsaw shape", saw_case),
+                     *((f"{key} sub-chunk", a) for key, a in script_cases.items())):
         k2_emulated(label, a)
     chain = dense_case(rng, 4, 2 * n, "dense", True, dev)
     check_svf_chain(f"chained 2 x {n}", filters.svf_filter, filters.svf_filter_ref, chain,
@@ -1374,13 +1494,15 @@ def main() -> int:
                "detuned": k2_device("detuned voice shape", voice_case),
                "detuned warble": k2_device("detuned warble shape", warble_case),
                "song_flat": k2_time("flat song", flat_case, 100, 5),
-               "midi filteredsaw": k2_time("midi filteredsaw", saw_case, 100, 10)}
+               "midi filteredsaw": k2_time("midi filteredsaw", saw_case, 100, 10),
+               **{key: k2_time(f"{key} sub-chunk", a, 100, 10)
+                  for key, a in script_cases.items()}}
     play_cluster = svf_cuda.svf_dense_geometry(*play_case[2].shape).cluster
     print(f"  K2's latency floor at the play shape, an estimate: "
           f"{svf_chain_floor_us(play_cluster, mhz):.3f} us at {mhz:.0f} MHz, beside the "
           f"bytes bound {dense_t['play']['bound_ms'] * 1e3:.3f} us and the device time "
           f"{dense_t['play']['device_ms'] * 1e3:.1f} us [{card}]")
-    del wide_case, chain, flat_case, mixed
+    del wide_case, chain, flat_case, mixed, script_cases
 
     # 6. K5 vs plain on the card
     print("K5 fm_feedback vs fm_feedback_ref at feedback pi/4 (bit for bit):")

@@ -9,7 +9,7 @@ planners against zang_tpu's.
   rounds otherwise).
 - Each ported example through its public entry on the CPU, against the JAX
   example at the seconds of tests/test_examples_golden.py: every channel
-  < -90 dBFS RMS. The detuned example is held in two parts, as the JAX
+  < -90 dBFS RMS (the eight zangscript examples included). The detuned example is held in two parts, as the JAX
   package holds its own oracle twin (zang_tpu/oracle/examples.py
   detuned_warble): its warble multiplier feeds a phase counter, so a
   last-place difference grows over seconds. (a) the port's multiplier
@@ -63,7 +63,10 @@ SR = 48000.0
 # tests/test_examples_golden.py:23-44
 SECONDS = {"play": 2.0, "arpeggiator": 2.0, "polyphony": 2.0, "portamento": 2.0,
            "mouse": 2.0, "fmsynth": 2.0, "sampler": 2.0, "polyphony2": 2.0,
-           "delay": 2.5, "song": 4.0, "stereo": 2.0}
+           "delay": 2.5, "song": 4.0, "stereo": 2.0,
+           # the zangscript examples (the port's script backend)
+           "envelope": 2.0, "vibrato": 2.0, "curve": 2.0, "laser": 2.0, "subsong": 3.0,
+           "two": 2.5, "script": 2.0, "script_runtime": 2.0}
 DETUNED_SECONDS = 2.0  # tests/test_examples_golden.py; held in two parts below
 GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "zang_tpu_torch", "data", "examples_golden_jax.npz")
@@ -280,9 +283,10 @@ def _pair(name):
 
 
 def test_registry_is_the_ten_examples():
-    """Twelve by now: the ten, stereo and detuned."""
+    """All twenty by now: the ten, stereo, detuned and the eight zangscript
+    examples, in the JAX package's order."""
     assert sorted(tex.EXAMPLES) == sorted([*SECONDS, "detuned"])
-    assert set(tex.EXAMPLES) <= set(jex.EXAMPLES)
+    assert list(tex.EXAMPLES) == list(jex.EXAMPLES)
 
 
 @pytest.mark.parametrize("name", sorted(SECONDS))
@@ -542,3 +546,35 @@ def test_detuned_golden():
     ours = np.stack([audio[:, o:o + win.shape[-1]] for o in g["detuned_offsets"]])
     for ch in range(2):
         assert _rms_db(ours[:, ch], win[:, ch]) < BUDGET_DB
+
+
+# ---------------------------------------------------------------------------
+# the zangscript examples
+
+
+def test_demo_script_is_the_jax_packages():
+    """zang_tpu_torch/data/demo_synth.txt is the JAX package's DEMO_SCRIPT,
+    byte for byte (the script and midi_script paths read the file)."""
+    assert tex.DEMO_SCRIPT == jex.DEMO_SCRIPT
+
+
+@pytest.mark.cuda
+def test_script_example_counts_k2_launches(cuda_device):
+    """The script example at its default 6 s, chunk 16,384: the delay of
+    11,025 halves each chunk to two sub-chunks of 8,192, and the feedback
+    Filter (scalar res, low-pass) launches K2 once a sub-chunk: 17 chunks,
+    34 launches."""
+    from zang_tpu_torch.ops import svf_cuda
+
+    before = svf_cuda.svf_dense_launches
+    audio, sr = tex.ex_script(device="cuda")
+    torch.cuda.synchronize()
+    assert svf_cuda.svf_dense_launches - before == 34
+    assert audio.shape == (1, int(6.0 * sr)) and bool(torch.isfinite(audio).all())
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")

@@ -9,10 +9,12 @@ so both packages read the same known bytes.
 - render_midi with each of the five stock instruments, on a file shorter
   than one chunk (one flat chunk of 14,400 frames) and a longer one (tiled
   chunks of 16,384), within -90 dBFS of the JAX render (the parity budget).
-  A zangscript instrument raises MidiError (the port has no script backend
-  yet); the card asked for without one raises.
+  A zangscript instrument (zang_tpu_torch/data/demo_synth.txt:DemoSynth)
+  through render_midi, tiled and flat, within the same budget; the card
+  asked for without one raises.
 - The CLI writes the WAV with --device cpu, the JAX CLI's to within one
-  s16 step.
+  s16 step; with a zangscript instrument, the JAX render's mixdown to
+  within one step.
 - tools/toccata_smf.py regenerates zang_tpu_torch/data/toccata.mid byte for
   byte, and both packages read the same parts from it.
 - parse_song on tests/test_song.py's FIXTURE and its error cases.
@@ -35,6 +37,7 @@ from zang_tpu_torch.tools import toccata_smf
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUDGET_DB = -90.0
+SCRIPT = os.path.join(ROOT, "zang_tpu_torch", "data", "demo_synth.txt")
 
 
 # ---------------------------------------------------------------------------
@@ -202,14 +205,48 @@ def test_render_midi_matches_jax(inst, kind):
 
 
 def test_script_instrument_raises(tmp_path):
-    script = tmp_path / "synth.txt"
-    script.write_text("def Synth: Module { }\n")
-    for name in (str(script), f"{script}:Synth"):
-        with pytest.raises(tmidi.MidiError, match="script backend"):
-            tmidi._instrument_maker(name)
-    with pytest.raises(tmidi.MidiError, match="unknown instrument"):
-        tmidi._instrument_maker("nosuch")
+    """Inverted since the port has its script backend: FILE.txt[:Module]
+    loads through the port's compile_script and ScriptInstrument (the last
+    exported module when none is named), as the JAX package's maker does.
+    What raises in both: a module the script does not export, a script that
+    exports none, a script that does not compile, an unknown name."""
+    from zang_tpu_torch.script import ScriptError
+    from zang_tpu_torch.script.torch_backend import ScriptInstrument
+
+    for name, module in ((SCRIPT, "DemoSynth"), (f"{SCRIPT}:DemoSynth", "DemoSynth"),
+                         (f"{SCRIPT}:SweepVoice", "SweepVoice")):
+        inst = tmidi._instrument_maker(name)()
+        assert isinstance(inst, ScriptInstrument) and inst.module_name == module
+        assert jmidi._instrument_maker(name)().module_name == module
+    empty, bad = tmp_path / "empty.txt", tmp_path / "bad.txt"
+    empty.write_text("f = 0.5\n")
+    bad.write_text("def Synth: Module { }\n")
+    for mod in (jmidi, tmidi):
+        with pytest.raises(mod.MidiError, match="no exported module"):
+            mod._instrument_maker(f"{SCRIPT}:Nope")
+        with pytest.raises(mod.MidiError, match="exports no modules"):
+            mod._instrument_maker(str(empty))
+        with pytest.raises(mod.MidiError, match="unknown instrument"):
+            mod._instrument_maker("nosuch")
+    with pytest.raises(ScriptError):
+        tmidi._instrument_maker(str(bad))
     assert tmidi._instrument_maker("nice")().__class__.__name__ == "NiceInstrument"
+
+
+@pytest.mark.parametrize("kind", sorted(RENDERS))
+def test_render_midi_script_matches_jax(kind):
+    """DemoSynth on every part of "chords": tiled chunks, where the delay of
+    11,025 halves each 16,384 chunk, and one flat chunk of 14,400 (two
+    sub-chunks of 7,200)."""
+    kw = dict(sample_rate=24000.0, tail=0.5, **RENDERS[kind])
+    jmake, tmake = jmidi._instrument_maker(SCRIPT), tmidi._instrument_maker(SCRIPT)
+    ref = np.asarray(jmidi.render_midi(FILES["chords"], lambda pi, label: jmake(), **kw))
+    got = tmidi.render_midi(FILES["chords"], lambda pi, label: tmake(), device="cpu",
+                            **kw).numpy()
+    assert got.shape == ref.shape and np.abs(ref).max() > 1e-2
+    db = _rms_db(got, ref)
+    print(f"DemoSynth {kind}: {db:.1f} dBFS from the JAX render")
+    assert db < BUDGET_DB
 
 
 def test_render_on_the_card_without_one_raises(monkeypatch):
@@ -235,6 +272,28 @@ def test_cli_writes_the_wav(tmp_path):
     assert (b.num_channels, b.sample_rate, len(b.data)) == (1, 24000, len(a.data))
     pa, pb = (np.frombuffer(w.data, np.int16).astype(np.int32) for w in (a, b))
     assert np.abs(pa).max() > 100 and np.abs(pa - pb).max() <= 1
+
+
+def test_cli_script_instrument(tmp_path):
+    """--instrument FILE.txt:Module with --device cpu: the WAV is the JAX
+    render's mixdown to within one s16 step."""
+    from zang_tpu.core.mixdown import mixdown_s16_np
+
+    mid, out = tmp_path / "chords.mid", tmp_path / "port.wav"
+    mid.write_bytes(FILES["chords"])
+    proc = subprocess.run(
+        [sys.executable, "-m", "zang_tpu_torch.host.midi", str(mid), str(out),
+         "--instrument", f"{SCRIPT}:DemoSynth", "--sample-rate", "24000", "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    jmake = jmidi._instrument_maker(f"{SCRIPT}:DemoSynth")
+    ref = np.asarray(jmidi.render_midi(FILES["chords"], lambda pi, label: jmake(),
+                                       sample_rate=24000.0))
+    want = mixdown_s16_np(ref, 0.25).reshape(-1).astype(np.int32)
+    w = read_wav(str(out))
+    got = np.frombuffer(w.data, np.int16).astype(np.int32)
+    assert (w.num_channels, w.sample_rate) == (1, 24000) and got.shape == want.shape
+    assert np.abs(got).max() > 100 and np.abs(got - want).max() <= 1
 
 
 # ---------------------------------------------------------------------------

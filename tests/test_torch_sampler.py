@@ -305,7 +305,7 @@ def test_affine1_scan(n):
     np.testing.assert_array_equal(tscan.affine1_scan(_t(a), _t(u), _t(s0)).numpy(), want)
 
 
-@pytest.mark.parametrize("kind", ["overdrive"])
+@pytest.mark.parametrize("kind", ["overdrive", "clip"])
 def test_distortion(kind):
     rng = np.random.default_rng(6)
     x = (rng.standard_normal((2, 3000)) * 0.8).astype(np.float32)
@@ -313,8 +313,8 @@ def test_distortion(kind):
     for params in ((0.9, 0.5, 0.0), (ingain, 0.7, 0.1)):
         want = np.asarray(jfx.distortion(jnp.asarray(x), kind,
                                          *(jnp.asarray(p) for p in params)))
-        got = tfx.distortion(_t(x), *(_t(p) if isinstance(p, np.ndarray) else p
-                                      for p in params)).numpy()
+        got = tfx.distortion(_t(x), kind, *(_t(p) if isinstance(p, np.ndarray) else p
+                                            for p in params)).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 

@@ -25,8 +25,8 @@ rendering with JAX. This tool writes them:
     needs more memory than a 64 GB host has, and the audio depends on the
     chunk only through rounding); their chunk_rms is still on the 65536 grid.
 
-    zang_tpu_torch/data/examples_golden_jax.npz (the twelve examples the port
-    has, zang_tpu_torch/host/examples.py EXAMPLES)
+    zang_tpu_torch/data/examples_golden_jax.npz (the twenty examples,
+    zang_tpu_torch/host/examples.py EXAMPLES)
       params               str  JSON: each example's seconds, sample rate,
                                 channels and render chunk, the window length
       <name>_offsets, <name>_windows [W, C, 4096], <name>_chunk_rms [C, nc]
@@ -56,13 +56,22 @@ rendering with JAX. This tool writes them:
     plus 2 s of tail, chunk 16,384) and mixed (pmosc, filteredsaw and
     weirdsquare cycled over the three parts, 60 s).
 
+    zang_tpu_torch/data/midi_script_golden_jax.npz (toccata.mid through the
+    JAX render_midi with zangscript instrument
+    zang_tpu_torch/data/demo_synth.txt:DemoSynth on every part, the whole
+    file at render_midi's defaults)
+      params     str  JSON: the SHA-256 of the MIDI file and of the script,
+                      the window length, render_midi's settings, total frames
+      offsets, windows [W, 1, 4096]   (windows only: no chunk RMS)
+
 The windows spread evenly over the render, plus windows that straddle chunk
 boundaries (where the state carries across chunks) and the last window of
 the final, partial chunk. Run from the repo root on the CPU:
 
-    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [song|configs|examples|song_flat|midi|all] [NAME ...]
+    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [song|configs|examples|song_flat|midi|midi_script|all] [NAME ...]
 
-The song takes about a minute, the examples about a minute, the configs
+The song takes about a minute, the examples a few minutes, midi_script
+about ten minutes, the configs
 about 40 minutes on 8 cores (poly_echo_16384 most of it, with ~20 GB
 resident). Names after `configs` or `examples` remake only those entries and
 keep the others from the file that is there.
@@ -84,7 +93,9 @@ OUT_CONFIGS = os.path.join(DATA, "configs_golden_jax.npz")
 OUT_EXAMPLES = os.path.join(DATA, "examples_golden_jax.npz")
 OUT_SONG_FLAT = os.path.join(DATA, "song_flat_golden_jax.npz")
 OUT_MIDI = os.path.join(DATA, "midi_golden_jax.npz")
+OUT_MIDI_SCRIPT = os.path.join(DATA, "midi_script_golden_jax.npz")
 MIDI_FILE = os.path.join(DATA, "toccata.mid")
+SCRIPT_FILE = os.path.join(DATA, "demo_synth.txt")
 WINDOW = 8192
 CONFIG_WINDOW = 4096
 CHUNK = 65536
@@ -199,7 +210,9 @@ def make_configs(only=()):
 # the port's examples (zang_tpu_torch/host/examples.py EXAMPLES) and the JAX
 # package's render chunks for them (zang_tpu/host/examples.py)
 EXAMPLE_NAMES = ("play", "arpeggiator", "polyphony", "portamento", "mouse", "fmsynth",
-                 "sampler", "polyphony2", "delay", "song", "stereo", "detuned")
+                 "sampler", "polyphony2", "delay", "song", "stereo", "detuned",
+                 "envelope", "vibrato", "curve", "laser", "subsong", "two", "script",
+                 "script_runtime")
 EXAMPLE_CHUNK = 16384
 SONG_EXAMPLE_CHUNK = 65536
 
@@ -299,11 +312,15 @@ MIDI = {"toccata": {"instruments": ["nice"], "seconds": None, "tail": 2.0,
                   "n_spread": 6, "n_seams": 4}}
 
 
-def midi_sha256() -> str:
+def file_sha256(path: str) -> str:
     import hashlib
 
-    with open(MIDI_FILE, "rb") as f:
+    with open(path, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()
+
+
+def midi_sha256() -> str:
+    return file_sha256(MIDI_FILE)
 
 
 def make_midi():
@@ -334,14 +351,44 @@ def make_midi():
     print(f"wrote {OUT_MIDI}: {os.path.getsize(OUT_MIDI)} bytes")
 
 
+# render_midi's settings of the midi_script entry (the whole file)
+MIDI_SCRIPT = {"module": "DemoSynth", "seconds": None, "tail": 2.0, "sample_rate": 48000.0,
+               "chunk_size": 16384, "n_spread": 10, "n_seams": 6}
+
+
+def make_midi_script():
+    from zang_tpu.host import midi
+
+    with open(MIDI_FILE, "rb") as f:
+        data = f.read()
+    p = MIDI_SCRIPT
+    maker = midi._instrument_maker(f"{SCRIPT_FILE}:{p['module']}")
+    t = time.time()
+    audio = np.asarray(midi.render_midi(
+        data, lambda pi, label: maker(), sample_rate=p["sample_rate"], seconds=p["seconds"],
+        tail=p["tail"], chunk_size=p["chunk_size"]), np.float32)
+    print(f"midi_script: rendered {audio.shape} in {time.time() - t:.1f}s on the CPU",
+          flush=True)
+    total = audio.shape[-1]
+    offs = window_offsets(total, chunk=p["chunk_size"], window=CONFIG_WINDOW,
+                          n_spread=p["n_spread"], n_seams=p["n_seams"])
+    params = {**{k: v for k, v in p.items() if not k.startswith("n_")},
+              "midi_sha256": midi_sha256(), "script_sha256": file_sha256(SCRIPT_FILE),
+              "window": CONFIG_WINDOW, "total": total}
+    np.savez_compressed(OUT_MIDI_SCRIPT, params=np.array(json.dumps(params, sort_keys=True)),
+                        offsets=offs,
+                        windows=np.stack([audio[:, o:o + CONFIG_WINDOW] for o in offs]))
+    print(f"wrote {OUT_MIDI_SCRIPT}: {os.path.getsize(OUT_MIDI_SCRIPT)} bytes")
+
+
 def main(argv=None):
     import jax
 
     which, *only = argv or sys.argv[1:] or ["all"]
-    if which not in ("song", "configs", "examples", "song_flat", "midi", "all") or \
-            (only and which not in ("configs", "examples")):
+    if which not in ("song", "configs", "examples", "song_flat", "midi", "midi_script",
+                     "all") or (only and which not in ("configs", "examples")):
         raise SystemExit(f"usage: {sys.argv[0]} "
-                         "[song|configs|examples|song_flat|midi|all] [NAME ...]")
+                         "[song|configs|examples|song_flat|midi|midi_script|all] [NAME ...]")
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(DATA, exist_ok=True)
     if which in ("song", "all"):
@@ -354,6 +401,8 @@ def main(argv=None):
         make_song_flat()
     if which in ("midi", "all"):
         make_midi()
+    if which in ("midi_script", "all"):
+        make_midi_script()
 
 
 if __name__ == "__main__":

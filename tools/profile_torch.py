@@ -6,7 +6,8 @@ the JAX package's capacity sizes; song_flat is the song at a 65,000-frame
 chunk, the flat chunk format; midi_toccata and midi_mixed are
 zang_tpu_torch/data/toccata.mid through render_midi's planning and chunk,
 with the nice instrument, and with pmosc, filteredsaw and weirdsquare over
-60 s) or
+60 s; midi_script is the whole file with the zangscript instrument
+zang_tpu_torch/data/demo_synth.txt:DemoSynth on every part) or
 example (ex_<name>, an entry of zang_tpu_torch/host/examples.py EXAMPLES
 at its default seconds) it plans, renders once to warm up, renders again
 with the host clock (ending in torch.cuda.synchronize()), then renders a
@@ -23,7 +24,8 @@ third time under torch.profiler and prints, per config:
 Run from the repo root on a machine with CUDA:
 
     python tools/profile_torch.py [song] [sampler] [poly_echo] [poly_echo_16384]
-                                  [song_flat] [midi_toccata] [ex_fmsynth ...] [--top N]
+                                  [song_flat] [midi_toccata] [midi_script]
+                                  [ex_fmsynth ...] [--top N]
 
 The card's nvidia-smi name and power limit are printed first; the last line
 is one JSON object with the numbers above.
@@ -46,7 +48,9 @@ LARGE_POLY_SECONDS = 8.0
 SONG_FLAT_CHUNK = 65000
 MIDI_FILE = os.path.join(ROOT, "zang_tpu_torch", "data", "toccata.mid")
 MIDI = {"midi_toccata": (("nice",), None), "midi_mixed": (("pmosc", "filteredsaw",
-                                                           "weirdsquare"), 60.0)}
+                                                           "weirdsquare"), 60.0),
+        "midi_script": ((os.path.join(ROOT, "zang_tpu_torch", "data",
+                                      "demo_synth.txt:DemoSynth"),), None)}
 
 
 def _runner(name):
@@ -72,10 +76,10 @@ def _runner(name):
         chunk = SONG_FLAT_CHUNK if name == "song_flat" else CHUNK
     elif name in MIDI:
         names, cap = MIDI[name]
-        stock = midi.stock_instruments()
+        makers = [midi._instrument_maker(n) for n in names]
         with open(MIDI_FILE, "rb") as f:
             perf, total = midi.midi_performance(
-                f.read(), lambda pi, label: stock[names[pi % len(names)]](), seconds=cap)
+                f.read(), lambda pi, label: makers[pi % len(makers)](), seconds=cap)
         seconds, chunk = total / perf.sample_rate, midi.midi_chunk(total)
     elif name in LARGE_POLY:
         seconds = LARGE_POLY_SECONDS

@@ -16,6 +16,8 @@ Its layout mirrors zang_tpu's, so each counterpart sits at the same path:
             metric
   host      instruments, the Bach song, the sampler and poly_echo configs,
             the examples, MIDI files and tracker text, the CLIs
+  script    zangscript: the compiler (a copy of zang_tpu.script's front
+            end), a torch backend, live reload and the zangc CLI
   convert   carry a zang_tpu Performance's programs and state across
 
 It imports torch and numpy, never jax and nothing of zang_tpu: it reads

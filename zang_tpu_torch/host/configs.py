@@ -112,7 +112,7 @@ class SamplerInstrument:
             self.table.num_samples, self.ratio, self.loop)
         out = out * 2.5  # example_sampler.zig:106
         if self.distort:
-            out = effects.distortion(out, 0.9, 0.5, 0.0)
+            out = effects.distortion(out, "overdrive", 0.9, 0.5, 0.0)
         if self.fake_sample_rate is not None:
             cnt, val, out = effects.decimator(
                 state["dec_cnt"], state["dec_val"], out,

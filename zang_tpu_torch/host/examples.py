@@ -1,5 +1,6 @@
 """The reference's example programs as offline render configs (port of
-zang_tpu/host/examples.py, the twelve examples that need no zangscript).
+zang_tpu/host/examples.py: all twenty, the eight zangscript ones through
+the port's script backend).
 
 Each example (examples/example_*.zig) is a function
 `ex_<name>(seconds, device="cuda") -> (audio f32 [C, total] on device,
@@ -16,13 +17,18 @@ every CUDA kernel of the port:
   stereo       two panned noise voices, a [2, 1] cutoff dense-cut SVF (K2)
   detuned      noise-warbled trisaw -> lowpass -> echoes dense-cut SVF (K2),
                                                         twice a chunk
-  arpeggiator, delay, portamento, mouse                 no kernel
+  script       DemoSynth: pulse * envelope through a    dense-cut SVF (K2),
+               delay whose feedback is low-passed       once a sub-chunk
+  script_runtime  DemoSynth, edited and reloaded         dense-cut SVF (K2)
+  arpeggiator, delay, portamento, mouse, envelope,      no kernel
+  vibrato, curve, laser, subsong, two (scripts)
 
 Run: python -m zang_tpu_torch.host.examples NAME out.wav [--seconds S]
                                                        [--device cuda]
 """
 
 import argparse
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -39,6 +45,8 @@ from ..graph.render import Performance, render_performance
 from ..ops import control, effects, filters, noise, oscillators
 from ..ops import delay as d_ops
 from ..ops.segprog import eval_chunk
+from ..script import compile_script
+from ..script.torch_backend import ScriptInstrument
 from . import configs
 from . import instruments as ti
 from . import song as song_mod
@@ -73,6 +81,15 @@ def _simple_song(notes: List[Tuple[float, float, float]], extra=None):
     return song
 
 
+def _render_script(src, name, song, seconds, device, sr=44100.0):
+    """A zangscript module as a one-voice instrument over `song`."""
+    total = int(seconds * sr)
+    inst = ScriptInstrument(compile_script(src), name)
+    tls = compile_timelines(song, 1, sr, total)
+    return render_performance(Performance([(inst, tls)], sr), total,
+                              chunk_size=DEFAULT_CHUNK, device=device), sr
+
+
 def _render_parts(parts, seconds, sr, device, num_channels=1, post_fn=None,
                   post_init=None):
     total = int(seconds * sr)
@@ -101,6 +118,182 @@ def ex_play(seconds=6.0, device="cuda"):
     return _render_parts(
         [(ti.PMOscInstrument(1.0), tls0), (ti.FilteredSawtoothInstrument(), tls1)],
         seconds, sr, dev)
+
+
+# ---------------------------------------------------------------------------
+# example_envelope: very slow ADSR made audible (examples/example_envelope.zig:
+# pulse(0.5) * env(cubed 1.0 x3, sustain 0.5) * 5.0, c2 note).
+
+ENVELOPE_SCRIPT = """
+EnvDemo = defmodule freq: cob, note_on: boolean, begin
+    e = Envelope(attack=.cubed(1.0), decay=.cubed(1.0), release=.cubed(1.0),
+                 sustain_volume=0.5, note_on) * 5.0
+    out PulseOsc(freq, color=0.5) * e
+end
+"""
+
+
+def ex_envelope(seconds=8.0, device="cuda"):
+    dev = require_device(device)
+    song = _simple_song([(0.1, 4.0, A4 * tt.c2)])
+    return _render_script(ENVELOPE_SCRIPT, "EnvDemo", song, seconds, dev, sr=48000.0)
+
+
+# ---------------------------------------------------------------------------
+# example_vibrato (examples/example_vibrato.zig): pulse at freq*(1+0.02*sin(4Hz)).
+
+VIBRATO_SCRIPT = """
+Vib = defmodule freq: cob, note_on: boolean, begin
+    f = freq * (1 + 0.02 * SineOsc(freq=4, phase=0))
+    out PulseOsc(freq=f, color=0.3) * Gate(note_on)
+end
+"""
+
+
+def ex_vibrato(seconds=4.0, device="cuda"):
+    dev = require_device(device)
+    song = _simple_song([(0.1, 1.5, A4 * tt.a3), (2.0, 1.5, A4 * tt.d4)])
+    return _render_script(VIBRATO_SCRIPT, "Vib", song, seconds, dev, sr=48000.0)
+
+
+# ---------------------------------------------------------------------------
+# example_curve / example_laser: curve-driven FM (examples/example_curve.zig,
+# example_laser.zig:22-42 curves; laser adds random freq_mul per shot).
+
+LASER_SCRIPT = """
+Laser = defmodule freq_mul: constant, carrier_mul: constant,
+                  modulator_mul: constant, modulator_rad: constant,
+                  note_on: boolean, begin
+    mod_freq = freq_mul * modulator_mul * Curve(function=.smoothstep, curve=defcurve
+        0.0 1000.0
+        0.1 200.0
+        0.2 100.0
+    end)
+    car_freq = freq_mul * carrier_mul * Curve(function=.smoothstep, curve=defcurve
+        0.0 1000.0
+        0.1 200.0
+        0.2 100.0
+    end)
+    m = SineOsc(freq=mod_freq, phase=0) * modulator_rad
+    c = SineOsc(freq=car_freq, phase=m)
+    vol = Curve(function=.smoothstep, curve=defcurve
+        0.0 0.0
+        0.004 1.0
+        0.2 0.0
+    end)
+    out c * vol
+end
+"""
+
+
+def ex_laser(seconds=3.0, seed=0, device="cuda"):
+    dev = require_device(device)
+    rng = np.random.default_rng(seed)
+    song = []
+    t = 0.1
+    nid = 1
+    while t < seconds - 0.3:
+        freq_mul = 1.0 + float(rng.random()) * 0.1 - 0.05
+        song.append(_note({"freq_mul": freq_mul, "carrier_mul": 2.0,
+                           "modulator_mul": 0.5, "modulator_rad": 1.0,
+                           "note_on": True}, t, nid))
+        song.append(_note({"freq_mul": freq_mul, "carrier_mul": 2.0,
+                           "modulator_mul": 0.5, "modulator_rad": 1.0,
+                           "note_on": False}, t + 0.25, nid))
+        nid += 1
+        t += 0.3
+    return _render_script(LASER_SCRIPT, "Laser", song, seconds, dev)
+
+
+def ex_curve(seconds=4.5, device="cuda"):
+    dev = require_device(device)
+    src = """
+CurvePlayer = defmodule freq_mul: constant, note_on: boolean, begin
+    out SineOsc(
+        freq = freq_mul * Curve(curve=defcurve
+            0.0  440.0
+            0.5  880.0
+            1.0  110.0
+            1.5  660.0
+            2.0  330.0
+            3.9   20.0
+        end, function=.linear),
+        phase = SineOsc(
+            freq = freq_mul * Curve(curve=defcurve
+                0.0 110.0
+                1.5  55.0
+                3.0 220.0
+            end, function=.smoothstep),
+            phase = 0
+        )
+    )
+end
+"""
+    song = _simple_song([(0.0, 4.0, 0.0)])
+    for e in song:
+        e.params["freq_mul"] = 1.0
+    return _render_script(src, "CurvePlayer", song, seconds, dev)
+
+
+# ---------------------------------------------------------------------------
+# example_subsong (examples/example_subsong.zig): notes within notes — each
+# outer key triggers a 5-note inner melody, transposed by the outer freq.
+
+SUBSONG_SCRIPT = f"""
+SubtrackPlayer = defmodule freq: cob, note_on: boolean, begin
+    base_freq = freq
+    out from deftrack f: constant, gate: boolean, begin
+        0.0 (f={A4 * tt.c4}, gate=true)
+        1.0 (f={A4 * tt.ab3}, gate=true)
+        2.0 (f={A4 * tt.g3}, gate=true)
+        3.0 (f={A4 * tt.eb3}, gate=true)
+        4.0 (f={A4 * tt.c3}, gate=true)
+        5.0 (f={A4 * tt.c3}, gate=false)
+    end, 1 begin
+        e = Envelope(attack=.cubed(0.025), decay=.cubed(0.1),
+                     release=.cubed(1.0), sustain_volume=0.5, note_on=gate)
+        out SineOsc(freq = f * base_freq / {A4 * tt.c4}, phase=0) * e
+    end
+end
+"""
+
+
+def ex_subsong(seconds=8.0, device="cuda"):
+    dev = require_device(device)
+    song = _simple_song([(0.0, 5.5, A4 * tt.c4), (6.0, 1.8, A4 * tt.e4)])
+    return _render_script(SUBSONG_SCRIPT, "SubtrackPlayer", song, seconds, dev)
+
+
+# ---------------------------------------------------------------------------
+# example_two (examples/example_two.zig): a note plays only while BOTH
+# impulse streams are active — host-side span intersection feeding one voice.
+
+
+def ex_two(seconds=4.0, device="cuda"):
+    dev = require_device(device)
+    sr = 48000.0
+    # stream 0: keys (freq); stream 1: color changes; intersect note_on
+    s0 = [(0.2, 1.2, A4 * tt.a3), (1.8, 1.8, A4 * tt.c4)]
+    s1_on = [(0.5, 2.8)]
+    song = []
+    nid = 1
+    for t0, dur, freq in s0:
+        for t1, dur1 in s1_on:
+            lo = max(t0, t1)
+            hi = min(t0 + dur, t1 + dur1)
+            if lo < hi:
+                song.append(_note({"freq": freq, "note_on": True}, lo, nid))
+                song.append(_note({"freq": freq, "note_on": False}, hi, nid))
+                nid += 1
+    song.sort(key=lambda e: (e.t, e.note_id))
+    src = """
+Two = defmodule freq: cob, note_on: boolean, begin
+    e = Envelope(attack=.instantaneous, decay=.instantaneous,
+                 release=.linear(0.3), sustain_volume=1, note_on)
+    out SineOsc(freq, phase=0) * e * 0.5
+end
+"""
+    return _render_script(src, "Two", song, seconds, dev, sr=sr)
 
 
 # ---------------------------------------------------------------------------
@@ -476,6 +669,70 @@ def ex_delay(seconds=8.0, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# example_script (examples/example_script.zig): play a scripted module. The
+# demo script (zang_tpu_torch/data/demo_synth.txt, the JAX package's
+# DEMO_SCRIPT) exercises the reference fixture's features: a defcurve
+# argument, a delay with a feedback block, a Filter in the feedback path.
+
+DEMO_SCRIPT_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "data", "demo_synth.txt")
+with open(DEMO_SCRIPT_PATH) as _f:
+    DEMO_SCRIPT = _f.read()
+
+
+def ex_script(seconds=6.0, device="cuda"):
+    dev = require_device(device)
+    song = _simple_song([
+        (0.2 + 0.45 * i, 0.3, A4 * tt.rel_freq(n))
+        for i, n in enumerate([-9, -2, 0, 3, 0, -2, -9, -14])
+    ])
+    return _render_script(DEMO_SCRIPT, "DemoSynth", song, seconds, dev, sr=44100.0)
+
+
+# ---------------------------------------------------------------------------
+# example_script_runtime_mono/poly (examples/example_script_runtime_*.zig):
+# live reload. The script is rendered, edited on disk, reloaded through
+# LiveScript (a fresh plan replaces the reference's bytecode interpreter),
+# and rendered again; the two halves are concatenated.
+
+
+def ex_script_runtime(seconds=6.0, device="cuda"):
+    import tempfile
+
+    from ..script.runtime import LiveScript
+
+    dev = require_device(device)
+    sr = 44100.0
+    half = seconds / 2.0
+    total = int(half * sr)
+    song = _simple_song([
+        (0.15 + 0.4 * i, 0.3, A4 * tt.rel_freq(n))
+        for i, n in enumerate([0, 3, 7, 3, 0, -5])
+    ])
+    tls = compile_timelines(song, 2, sr, total)
+    with tempfile.NamedTemporaryFile("w", suffix=".txt", delete=False) as f:
+        f.write(DEMO_SCRIPT)
+        path = f.name
+    try:
+        live = LiveScript(path, "DemoSynth")
+        if not live.ok:
+            raise RuntimeError(live.error)
+        first = render_performance(Performance([(live.instrument, tls)], sr), total,
+                                   chunk_size=DEFAULT_CHUNK, device=dev)
+        # edit: brighter pulse + faster release, then hot-reload
+        with open(path, "w") as f:
+            f.write(DEMO_SCRIPT.replace("color=0.3", "color=0.5")
+                    .replace(".cubed(0.6)", ".cubed(0.2)"))
+        if not (live.maybe_reload() and live.ok):
+            raise RuntimeError(f"reload failed: {live.error}")
+        second = render_performance(Performance([(live.instrument, tls)], sr), total,
+                                    chunk_size=DEFAULT_CHUNK, device=dev)
+    finally:
+        os.unlink(path)
+    return torch.cat([first, second], dim=-1), sr
+
+
+# ---------------------------------------------------------------------------
 # example_song (examples/example_song.zig): a slice of the Bach Toccata.
 
 
@@ -493,17 +750,25 @@ def ex_song(seconds=20.0, device="cuda"):
 
 EXAMPLES = {
     "play": ex_play,
+    "envelope": ex_envelope,
+    "vibrato": ex_vibrato,
+    "curve": ex_curve,
+    "laser": ex_laser,
+    "subsong": ex_subsong,
+    "two": ex_two,
     "arpeggiator": ex_arpeggiator,
     "polyphony": ex_polyphony,
+    "stereo": ex_stereo,
+    "detuned": ex_detuned,
     "portamento": ex_portamento,
     "mouse": ex_mouse,
     "fmsynth": ex_fmsynth,
     "sampler": ex_sampler,
     "polyphony2": ex_polyphony2,
     "delay": ex_delay,
+    "script": ex_script,
+    "script_runtime": ex_script_runtime,
     "song": ex_song,
-    "stereo": ex_stereo,
-    "detuned": ex_detuned,
 }
 
 

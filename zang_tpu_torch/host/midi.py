@@ -4,7 +4,7 @@
 A stdlib SMF parser (format 0/1, running status, merged tempo map), channel-
 or track-grouped note streams with the framework's event semantics (a new
 note on a sounding key first releases the old one; offs sort before ons
-inside one tick) and a render over the stock instruments. parse_smf,
+inside one tick) and a render over the stock or zangscript instruments. parse_smf,
 midi_songs and the tempo map are copies of the JAX package's; render_midi
 renders through the port's Performance on the card unless the caller asks
 for the CPU.
@@ -15,8 +15,9 @@ arithmetic downstream.
 
     python -m zang_tpu_torch.host.midi song.mid out.wav [--instrument nice] [--device cuda]
 
-Zangscript instruments (FILE.txt[:Module]) wait for the port's script
-backend, and live replay into a server waits for the port's serving tier.
+--instrument takes a stock name or a zangscript FILE.txt[:Module] (the
+port's script backend). Live replay into a server waits for the port's
+serving tier.
 """
 
 from dataclasses import dataclass, field
@@ -366,22 +367,34 @@ def stock_instruments() -> dict:
 
 
 def _instrument_maker(name: str):
-    """Instrument name -> zero-arg factory of a stock instrument. A
-    zangscript FILE.txt[:Module] is refused with MidiError: the port has no
-    script backend yet."""
+    """Instrument name -> zero-arg factory: a stock instrument or a
+    zangscript FILE.txt[:Module] (it reads the named file) through the
+    port's script backend, the last exported module when none is named."""
     import os
 
     stock = stock_instruments()
     if name in stock:
         return stock[name]
-    path = name
+    path, module = name, None
     if not os.path.exists(path) and ":" in path:
-        path = path.rpartition(":")[0]
+        path, _, module = path.rpartition(":")
     if os.path.exists(path):
-        raise MidiError(
-            f"{name}: zangscript instruments wait for the port's script backend; "
-            f"stock: {sorted(stock)}")
-    raise MidiError(f"unknown instrument {name!r}; stock: {sorted(stock)}")
+        from ..script.compile import compile_script
+        from ..script.torch_backend import ScriptInstrument
+
+        with open(path) as f:
+            cs = compile_script(f.read(), filename=path)
+        names = [em.name for em in cs.exported_modules]
+        if not names:
+            raise MidiError(f"{path}: script exports no modules")
+        mod = module or names[-1]
+        if mod not in names:
+            raise MidiError(f"{path}: no exported module {mod!r} "
+                            f"(available: {names})")
+        return lambda: ScriptInstrument(cs, mod)
+    raise MidiError(
+        f"unknown instrument {name!r}; stock: {sorted(stock)}, or a "
+        f"zangscript FILE.txt[:Module]")
 
 
 def main(argv=None) -> int:
@@ -393,13 +406,14 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(
         prog="zang-midi-torch",
-        description="Render a Standard MIDI File to WAV with the stock instruments "
-                    "on the GPU (or the CPU with --device cpu).")
+        description="Render a Standard MIDI File to WAV with the stock or zangscript "
+                    "instruments on the GPU (or the CPU with --device cpu).")
     ap.add_argument("midi")
     ap.add_argument("output", help="output WAV")
     ap.add_argument("--instrument", default="nice",
                     help="instrument name, or a comma list cycled over parts "
-                         f"(default nice; stock: {', '.join(sorted(stock_instruments()))})")
+                         f"(default nice; stock: {', '.join(sorted(stock_instruments()))}; "
+                         "or a zangscript FILE.txt[:Module])")
     ap.add_argument("--group", choices=["channel", "track"], default="channel")
     ap.add_argument("--sample-rate", type=float, default=48000.0)
     ap.add_argument("--seconds", type=float, default=None, help="cap the render length")

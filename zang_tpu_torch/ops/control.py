@@ -3,12 +3,13 @@
 
 Per segment, value[t] = a + b * shape(min(t0 + (dt + 1) * t_step, 1)),
 dt = t - start. Envelope segments come from the C++ envelope compiler in
-core/native.py; the portamento and gate compilers, the paint tables and
-painter_program are numpy twins of the JAX package's, segment for segment.
+core/native.py; the portamento, gate and curve compilers, the paint tables
+and painter_program are numpy twins of the JAX package's, segment for
+segment.
 """
 
 from functools import lru_cache
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -291,3 +292,160 @@ def compile_gate(tl) -> List[Seg]:
         if segs[-1][1] != v:
             segs.append((int(tl.starts[k]), v, 0.0, 0.0, 0.0, SHAPE_CONST))
     return segs
+
+
+# ---------------------------------------------------------------------------
+# Curve compiler (src/modules/Curve.zig): interpolated curve playback.
+
+
+def compile_curve(
+    tl,
+    points,
+    function: str,
+    sample_rate: float,
+    block_size: int = 1024,
+) -> List[Seg]:
+    """Compile one subvoice's Curve playback into painter segments.
+
+    points: [(t_seconds, value)]. function: 'linear' | 'smoothstep'.
+    Replicates the reference's per-block node placement (f32 clock, relative
+    frames — Curve.zig:126-176) and resets on note_id_changed; interpolation
+    maps onto painter segments (linear -> SHAPE_LINEAR with t = x, smoothstep
+    -> SHAPE_SMOOTHSTEP), within ~1 ulp of the reference's accumulation.
+    """
+    st = CurveWalkStream(points, function, sample_rate, block_size)
+    K = len(tl.starts)
+    for k in range(K):
+        s = int(tl.starts[k])
+        e = int(tl.starts[k + 1]) if k + 1 < K else tl.total
+        st.feed_partial(s, e, bool(tl.resets[k]))
+    return st.segs
+
+
+class CurveWalkStream:
+    """Streaming curve compiler: the reference's per-block node walk
+    (Curve.zig:126-238) with the module state (t clock + song-note cursors)
+    carried, fed one timeline-segment range at a time.
+
+    Span structure is identical to the batch walk: [first_active, ...) is
+    partitioned at block boundaries and segment starts (every segment start
+    is a feed boundary); before the first feed nothing advances (the batch
+    walk's pre-first_active spans emit merged zeros).
+
+    feed_partial(s, e, reset) may be called repeatedly for the SAME segment
+    with a growing e — the live planner commits a held note's prefix block
+    by block (advance_open) and paints the rest provisionally; `pos` tracks
+    how far the segment has been consumed, and the reset applies only on
+    first contact."""
+
+    def __init__(self, points, function: str, sample_rate: float,
+                 block_size: int = 1024) -> None:
+        self.points = points
+        self.shape_id = SHAPE_LINEAR if function == "linear" else SHAPE_SMOOTHSTEP
+        self.sr = sample_rate
+        self.block = block_size
+        self.segs: List[Seg] = [(0, 0.0, 0.0, 0.0, 0.0, SHAPE_CONST)]
+        self.t = F32(0.0)
+        self.csn = 0  # current_song_note
+        self.csn_off = 0  # current_song_note_offset
+        self.nsn = 0  # next_song_note
+        self.pos: Optional[int] = None  # processed up to (None = pre-active)
+
+    def snapshot(self) -> tuple:
+        return (len(self.segs), self.t, self.csn, self.csn_off, self.nsn,
+                self.pos)
+
+    def restore(self, snap: tuple) -> None:
+        nsegs, self.t, self.csn, self.csn_off, self.nsn, self.pos = snap
+        del self.segs[nsegs:]
+
+    def _emit_const(self, s, v):
+        segs = self.segs
+        if not segs or segs[-1][1] != v or segs[-1][2] != 0.0:
+            segs.append((s, float(v), 0.0, 0.0, 0.0, SHAPE_CONST))
+
+    def feed_partial(self, s: int, e: int, reset: bool) -> None:
+        if self.pos is None:
+            self.pos = s
+        start = max(self.pos, s)
+        if e <= start:
+            return
+        if reset and start == s:
+            self.t = F32(0.0)
+            self.csn = 0
+            self.csn_off = 0
+            self.nsn = 0
+        pos = start
+        while pos < e:
+            span_end = min(e, (pos // self.block + 1) * self.block)
+            self._span(pos, span_end)
+            pos = span_end
+        self.pos = e
+
+    def _span(self, s0: int, s1: int) -> None:
+        points, sample_rate, segs = self.points, self.sr, self.segs
+        t, current_song_note = self.t, self.csn
+        current_song_note_offset, next_song_note = self.csn_off, self.nsn
+        out_len_span = s1 - s0
+        # getCurveSpanNodes (Curve.zig:126-176)
+        nodes = []
+        buf_time = F32(F32(out_len_span) / F32(sample_rate))
+        end_t = F32(t + buf_time)
+        if current_song_note < next_song_note:
+            nodes.append((current_song_note_offset, points[current_song_note][1]))
+        one_past = False
+        for idx in range(next_song_note, len(points)):
+            note_t = F32(points[idx][0])
+            if note_t >= end_t:
+                if not one_past:
+                    one_past = True
+                else:
+                    break
+            f = F32(F32(note_t - t) / buf_time)
+            rel = int(F32(f * F32(out_len_span)))
+            if nodes and nodes[-1][0] == rel:
+                nodes.pop()
+            nodes.append((rel, points[idx][1]))
+            if not one_past:
+                current_song_note = next_song_note
+                current_song_note_offset = 0
+                next_song_note += 1
+        t = F32(t + buf_time)
+        current_song_note_offset -= out_len_span
+
+        # getNextCurveSpan (Curve.zig:180-238) -> painter segments
+        start = 0
+        while start < out_len_span:
+            cs = _next_curve_span(nodes, start, out_len_span)
+            cs_start, cs_end, values = cs
+            if values is None:
+                self._emit_const(s0 + cs_start, 0.0)
+            else:
+                (f0, v0), (f1, v1) = values
+                start_x = F32(F32(cs_start - f0) / F32(f1 - f0))
+                delta = F32(F32(v1) - F32(v0))
+                x_step = F32(F32(1.0) / F32(f1 - f0))
+                segs.append((
+                    s0 + cs_start, float(F32(v0)), float(delta),
+                    float(x_step), float(F32(start_x - x_step)), self.shape_id,
+                ))
+            start = cs_end
+        self.t, self.csn = t, current_song_note
+        self.csn_off, self.nsn = current_song_note_offset, next_song_note
+
+
+def _next_curve_span(nodes, dest_start, dest_end):
+    """Curve.zig:180-238."""
+    for i, (start_pos, value) in enumerate(nodes):
+        if start_pos >= dest_end:
+            break
+        end_pos = min(dest_end, nodes[i + 1][0]) if i < len(nodes) - 1 else dest_end
+        if end_pos <= dest_start:
+            continue
+        note_start_clipped = start_pos if start_pos > dest_start else dest_start
+        if note_start_clipped > dest_start:
+            return dest_start, note_start_clipped, None
+        note_end_clipped = min(end_pos, dest_end)
+        values = (nodes[i], nodes[i + 1]) if i < len(nodes) - 1 else None
+        return note_start_clipped, note_end_clipped, values
+    return dest_start, dest_end, None

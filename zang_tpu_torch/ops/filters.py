@@ -5,10 +5,10 @@ svf_filter_ref is the plain version: the reference's per-sample recurrence
 probed on basis states and composed with an associative scan. It runs on
 any device and is what the CPU uses.
 
-svf_filter routes as the JAX package does (zang_tpu/ops/filters.py:134-145):
-a CUDA tensor x [V, n] with a scalar res launches the dense-cut kernel
-(ops/svf_cuda.py svf_dense_cuda); every other call, and every CPU tensor,
-takes svf_filter_ref. svf_filter_table takes the cutoff as per-tile
+svf_filter routes as the JAX package does (zang_tpu/ops/filters.py:121-145):
+a CUDA tensor x [V, n] with a scalar res and a fixed type launches the
+dense-cut kernel (ops/svf_cuda.py svf_dense_cuda); every other call ("mix",
+"bypass", a tensor res), and every CPU tensor, takes svf_filter_ref. svf_filter_table takes the cutoff as per-tile
 boundary tables (the tiled segment-program format): svf_filter_table_ref
 for a CPU tensor; for a CUDA one the kernel that svf_table_route names: the
 one-pass kernel (svf_onepass_cuda) at ONEPASS_V_MIN voices or more when a
@@ -37,7 +37,8 @@ ONEPASS_V_MIN = 4096
 # tile's slots in registers (csrc/svf_onepass.cu kRegSlots)
 ONEPASS_MAX_SLOTS = 4
 
-FILTER_MULS = {  # (l, b, h) output weights; bypass is not ported
+FILTER_MULS = {  # (l, b, h) output weights; bypass has none
+    "bypass": None,
     "low_pass": (1.0, 0.0, 0.0),
     "band_pass": (0.0, 1.0, 0.0),
     "high_pass": (0.0, 0.0, 1.0),
@@ -79,14 +80,20 @@ def svf_filter_ref(
     cutoff: Union[Tensor, float],
     res: Union[Tensor, float],
     active: Optional[Tensor] = None,
+    muls: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain version of svf_filter, on any device: run the SVF over
     x [..., n]. Returns (l_end, b_end, out [..., n]).
 
     cutoff/res: raw 0-1 params (clamped like the reference), broadcastable
     to x. active: bool [..., n]; inactive samples leave the state untouched
-    and output 0."""
-    l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
+    and output 0. filter_type "mix" takes per-sample (l, b, h) output
+    weights from muls (broadcastable to x): the recurrence does not depend
+    on the type (Filter.zig:120-147), so a type that changes by note is a
+    changing output mix; "bypass" copies the input."""
+    if filter_type == "bypass":  # the state untouched
+        return l0, b0, x if active is None else torch.where(active, x, torch.zeros_like(x))
+    l_mul, b_mul, h_mul = muls if filter_type == "mix" else FILTER_MULS[filter_type]
     cut = torch.clamp(as_f32(cutoff, x), 0.0, 1.0).broadcast_to(x.shape)
     r = (1.0 - torch.clamp(as_f32(res, x), 0.0, 1.0)).broadcast_to(x.shape)
 
@@ -125,15 +132,18 @@ def svf_filter(
     cutoff: Union[Tensor, float],
     res: Union[Tensor, float],
     active: Optional[Tensor] = None,
+    muls: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """The SVF over x [..., n] (see svf_filter_ref for the arguments): the
-    dense-cut CUDA kernel for a CUDA x [V, n] with a scalar res, else the
-    plain version."""
-    if x.device.type == "cuda" and x.dim() == 2 and _is_scalar(res):
+    dense-cut CUDA kernel for a CUDA x [V, n] with a scalar res and a fixed
+    type; "mix", "bypass" (the input copied) and a tensor res take the
+    plain version on any device, as in the JAX package."""
+    if (x.device.type == "cuda" and x.dim() == 2 and _is_scalar(res)
+            and filter_type not in ("mix", "bypass")):
         from .svf_cuda import svf_dense_cuda
 
         return svf_dense_cuda(l0, b0, x, filter_type, cutoff, res, active)
-    return svf_filter_ref(l0, b0, x, filter_type, cutoff, res, active)
+    return svf_filter_ref(l0, b0, x, filter_type, cutoff, res, active, muls)
 
 
 def svf_filter_table_ref(

@@ -19,12 +19,14 @@ GAIN = 0.7
 
 
 def plan_phase_segments(timelines, freq_fn, sample_rate: float,
-                        guard_div8: bool = False) -> SegProgram:
+                        guard_div8: bool = False, freqs_override=None) -> SegProgram:
     """Host: note-constant frequencies -> a phase SegProgram.
 
     Values per segment: ifreq (u32 increment), A = cnt0 - start*ifreq (u32,
     so cnt(t) = A + t*ifreq mod 2^32, bit-identical to per-sample
-    accumulation), valid (f32 0/1). guard_div8 applies the pulse validity
+    accumulation), valid (f32 0/1). freq_fn(note_params) -> frequency, or
+    freqs_override [V, K] gives each segment's frequency (the script
+    backend's note-rate columns). guard_div8 applies the pulse validity
     rule (silent, no phase advance outside [0, sr/8] — PulseOsc.zig:82-84).
     """
     V = len(timelines)
@@ -41,7 +43,10 @@ def plan_phase_segments(timelines, freq_fn, sample_rate: float,
             if k == 0:
                 continue
             starts[v, :k] = tl.starts
-            freqs = tl.param_f32(freq_fn)
+            if freqs_override is not None:
+                freqs = np.asarray(freqs_override[v, :k], dtype=np.float32)
+            else:
+                freqs = tl.param_f32(freq_fn)
             scaled = srbase * freqs
             mag = np.abs(scaled).astype(np.uint32)
             inc = np.where(scaled >= 0, mag, np.uint32(0) - mag)

@@ -103,7 +103,7 @@ def _launch_table_cut(stem, l0, b0, x, filter_type, tb, cutv, res, t0, active_fr
         ("out", out, torch.float32, (V, n)),
     ):
         _check(name, t, dtype, shape, dev)
-    if filter_type not in FILTER_MULS:
+    if FILTER_MULS.get(filter_type) is None:
         raise ValueError(f"filter type {filter_type!r} has no table kernel")
     l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
     r = _r(res)
@@ -427,7 +427,7 @@ def svf_dense_cuda(l0, b0, x, filter_type, cutoff, res, active=None):
                                   ("l0", l0, torch.float32, (V,)),
                                   ("b0", b0, torch.float32, (V,))):
         _check(name, t, dtype, shape, dev)
-    if filter_type not in FILTER_MULS:
+    if FILTER_MULS.get(filter_type) is None:
         raise ValueError(f"filter type {filter_type!r} has no dense kernel")
     l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
     r = _r(float(res))
