@@ -136,10 +136,47 @@ each of which raises on failure:
      JAX trajectory a chunk at a time from the JAX filter state (relative
      deviation < 1e-5), and the cascade on that trajectory against the
      golden windows; the free-running render's distance is printed
+  9b. the live tier, on the card:
+     K5 with a waveform a voice (an int32 [V], stride 1: mixed inside
+     every warp, one a warp) and by pointer (stride 0) at the fmsynth
+     example's V=8 x 16384 and a fleet's 128 x 4096, bit for bit with
+     fm_feedback_ref, timed stride 0 beside stride 1; K2 at the live shapes
+     (V=4 x 1024, 256 x 4096, 1024 x 4096, dense cutoff and mask) against
+     svf_filter_ref (< -120 dBFS) and bit for bit against
+     svf_dense_emulated; then, each with the launch counts set to 0 just
+     before and read just after:
+       live_session  a LiveSession of zang-serve's nice (polyphony 4,
+                  block 1024) fed the Toccata's first 10 s
+                  (host/song.live_events) through a NoteTracker: one K2 a
+                  block (469), against the port's offline render of the
+                  same events (< -110 dBFS) and the JAX golden windows
+                  (zang_tpu_torch/data/live_golden_jax.npz, < -90 dBFS);
+                  block times (median, p99) against the 21.3 ms budget
+                  (launches a block and the busy share:
+                  tools/profile_torch.py live_session); snapshot and
+                  restore into a fresh session continue bit for bit
+       live_fmsynth  an FMSynth session with device- and plan-kind
+                  parameter changes between blocks: one K5 a block (160);
+                  its first blocks bit for bit with the card's plain path
+       live_fleet_4, _64, _256  LiveFleets of that many lanes (bench.py
+                  bench_fleet's shape: nice, polyphony 4, block 4096, lane
+                  l transposed by l % 12): one K2 a block at every L; block
+                  times against the 85.3 ms budget and sessions a card
+                  (bench.py:300's formula: lanes x budget / best block,
+                  and by the median); the 4-lane fleet against its JAX
+                  golden (< -90 dBFS) and against 4 sessions (<= 1e-6)
+       live_server  a MultiInstrumentServer on localhost, four LiveClients
+                  playing at once and a fifth replaying toccata.mid
+                  (replay_live, the fleet grows to 8 lanes): one K2 a
+                  block served; each client's PCM non-silent, of its
+                  blocks' length and within 1 LSB of a session fed the
+                  events its lane drained, at the blocks it drained them,
+                  mixed down
   10. no module of jax or of zang_tpu was imported
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches, errors, times and bounds. Exits non-zero,
+the kernels with their launches, errors, times and bounds; before the
+card's line, {"live": ...} holds phase 9b's block times and fidelity. Exits non-zero,
 printing no result, without CUDA or outside a checkout of the repo.
 """
 
@@ -211,25 +248,33 @@ def time_ms(fn, reps):
 def device_ms(fn, kernel_name, reps):
     """The kernel's own device time per launch, from torch.profiler over
     `reps` calls of fn (CUDA events around back-to-back calls measure the
-    wrapper's host cost too when the kernel is short)."""
+    wrapper's host cost too when the kernel is short). The profiler may drop
+    records of a run (it was seen to keep 168 of 200, and in a long process
+    19 of 100 or none): the mean is over the launches it saw, at least half
+    of them, in one of three tries; past that, the CUDA events' time of
+    back-to-back calls stands in, and a note says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()  # a launch at a time: fewer records dropped
-    rows = [e for e in prof.key_averages() if kernel_name in e.key]
-    n = sum(e.count for e in rows)
-    # the profiler may drop records of a long run (it was seen to keep 168 of
-    # 200): the mean is over the launches it saw, at least half of them
-    if not 0.5 * reps <= n <= reps:
-        raise AssertionError(f"the profiler saw {n} launches of {kernel_name}, "
-                             f"expected {reps}")
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
-    return us / 1e3 / n
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()  # a launch at a time: fewer records dropped
+        rows = [e for e in prof.key_averages() if kernel_name in e.key]
+        n = sum(e.count for e in rows)
+        if 0.5 * reps <= n <= reps:
+            us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
+            return us / 1e3 / n
+        if n > reps:
+            raise AssertionError(f"the profiler saw {n} launches of {kernel_name}, "
+                                 f"expected {reps}")
+    ms = time_ms(fn, reps)
+    print(f"    (the profiler saw {n} of {reps} launches of {kernel_name} three times: "
+          f"CUDA events of back-to-back calls instead, {ms:.4f} ms)")
+    return ms
 
 
 def time_pair(kernel, plain, reps_k, reps_p):
@@ -1181,6 +1226,388 @@ def run_flat_midi_stream(card, filters, fm, lookup, svf_cuda, launches, song_mix
         raise AssertionError("the streamed song is not the song's render")
 
 
+# ---------------------------------------------------------------------------
+# live sessions, fleets and the TCP server (phase 9b)
+
+LIVE_SECONDS = 10.0  # the Toccata's first 10 s (host/song.live_events)
+LIVE_FLEET_LANES = (4, 64, 256)  # bench.py bench_fleet's 64, zang-serve's max 256
+LIVE_TOL_LANES = 1e-6  # fleet lanes vs sessions (tests/test_serve_live.py:58-60)
+LIVE_TOL_OFFLINE_DB = -110.0  # live vs offline (tests/test_live.py:24-54)
+LIVE_SERVER_BLOCKS = 24  # blocks each server client reads
+LIVE_REPLAY_RATE = 4.0  # replay_live's speed-up
+LIVE_REPLAY_WALL = 2.5  # seconds of replay (10 s of the file)
+FM_PLAIN_BLOCKS = 6  # blocks of the FM session held to the card's plain path
+
+
+def block_times(times, block, sr, lanes):
+    """Median, p99 and best block wall (ms) against the block's real-time
+    budget, and sessions a card by bench.py:300's formula (lanes x budget /
+    best block time) and by the median."""
+    import numpy as np
+
+    t = np.asarray(times[1:] if len(times) > 1 else times)  # the first warms up
+    budget = block / sr
+    out = {"median_ms": float(np.median(t)) * 1e3, "p99_ms": float(np.percentile(t, 99)) * 1e3,
+           "best_ms": float(t.min()) * 1e3, "budget_ms": budget * 1e3,
+           "sessions_bench": lanes * budget / float(t.min()),
+           "sessions_median": lanes * budget / float(np.median(t))}
+    return out
+
+
+def check_fm_waveforms(fm, c, waveform, label):
+    """K5 with a waveform a voice (an int32 tensor [V]) vs fm_feedback_ref:
+    bit for bit in outputs and end states."""
+    import torch
+
+    args = (c["base"], FB, waveform, c["fb1"], c["fb2"])
+    ok, f1k, f2k = fm.fm_feedback(*args)
+    orf, f1r, f2r = fm.fm_feedback_ref(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(ok, orf) and torch.equal(f1k, f1r) and torch.equal(f2k, f2r)
+    V, n = ok.shape
+    mix = sorted(set(waveform.reshape(-1).tolist()))
+    print(f"  {label}: V={V} n={n} waveforms {mix} a voice: "
+          f"{'bit-exact' if same else 'NOT bit-exact'}")
+    if not same:
+        raise AssertionError(f"{label}: K5 with a waveform a voice is not fm_feedback_ref")
+    return float((ok - orf).abs().max())
+
+
+def run_live(card, dev, rng, fm, filters, svf_cuda, lookup, k2, k2_emulated, k2_device,
+             dense_err, dense_t, fm_err, fm_t, launches):
+    """Phase 9b: K5 with a waveform a voice and K2 at the live shapes, then
+    a LiveSession, an FMSynth session, fleets of 4, 64 and 256 lanes, a
+    MultiInstrumentServer with four clients and replay_live, and a snapshot,
+    on the card. Returns the live numbers for the kernels line."""
+    import threading
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from profile_torch import live_runner
+
+    from zang_tpu_torch.core.mixdown import mixdown_s16_np
+    from zang_tpu_torch.core.notes import NoteTracker
+    from zang_tpu_torch.core.timeline import compile_timelines
+    from zang_tpu_torch.graph.render import Performance, render_performance
+    from zang_tpu_torch.host import instruments as ti
+    from zang_tpu_torch.host import midi
+    from zang_tpu_torch.host.live import LiveSession, push_tracked
+    from zang_tpu_torch.host.song import SAMPLE_RATE, live_events
+    from zang_tpu_torch.serve.live import LiveFleet
+    from zang_tpu_torch.serve.server import LiveClient, MultiInstrumentServer, \
+        builtin_instruments
+
+    sr = SAMPLE_RATE
+    out = {}
+    gold = np.load(os.path.join(ROOT, "zang_tpu_torch", "data", "live_golden_jax.npz"))
+    gparams = json.loads(str(gold["params"]))
+
+    # K5 with a waveform a voice: the fmsynth example's shape and a fleet's
+    # (32 lanes x 4 voices x a 4096-frame block), every warp mixed, then
+    # one waveform a warp (each warp uniform, the warps differing)
+    print("K5 fm_feedback with a waveform a voice vs fm_feedback_ref (bit for bit):")
+    for key, V, n in (("fmsynth", 8, 16384), ("fleet", 128, 4096)):
+        c = fm_case(rng, V, n, dev)
+        mixed = (torch.arange(V, device=dev) % 4).to(torch.int32)
+        warps = ((torch.arange(V, device=dev) // 32) % 4).to(torch.int32)
+        fm_err[f"{key} waveform a voice"] = max(
+            check_fm_waveforms(fm, c, mixed, f"{key}, mixed in every warp"),
+            check_fm_waveforms(fm, c, warps, f"{key}, one a warp"),
+            check_fm(fm, c, torch.tensor(2, dtype=torch.int32, device=dev),
+                     f"{key}, one waveform by pointer (stride 0)"))
+        b = fm_bytes_ops(V, n)
+        for form, w in (("stride 0", 2), ("stride 1, mixed", mixed)):
+            args = (c["base"], FB, w, c["fb1"], c["fb2"])
+            fm_t[f"{key} {form}"] = timing(
+                card, f"{key} {form}, V={V} n={n}", lambda a=args: fm.fm_feedback(*a), None,
+                "fm_feedback_kernel", *b, 10, 1)
+    # K2 at the live shapes: a session's nice (4 voices x 1024), a fleet's at
+    # 64 and 256 lanes (x 4 voices x 4096), the dense cutoff and the mask
+    print(f"K2 at the live shapes vs svf_filter_ref (rms < {TOL_DB} dBFS):")
+    for key, V, n in (("live session", 4, 1024), ("live fleet 64", 256, 4096),
+                      ("live fleet 256", 1024, 4096)):
+        a = dense_case(rng, V, n, "dense", True, dev)
+        dense_err[key] = k2(f"{key} shape", a)
+        k2_emulated(f"{key} shape", a)
+        dense_t[key] = k2_device(f"{key} shape", a)
+
+    def drive(render, pushes, trackers, block, blocks):
+        audio, times = [], []
+        for _ in range(blocks):
+            t = time.perf_counter()
+            for push, tr in zip(pushes, trackers):
+                push_tracked(push, tr, sr, block)
+            audio.append(render())
+            times.append(time.perf_counter() - t)
+        return np.concatenate(audio, axis=-1), times
+
+    # the session: zang-serve's nice at LiveSession's block, the Toccata's first 10 s
+    p = gparams["session"]
+    block, blocks = p["block"], -(-int(p["seconds"] * sr) // p["block"])
+    events = live_events(LIVE_SECONDS)
+    s = LiveSession([(ti.NiceInstrument(p["color"]), p["polyphony"])], sr, block,
+                    device="cuda")
+    reset_counts(svf_cuda, lookup, fm)
+    audio, times = drive(lambda: s.render_block(),
+                         [lambda params, **kw: s.push_event(0, params, **kw)],
+                         [NoteTracker(events)], block, blocks)
+    launches["live_session"] = counts(svf_cuda, lookup, fm)
+    if launches["live_session"] != expect_counts(svf_dense=blocks):
+        raise AssertionError(f"live_session: launches {launches['live_session']}, "
+                             f"expected one K2 a block ({blocks})")
+    if not (np.isfinite(audio).all() and np.abs(audio).max() > 0.01):
+        raise AssertionError("live_session: silent or not finite")
+    out["session"] = block_times(times, block, sr, 1)
+    total = audio.shape[-1]
+    offline = render_performance(
+        Performance([(ti.NiceInstrument(p["color"]), compile_timelines(
+            events, p["polyphony"], sr, total))], sr), total, device="cuda").cpu().numpy()
+    out["session_vs_offline_db"] = rms_db(audio, offline)
+    print(f"live_session: {blocks} blocks of {block}, K2 {launches['live_session']['svf_dense']}"
+          f"; vs the port's offline render {out['session_vs_offline_db']:.1f} dBFS "
+          f"(< {LIVE_TOL_OFFLINE_DB}); block median {out['session']['median_ms']:.3f} ms, "
+          f"p99 {out['session']['p99_ms']:.3f} ms of a {out['session']['budget_ms']:.1f} ms "
+          f"budget [{card}]")
+    if not out["session_vs_offline_db"] < LIVE_TOL_OFFLINE_DB:
+        raise AssertionError("live_session: off the offline render")
+    out["session_vs_jax_db"] = check_golden(gold["session_windows"], gold["session_offsets"],
+                                            None, audio, "live_session")
+    # snapshot on the card, restored into a fresh session: the same bits
+    s2 = LiveSession([(ti.NiceInstrument(p["color"]), p["polyphony"])], sr, block,
+                     device="cuda")
+    s2.restore(s.snapshot())
+    more = live_events(LIVE_SECONDS + 2.0, transpose=3)
+    tail = [NoteTracker([e for e in more if e.t >= 0.5]) for _ in range(2)]
+    a1, _ = drive(lambda: s.render_block(), [lambda params, **kw: s.push_event(0, params, **kw)],
+                  tail[:1], block, 30)
+    a2, _ = drive(lambda: s2.render_block(),
+                  [lambda params, **kw: s2.push_event(0, params, **kw)], tail[1:], block, 30)
+    if not np.array_equal(a1, a2):
+        raise AssertionError("snapshot/restore on the card did not continue bit for bit")
+    print("  snapshot on the card, restored into a fresh session: 30 blocks bit for bit")
+
+    # the FMSynth session: device- and plan-kind parameter changes between blocks
+    fm_blocks = 160
+
+    def fm_session(blocks):
+        fs = LiveSession([(ti.FMSynthInstrument(), 4)], sr, 1024, device="cuda")
+        tr = NoteTracker(live_events(LIVE_SECONDS, transpose=-12))
+        changes = {20: ("mod_waveform", 2), 40: ("mod_feedback", 5), 60: ("mod_attack", 3),
+                   80: ("car_waveform", 1), 100: ("mod_waveform", 3), 120: ("algorithm", 0)}
+        res = []
+        for b in range(blocks):
+            if b in changes:
+                fs.set_param(0, *changes[b])
+            push_tracked(lambda params, **kw: fs.push_event(0, params, **kw), tr, sr, 1024)
+            res.append(fs.render_block())
+        return np.concatenate(res, axis=-1)
+
+    reset_counts(svf_cuda, lookup, fm)
+    fm_audio = fm_session(fm_blocks)
+    launches["live_fmsynth"] = counts(svf_cuda, lookup, fm)
+    if launches["live_fmsynth"] != expect_counts(fm_feedback=fm_blocks):
+        raise AssertionError(f"live_fmsynth: launches {launches['live_fmsynth']}, expected "
+                             f"one K5 a block ({fm_blocks})")
+    if not (np.isfinite(fm_audio).all() and np.abs(fm_audio).max() > 0.01):
+        raise AssertionError("live_fmsynth: silent or not finite")
+    with mock.patch.object(fm, "fm_feedback", fm.fm_feedback_ref):
+        fm_plain = fm_session(FM_PLAIN_BLOCKS)
+    same = np.array_equal(fm_audio[:, :fm_plain.shape[-1]], fm_plain)
+    print(f"live_fmsynth: {fm_blocks} blocks, K5 {launches['live_fmsynth']['fm_feedback']}, "
+          f"parameter changes at 6 blocks; the first {FM_PLAIN_BLOCKS} blocks vs the card's "
+          f"plain path: {'bit-exact' if same else 'NOT bit-exact'}")
+    if not same:
+        raise AssertionError("live_fmsynth: not the plain path's bits")
+
+    # fleets at bench_fleet's shape: 4, 64 and 256 lanes x nice x 4096-frame blocks
+    pf = gparams["fleet"]
+    fblock = pf["block"]
+    fblocks = -(-int(pf["seconds"] * sr) // fblock)
+    for L in LIVE_FLEET_LANES:
+        render, n = live_runner(L, fblock, pf["seconds"])
+        reset_counts(svf_cuda, lookup, fm)
+        audio = render()
+        key = f"live_fleet_{L}"
+        launches[key] = counts(svf_cuda, lookup, fm)
+        if launches[key] != expect_counts(svf_dense=n):
+            raise AssertionError(f"{key}: launches {launches[key]}, expected one K2 a "
+                                 f"block ({n})")
+        if not (np.isfinite(audio).all() and np.abs(audio).max() > 0.01):
+            raise AssertionError(f"{key}: silent or not finite")
+        out[key] = block_times(render.times, fblock, sr, L)
+        print(f"{key}: {n} blocks of {fblock}, K2 {launches[key]['svf_dense']} (one a block); "
+              f"block median {out[key]['median_ms']:.3f} ms, p99 {out[key]['p99_ms']:.3f} ms, "
+              f"best {out[key]['best_ms']:.3f} ms of a {out[key]['budget_ms']:.1f} ms budget; "
+              f"sessions a card {out[key]['sessions_bench']:.0f} (bench.py's formula, best "
+              f"block), {out[key]['sessions_median']:.0f} (median) [{card}]")
+        if L == 4:
+            out["fleet_vs_jax_db"] = max(
+                check_golden(gold["fleet_windows"][:, lane], gold["fleet_offsets"], None,
+                             audio[lane], f"live_fleet_4 lane {lane}")
+                for lane in range(L))
+            singles = []
+            for lane in range(L):
+                sl = LiveSession([(ti.NiceInstrument(pf["color"]), pf["polyphony"])], sr,
+                                 fblock, device="cuda")
+                a, _ = drive(lambda sl=sl: sl.render_block(),
+                             [lambda params, sl=sl, **kw: sl.push_event(0, params, **kw)],
+                             [NoteTracker(live_events(pf["seconds"], transpose=lane))],
+                             fblock, fblocks)
+                singles.append(a)
+            out["fleet_vs_sessions"] = float(np.abs(audio - np.stack(singles)).max())
+            print(f"  live_fleet_4 vs 4 sessions on the card: max |diff| "
+                  f"{out['fleet_vs_sessions']:.3e} (<= {LIVE_TOL_LANES})")
+            if not out["fleet_vs_sessions"] <= LIVE_TOL_LANES:
+                raise AssertionError("live_fleet_4: lanes off their sessions")
+        del render, audio
+
+    # the server: MultiInstrumentServer with four clients playing at once and
+    # a fifth replaying toccata.mid (the fleet grows to 8 lanes for it); each
+    # client's PCM against a session fed the events its lane drained, at the
+    # blocks it drained them, mixed down
+    drained = {}  # session -> [(block start, [(impulse frame, note id, params)])]
+    orig_extend = LiveSession._extend_segments
+
+    def logged(self, part):
+        iap = getattr(part, "_pending", None)
+        if iap is not None and len(iap):
+            drained.setdefault(self, []).append(
+                (self.frame, [(imp.frame, imp.note_id, dict(prm))
+                              for imp, prm in zip(iap.impulses, iap.paramses)]))
+        return orig_extend(self, part)
+
+    results, errors = {}, []
+    # the block header's frame is lane 0's clock; a lane attached later
+    # (the replayer's) runs its own, so each client reads the difference
+    # while every lane is still attached, then all close together
+    done = threading.Barrier(5, timeout=120)
+
+    def lane_of(c):
+        backend = srv.backend("nice")
+        lane = c.welcome["lane"]
+        with backend._lock:
+            sess = backend.fleet.lanes[lane]
+            return lane, sess, sess.frame - backend.fleet.lanes[0].frame
+
+    with mock.patch.object(LiveSession, "_extend_segments", logged):
+        srv = MultiInstrumentServer(builtin_instruments(sr, 4), port=0, initial_lanes=4,
+                                    block_size=fblock, default_instrument="nice",
+                                    device="cuda")
+        srv.start()
+        reset_counts(svf_cuda, lookup, fm)
+
+        def player(i):
+            try:
+                c = LiveClient(srv.host, srv.port, timeout=60.0, instrument="nice")
+                tr = NoteTracker(live_events(LIVE_SECONDS, transpose=2 * i))
+                blocks, frames = [], []
+                for _ in range(LIVE_SERVER_BLOCKS):
+                    push_tracked(lambda params, note_id=None, impulse_frame=0:
+                                 c.send_event(0, params, note_id=note_id), tr, sr, fblock)
+                    blocks.append(c.read_block())
+                    frames.append(c.last_block_frame)
+                lane, sess, offset = lane_of(c)
+                results[i] = (lane, blocks, [f + offset for f in frames], sess)
+                done.wait()
+                c.close()
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"client {i}: {e!r}")
+                done.abort()
+
+        def replayer():
+            try:
+                c = LiveClient(srv.host, srv.port, timeout=60.0, instrument="nice")
+                blocks, frames, stop = [], [], threading.Event()
+
+                def reader():
+                    while not stop.is_set():
+                        blocks.append(c.read_block())
+                        frames.append(c.last_block_frame)
+
+                rt = threading.Thread(target=reader)
+                rt.start()
+                start = time.monotonic()
+
+                class _Enough(Exception):
+                    pass
+
+                class Sender:
+                    welcome = c.welcome
+                    sent = 0
+
+                    @staticmethod
+                    def send_event(part, params, note_id=None):
+                        if time.monotonic() - start > LIVE_REPLAY_WALL:
+                            raise _Enough
+                        c.send_event(part, params, note_id=note_id)
+                        Sender.sent += 1
+
+                with open(MIDI_FILE, "rb") as f:
+                    data = f.read()
+                try:
+                    midi.replay_live(data, Sender, rate=LIVE_REPLAY_RATE)
+                except _Enough:
+                    pass
+                time.sleep(0.5)
+                stop.set()
+                rt.join(timeout=30)
+                lane, sess, offset = lane_of(c)
+                results["replay"] = (lane, blocks, [f + offset for f in frames], sess,
+                                     Sender.sent)
+                done.wait()
+                c.close()
+            except Exception as e:  # noqa: BLE001
+                errors.append(f"replay: {e!r}")
+                done.abort()
+
+        threads = [threading.Thread(target=player, args=(i,)) for i in range(4)]
+        threads.append(threading.Thread(target=replayer))
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        served = srv.backend("nice")._seq
+        stats = srv.backend("nice").stats()
+        srv.close()
+    launches["live_server"] = counts(svf_cuda, lookup, fm)
+    if errors:
+        raise AssertionError(f"live server: {errors}")
+    if launches["live_server"]["svf_dense"] != served or served == 0:
+        raise AssertionError(f"live_server: {launches['live_server']} for {served} blocks")
+    print(f"live_server: {served} blocks served, K2 {launches['live_server']['svf_dense']} "
+          f"(one a block), {stats['lanes']} lanes; stats block median "
+          f"{stats['block_time_ms']} ms of {stats['block_budget_ms']} ms [{card}]")
+    worst = 0
+    for key, (lane, blocks, frames, sess, *rest) in sorted(results.items(), key=str):
+        pcm = np.concatenate(blocks, axis=1)
+        if pcm.dtype != np.int16 or pcm.shape != (1, len(blocks) * fblock) or \
+                not np.abs(pcm).max() > 100:
+            raise AssertionError(f"client {key}: PCM {pcm.dtype} {pcm.shape}, peak "
+                                 f"{np.abs(pcm).max()}")
+        log = dict(drained.get(sess, []))
+        ref = LiveSession([(ti.NiceInstrument(0.3), 4)], sr, fblock, device="cuda")
+        ref_blocks = {}
+        while ref.frame <= max(frames):
+            for imp_frame, nid, prm in log.get(ref.frame, []):
+                ref.push_event(0, prm, note_id=nid, impulse_frame=imp_frame)
+            f0 = ref.frame
+            ref_blocks[f0] = mixdown_s16_np(ref.render_block(), 0.5)
+        want = np.concatenate([ref_blocks[f] for f in frames], axis=1)
+        diff = int(np.abs(pcm.astype(np.int32) - want.astype(np.int32)).max())
+        worst = max(worst, diff)
+        extra = f", {rest[0]} events replayed" if rest else ""
+        print(f"  client {key} (lane {lane}): {len(blocks)} blocks from frame {frames[0]}, "
+              f"peak {int(np.abs(pcm).max())}{extra}; vs a session fed its lane's events: "
+              f"max |diff| {diff} LSB")
+        if diff > 1:
+            raise AssertionError(f"client {key}: {diff} LSB off its session")
+    out["server_lsb"] = worst
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1669,6 +2096,10 @@ def main() -> int:
     # 9. the examples
     run_examples(examples, filters, fm, lookup, svf_cuda, card, launches)
 
+    # 9b. live sessions, fleets and the TCP server
+    live = run_live(card, dev, rng, fm, filters, svf_cuda, lookup, k2, k2_emulated, k2_device,
+                    dense_err, dense_t, fm_err, fm_t, launches)
+
     # 10. nothing of JAX
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "zang_tpu"))
     if bad:
@@ -1700,6 +2131,7 @@ def main() -> int:
     for r in rows:
         if not r["launches"]:
             raise AssertionError(f"{r['name']} was launched on no main path")
+    print(json.dumps({"live": live}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

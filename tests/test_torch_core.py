@@ -266,7 +266,8 @@ def test_port_modules_load_no_jax_package():
         "('jax', 'jaxlib', 'zang_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'zang_tpu_torch.host.configs' in sys.modules\n"
-        "assert 'zang_tpu_torch.script.torch_backend' in sys.modules\n")
+        "assert 'zang_tpu_torch.script.torch_backend' in sys.modules\n"
+        "assert 'zang_tpu_torch.serve.server' in sys.modules\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["ZANG_PLATFORM"] = "cpu"  # would make zang_tpu/__init__.py import jax
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

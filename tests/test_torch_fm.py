@@ -299,3 +299,77 @@ def test_kernel_is_the_plain_bits_on_card(cuda_device, waveform, shape):
         want = tfm.fm_feedback_ref(base, *args, fb1, fb2)
         torch.cuda.synchronize()
         assert all(torch.equal(g, x) for g, x in zip(got, want))
+
+
+def test_plain_waveform_a_voice_matches_pallas_interpret():
+    """A waveform a voice (an int32 tensor [V], waveforms 0-3 mixed, as a
+    fleet's lanes give them) with feedback a voice: fm_feedback_ref
+    against the TPU kernel in interpret mode, which takes a waveform a lane
+    (pallas_fm.py:47,93-97)."""
+    rng = np.random.default_rng(90)
+    V, n = 8, 600
+    base = _base(_freqs(rng, V, n))
+    fb = rng.uniform(0.1, 0.9, V).astype(np.float32)
+    waves = np.arange(V, dtype=np.int32) % 4
+    fb1 = rng.uniform(-0.5, 0.5, V).astype(np.float32)
+    fb2 = rng.uniform(-0.5, 0.5, V).astype(np.float32)
+    out, _, _ = _plain(base, torch.from_numpy(fb), torch.from_numpy(waves), fb1, fb2)
+    jo, _, _ = fm_feedback_pallas(jnp.asarray(base), jnp.asarray(fb), jnp.asarray(waves),
+                                  jnp.asarray(fb1), jnp.asarray(fb2), interpret=True)
+    p = _angles(base, out, fb1, fb2, fb)
+    for w in range(4):
+        voices = waves == w
+        _hold(out[voices], np.asarray(jo)[voices], w, p[voices])
+
+
+def test_plain_waveform_a_voice_is_each_voice_alone():
+    """The plain loop with a waveform a voice gives each voice the bits of
+    a run with that voice's waveform as a number."""
+    rng = np.random.default_rng(91)
+    V, n = 6, 300
+    base = _base(_freqs(rng, V, n))
+    fb1 = rng.uniform(-0.5, 0.5, V).astype(np.float32)
+    fb2 = rng.uniform(-0.5, 0.5, V).astype(np.float32)
+    waves = np.array([3, 0, 2, 1, 3, 2], np.int32)
+    out, f1, f2 = _plain(base, float(FB), torch.from_numpy(waves), fb1, fb2)
+    for w in range(4):
+        o, g1, g2 = _plain(base, float(FB), w, fb1, fb2)
+        voices = waves == w
+        np.testing.assert_array_equal(out[voices], o[voices])
+        np.testing.assert_array_equal(f1[voices], g1[voices])
+
+
+def test_fm_osc_tensor_feedback_takes_the_recurrence(monkeypatch):
+    """A tensor feedback always reaches fm_feedback (its value lives on the
+    card and is not read back), even when it is zero."""
+    seen = []
+    ref = tfm.fm_feedback
+
+    def spy(*a, **k):
+        seen.append(a[1])
+        return ref(*a, **k)
+
+    monkeypatch.setattr(tfm, "fm_feedback", spy)
+    z = torch.zeros(2)
+    tfm.fm_osc(torch.zeros(2, dtype=torch.int64), torch.full((2, 64), 220.0), 0.0,
+               torch.tensor([0, 2], dtype=torch.int32), torch.zeros(2), (z, z), SR)
+    assert len(seen) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 16384), (128, 4096), (37, 777)])
+def test_kernel_waveform_a_voice_is_the_plain_bits_on_card(cuda_device, shape):
+    """A waveform a voice (stride 1): mixed inside every warp, one a warp,
+    and one for all by pointer (stride 0), bit for bit with the plain loop."""
+    V, n = shape
+    rng = np.random.default_rng(110)
+    base, fb1, fb2 = (torch.from_numpy(a).to(cuda_device) for a in (
+        _base(_freqs(rng, V, n)), rng.uniform(-0.5, 0.5, V).astype(np.float32),
+        rng.uniform(-0.5, 0.5, V).astype(np.float32)))
+    idx = torch.arange(V, device=cuda_device)
+    for w in (idx % 4, (idx // 32) % 4, torch.tensor(3, device=cuda_device)):
+        w = w.to(torch.int32)
+        got = tfm.fm_feedback_cuda(base, float(FB), w, fb1, fb2)
+        want = tfm.fm_feedback_ref(base, float(FB), w, fb1, fb2)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, x) for g, x in zip(got, want))

@@ -64,11 +64,23 @@ rendering with JAX. This tool writes them:
                       the window length, render_midi's settings, total frames
       offsets, windows [W, 1, 4096]   (windows only: no chunk RMS)
 
+    zang_tpu_torch/data/live_golden_jax.npz (the JAX LiveSession and
+    LiveFleet of zang-serve's default instrument, NiceInstrument(0.3) at
+    polyphony 4, 48 kHz, fed zang_tpu_torch.host.song.live_events through a
+    NoteTracker a block)
+      params     str  JSON: each entry's seconds, block, lanes, polyphony,
+                      color, sample rate, window and total frames
+      session_offsets, session_windows [W, 1, 4096]   block 1024, one lane
+      fleet_offsets, fleet_windows [W, 4, 1, 4096]    block 4096, 4 lanes
+                                                      (lane l transposed
+                                                      by l semitones)
+    (windows only).
+
 The windows spread evenly over the render, plus windows that straddle chunk
 boundaries (where the state carries across chunks) and the last window of
 the final, partial chunk. Run from the repo root on the CPU:
 
-    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [song|configs|examples|song_flat|midi|midi_script|all] [NAME ...]
+    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [song|configs|examples|song_flat|midi|midi_script|live|all] [NAME ...]
 
 The song takes about a minute, the examples a few minutes, midi_script
 about ten minutes, the configs
@@ -94,6 +106,7 @@ OUT_EXAMPLES = os.path.join(DATA, "examples_golden_jax.npz")
 OUT_SONG_FLAT = os.path.join(DATA, "song_flat_golden_jax.npz")
 OUT_MIDI = os.path.join(DATA, "midi_golden_jax.npz")
 OUT_MIDI_SCRIPT = os.path.join(DATA, "midi_script_golden_jax.npz")
+OUT_LIVE = os.path.join(DATA, "live_golden_jax.npz")
 MIDI_FILE = os.path.join(DATA, "toccata.mid")
 SCRIPT_FILE = os.path.join(DATA, "demo_synth.txt")
 WINDOW = 8192
@@ -381,14 +394,73 @@ def make_midi_script():
     print(f"wrote {OUT_MIDI_SCRIPT}: {os.path.getsize(OUT_MIDI_SCRIPT)} bytes")
 
 
+# the live entries: zang-serve's default spec at LiveSession's default block
+# (one lane) and at bench.py bench_fleet's block (4 lanes)
+LIVE = {"session": {"seconds": 10.0, "block": 1024, "lanes": 1, "polyphony": 4,
+                    "color": 0.3, "sample_rate": 48000.0, "n_windows": 8},
+        "fleet": {"seconds": 10.0, "block": 4096, "lanes": 4, "polyphony": 4,
+                  "color": 0.3, "sample_rate": 48000.0, "n_windows": 8}}
+
+
+def render_live_jax(p):
+    """The JAX session (lanes 1: [1, C, total]) or fleet ([L, C, total]) of
+    a LIVE entry, fed live_events (lane l transposed by l) a block."""
+    from zang_tpu.core.notes import NoteTracker
+    from zang_tpu.host import instruments as ji
+    from zang_tpu.host.live import LiveSession
+    from zang_tpu.serve.live import LiveFleet
+    from zang_tpu_torch.host.live import push_tracked
+    from zang_tpu_torch.host.song import live_events
+
+    sr, block, L = p["sample_rate"], p["block"], p["lanes"]
+    parts = lambda: [(ji.NiceInstrument(p["color"]), p["polyphony"])]  # noqa: E731
+    trackers = [NoteTracker(live_events(p["seconds"], transpose=lane)) for lane in range(L)]
+    if L == 1:
+        s = LiveSession(parts(), sr, block)
+        pushes = [lambda params, **kw: s.push_event(0, params, **kw)]
+        render = lambda: s.render_block()[None]  # noqa: E731
+    else:
+        fleet = LiveFleet(parts, L, sr, block_size=block)
+        pushes = [lambda params, lane=lane, **kw: fleet.push_event(lane, 0, params, **kw)
+                  for lane in range(L)]
+        render = fleet.render_block
+    out = []
+    for _ in range(-(-int(p["seconds"] * sr) // block)):
+        for push, tr in zip(pushes, trackers):
+            push_tracked(push, tr, sr, block)
+        out.append(np.asarray(render(), np.float32))
+    return np.concatenate(out, axis=-1)
+
+
+def make_live():
+    arrays, params = {}, {"window": CONFIG_WINDOW}
+    for name, p in LIVE.items():
+        t = time.time()
+        audio = render_live_jax(p)
+        if p["lanes"] == 1:
+            audio = audio[0]
+        print(f"live {name}: rendered {audio.shape} in {time.time() - t:.1f}s on the CPU",
+              flush=True)
+        total = audio.shape[-1]
+        offs = np.linspace(0, total - CONFIG_WINDOW, p["n_windows"]).astype(np.int64)
+        arrays[f"{name}_offsets"] = offs
+        arrays[f"{name}_windows"] = np.stack([audio[..., o:o + CONFIG_WINDOW] for o in offs])
+        params[name] = {**{k: v for k, v in p.items() if not k.startswith("n_")},
+                        "total": total}
+    np.savez_compressed(OUT_LIVE, params=np.array(json.dumps(params, sort_keys=True)),
+                        **arrays)
+    print(f"wrote {OUT_LIVE}: {os.path.getsize(OUT_LIVE)} bytes")
+
+
 def main(argv=None):
     import jax
 
     which, *only = argv or sys.argv[1:] or ["all"]
     if which not in ("song", "configs", "examples", "song_flat", "midi", "midi_script",
-                     "all") or (only and which not in ("configs", "examples")):
+                     "live", "all") or (only and which not in ("configs", "examples")):
         raise SystemExit(f"usage: {sys.argv[0]} "
-                         "[song|configs|examples|song_flat|midi|midi_script|all] [NAME ...]")
+                         "[song|configs|examples|song_flat|midi|midi_script|live|all] "
+                         "[NAME ...]")
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(DATA, exist_ok=True)
     if which in ("song", "all"):
@@ -403,6 +475,8 @@ def main(argv=None):
         make_midi()
     if which in ("midi_script", "all"):
         make_midi_script()
+    if which in ("live", "all"):
+        make_live()
 
 
 if __name__ == "__main__":

@@ -7,9 +7,14 @@ chunk, the flat chunk format; midi_toccata and midi_mixed are
 zang_tpu_torch/data/toccata.mid through render_midi's planning and chunk,
 with the nice instrument, and with pmosc, filteredsaw and weirdsquare over
 60 s; midi_script is the whole file with the zangscript instrument
-zang_tpu_torch/data/demo_synth.txt:DemoSynth on every part) or
-example (ex_<name>, an entry of zang_tpu_torch/host/examples.py EXAMPLES
-at its default seconds) it plans, renders once to warm up, renders again
+zang_tpu_torch/data/demo_synth.txt:DemoSynth on every part), example
+(ex_<name>, an entry of zang_tpu_torch/host/examples.py EXAMPLES at its
+default seconds) or live cell (live_session: a LiveSession of zang-serve's
+default spec, NiceInstrument(0.3) at polyphony 4, block 1024, fed the
+Toccata's first 10 s, host/song.live_events; live_fleet_<L>: a LiveFleet
+of L such lanes at block 4096, lane l transposed by l % 12 semitones; a
+live cell's "chunk" is a block and its render includes the host halves)
+it plans, renders once to warm up, renders again
 with the host clock (ending in torch.cuda.synchronize()), then renders a
 third time under torch.profiler and prints, per config:
 
@@ -25,7 +30,8 @@ Run from the repo root on a machine with CUDA:
 
     python tools/profile_torch.py [song] [sampler] [poly_echo] [poly_echo_16384]
                                   [song_flat] [midi_toccata] [midi_script]
-                                  [ex_fmsynth ...] [--top N]
+                                  [ex_fmsynth ...] [live_session] [live_fleet_64 ...]
+                                  [--top N]
 
 The card's nvidia-smi name and power limit are printed first; the last line
 is one JSON object with the numbers above.
@@ -51,6 +57,50 @@ MIDI = {"midi_toccata": (("nice",), None), "midi_mixed": (("pmosc", "filteredsaw
                                                            "weirdsquare"), 60.0),
         "midi_script": ((os.path.join(ROOT, "zang_tpu_torch", "data",
                                       "demo_synth.txt:DemoSynth"),), None)}
+LIVE_SECONDS = 10.0
+LIVE = {"live_session": (1, 1024), "live_fleet_4": (4, 4096), "live_fleet_64": (64, 4096),
+        "live_fleet_256": (256, 4096)}
+
+
+def live_runner(lanes: int, block: int, seconds: float = LIVE_SECONDS, device="cuda"):
+    """render() drives a fresh LiveSession (lanes 1) or LiveFleet of NiceInstrument(0.3)
+    at polyphony 4 through `seconds` of host/song.live_events (lane l transposed by
+    l % 12), a NoteTracker a lane, and returns the blocks [L, C, frames] (numpy), the
+    seconds of each block in `times` (render's attribute)."""
+    import numpy as np
+
+    from zang_tpu_torch.core.notes import NoteTracker
+    from zang_tpu_torch.host import instruments as ti
+    from zang_tpu_torch.host.live import LiveSession, push_tracked
+    from zang_tpu_torch.host.song import SAMPLE_RATE, live_events
+    from zang_tpu_torch.serve.live import LiveFleet
+
+    sr = SAMPLE_RATE
+    n_blocks = -(-int(seconds * sr) // block)
+    parts = lambda: [(ti.NiceInstrument(0.3), 4)]  # noqa: E731
+
+    def render():
+        trackers = [NoteTracker(live_events(seconds, transpose=lane % 12))
+                    for lane in range(lanes)]
+        if lanes == 1:
+            s = LiveSession(parts(), sr, block, device=device)
+            pushes = [lambda params, **kw: s.push_event(0, params, **kw)]
+            step = lambda: s.render_block()[None]  # noqa: E731
+        else:
+            fleet = LiveFleet(parts, lanes, sr, block_size=block, device=device)
+            pushes = [lambda params, lane=lane, **kw: fleet.push_event(lane, 0, params, **kw)
+                      for lane in range(lanes)]
+            step = fleet.render_block
+        out, render.times = [], []
+        for _ in range(n_blocks):
+            t = time.perf_counter()
+            for push, tr in zip(pushes, trackers):
+                push_tracked(push, tr, sr, block)
+            out.append(step())
+            render.times.append(time.perf_counter() - t)
+        return np.concatenate(out, axis=-1)
+
+    return render, n_blocks
 
 
 def _runner(name):
@@ -62,6 +112,9 @@ def _runner(name):
     from zang_tpu_torch.graph.render import render_performance
     from zang_tpu_torch.host import configs, examples, midi, song
 
+    if name in LIVE:
+        render, n_blocks = live_runner(*LIVE[name])
+        return render, n_blocks * LIVE[name][1] / song.SAMPLE_RATE, n_blocks, 0.0, None
     if name.startswith("ex_"):
         fn = examples.EXAMPLES[name[3:]]
         seconds = inspect.signature(fn).parameters["seconds"].default
@@ -149,8 +202,8 @@ def main(argv=None):
     from zang_tpu_torch.host.examples import EXAMPLES
 
     ap.add_argument("configs", nargs="*",
-                    choices=["song", "sampler", "poly_echo", *LARGE_POLY, "song_flat", *MIDI]
-                    + [f"ex_{n}" for n in EXAMPLES],
+                    choices=["song", "sampler", "poly_echo", *LARGE_POLY, "song_flat", *MIDI,
+                             *LIVE] + [f"ex_{n}" for n in EXAMPLES],
                     help="default: song, sampler and poly_echo")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)

@@ -1,9 +1,15 @@
-"""Carry a zang_tpu Performance's programs and state across to the port.
+"""Carry a zang_tpu Performance's programs and state, or a playing JAX
+LiveSession, across to the port.
 
 The tests feed both packages identical programs this way; the port's own
 planners are checked separately, array for array. This module does not
-import jax: it reads the JAX objects' attributes (their programs are numpy).
+import jax: it reads the JAX objects' attributes (their programs are numpy,
+and a JAX array converts with np.asarray).
 """
+
+import copy
+import dataclasses
+import importlib
 
 import numpy as np
 import torch
@@ -28,6 +34,17 @@ def _sampler(inst):
     return out
 
 
+def _script(inst):
+    """The port's ScriptInstrument of the same source and module (compiled
+    again by the port's front end, with the builtin packages)."""
+    from .script.compile import compile_script
+    from .script.torch_backend import ScriptInstrument
+
+    src = inst.compiled.source
+    return ScriptInstrument(compile_script(src.contents, filename=src.filename),
+                            inst.module_name, param_map=dict(inst.param_map))
+
+
 def _fmsynth(inst):
     out = ti.FMSynthInstrument()
     out.cfg = dict(inst.cfg)
@@ -48,6 +65,7 @@ _CONVERT = {
     "MousePMInstrument": lambda i: ti.MousePMInstrument(i.cfg["mode"],
                                                         controllers=i._controllers),
     "FMSynthInstrument": _fmsynth,
+    "ScriptInstrument": _script,
     "SamplerInstrument": _sampler,
     "_StereoNoise": lambda i: te.StereoNoise(),
     "_DetunedInstrument": lambda i: te.DetunedInstrument(),
@@ -116,3 +134,111 @@ def from_jax_state(state, device):
         return torch.as_tensor(a, device=dev)
 
     return [conv(s) for s in states], conv(post)
+
+
+# -- a playing LiveSession ----------------------------------------------------
+
+
+def _port_data(v):
+    """A value of a JAX LiveSession's host state with every dataclass of the
+    zang_tpu package (Impulse, SongEvent, dispatcher slots...) rebuilt as
+    the port's class of the same module path and name."""
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        mod = type(v).__module__
+        if mod.split(".")[0] == "zang_tpu":
+            cls = getattr(importlib.import_module("zang_tpu_torch" + mod[len("zang_tpu"):]),
+                          type(v).__name__)
+            kw = {f.name: _port_data(getattr(v, f.name))
+                  for f in dataclasses.fields(v) if f.init}
+            out = cls(**kw)
+            for f in dataclasses.fields(v):
+                if not f.init:
+                    object.__setattr__(out, f.name, _port_data(getattr(v, f.name)))
+            return out
+        return v
+    if isinstance(v, list):
+        return [_port_data(x) for x in v]
+    if isinstance(v, tuple):
+        return tuple(_port_data(x) for x in v)
+    if isinstance(v, dict):
+        return {k: _port_data(x) for k, x in v.items()}
+    return v
+
+
+def _port_state(node):
+    """An extract_state description of a JAX object with its data values
+    made the port's (host/snapshot.py: ("v", data), ("seq", [...]),
+    ("map", {...}), ("obj", class name, {attr: ...}), ("skip",))."""
+    kind = node[0]
+    if kind == "v":
+        return ("v", _port_data(node[1]))
+    if kind == "seq":
+        return ("seq", [_port_state(x) for x in node[1]])
+    if kind == "map":
+        return ("map", {k: _port_state(x) for k, x in node[1].items()})
+    if kind == "obj":
+        return ("obj", node[1], {k: _port_state(x) for k, x in node[2].items()})
+    return node
+
+
+def _device_numpy(tree):
+    """JAX device state -> numpy (u32 rides int64 in the port)."""
+    if isinstance(tree, dict):
+        return {k: _device_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_device_numpy(v) for v in tree)
+    a = np.array(tree)
+    return a.astype(np.int64) if a.dtype == np.uint32 else a
+
+
+def from_jax_live_session(sess, device="cuda", post=None, parts=None):
+    """The port's LiveSession continuing a zang_tpu LiveSession mid-play:
+    the same clock and plan horizon, note-id generator, held keys, queued
+    events, dispatchers and triggers, segment histories, incremental
+    planner walks, live parameter values and controller streams, slot
+    capacity, and the device state (read back as numpy and put on
+    `device`). Its next block is the JAX session's next block.
+
+    parts: the port's [(instrument, polyphony)] (default: the JAX
+    instruments converted as from_jax_performance does, zangscript ones
+    compiled again from their source). A JAX post_fn cannot be converted:
+    pass the port's as post=(post_fn, post_init_state)."""
+    from .host import snapshot as snap
+    from .host.live import LiveSession, to_device
+
+    if sess.post_fn is not None and post is None:
+        raise ValueError("the JAX session has a post_fn: pass the port's post chain "
+                         "as post=(post_fn, post_init_state)")
+    post_fn, post_init = post if post is not None else (None, None)
+    if parts is None:
+        parts = [(_instrument(p.instrument), p.polyphony) for p in sess.parts]
+    out = LiveSession(parts, sess.sample_rate, sess.block_size, sess.num_channels,
+                      post_fn=post_fn, post_init_state=post_init,
+                      slot_capacity=sess.slot_capacity,
+                      max_slot_capacity=sess.max_slot_capacity, device=device)
+    if (sess.parts[0].planner is None) != (out.parts[0].planner is None):
+        raise ValueError("one session plans incrementally and the other does not "
+                         "(ZANG_LIVE_INC)")
+    out.frame = int(sess.frame)
+    out._horizon = int(sess._horizon)
+    out.idgen.next_id = sess.idgen.next_id
+    out._held_keys = copy.deepcopy(sess._held_keys)
+    for jp, pp in zip(sess.parts, out.parts):
+        if jp.params is not None:
+            for k, v in jp.params.values.items():
+                pp.params.set(k, v)
+            out._apply_params(pp, set(jp.params.values))
+        snap.graft_state(pp.queue, _port_state(snap.extract_state(jp.queue)))
+        snap.graft_state(pp.dispatcher, _port_state(snap.extract_state(jp.dispatcher)))
+        pp.triggers = snap.graft_state(pp.triggers,
+                                       _port_state(snap.extract_state(jp.triggers)))
+        pp.segs = _port_data(copy.deepcopy(jp.segs))
+        if jp.planner is not None:
+            snap.graft_state(pp.planner, _port_state(snap.extract_state(jp.planner)))
+        pp.controllers = copy.deepcopy(jp.controllers)
+        pp.plan_nonce = jp.plan_nonce
+        if jp.dev_state is not None:
+            pp.dev_state = to_device(_device_numpy(jp.dev_state), out.device)
+    if post is not None:
+        out.post_state = to_device(_device_numpy(sess.post_state), out.device)
+    return out

@@ -1,16 +1,23 @@
-"""Device-side instruments (port of zang_tpu/host/instruments.py, the
-offline parts: examples/modules.zig's instruments, the mouse-driven PM
-voice and the FM synth of example_fmsynth.zig).
+"""Device-side instruments (port of zang_tpu/host/instruments.py:
+examples/modules.zig's instruments, the mouse-driven PM voice and the FM
+synth of example_fmsynth.zig).
 
 Same protocol as the JAX package: plan() compiles note timelines into
 segment programs on the host (numpy, bit-identical to the JAX plans),
 init_state() makes the carried state, render() evaluates one chunk for all
 subvoices on the device, in either chunk format (ops/segprog.py). The live
-parameter surface (param_specs, device_params, live_planner, the
-"__params__" vector) is not ported.
+surface is the JAX package's too: live_planner() (host/liveplan.py, the
+incremental planners a LiveSession feeds), and for MousePM and FMSynth
+param_specs(), device_params(), apply_plan_params(), controller_specs()
+and the "__params__" branch of render(), where the device-kind parameters
+arrive as an f32 tensor on the card, a row a voice [V, P].
+
+lane_foldable: render() takes ctx.t_idx as [V, n] rows as well as [n]
+(ops/scan.t_rows), so a LiveFleet renders all its lanes of this instrument
+as one [L * V, n] pass (serve/live.py).
 """
 
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -19,8 +26,9 @@ from ..core import twelve_tet
 from ..core.curves import PaintCurve
 from ..core.timeline import SubvoiceTimeline, active_from
 from ..ops import control, filters, fm, oscillators
-from ..ops.scan import freq_to_ifreq, u32
+from ..ops.scan import freq_to_ifreq, t_rows, u32
 from ..ops.segprog import SegProgram, eval_chunk
+from .params import ParamSpec
 
 F32 = np.float32
 
@@ -65,7 +73,7 @@ def _env(prog, ctx):
 
 
 def _active(prog, ctx):
-    return ctx.t_idx[None, :] >= prog["active_from"][:, None]
+    return t_rows(ctx.t_idx) >= prog["active_from"][:, None]
 
 
 def _phase(prog, ctx):
@@ -92,6 +100,26 @@ def _zeros(num_voices, dtype, device):
     return torch.zeros((num_voices,), dtype=dtype, device=device)
 
 
+def _live_env_kit(polyphony, sample_rate, freq_fn, env_const,
+                  guard_div8=False, extra_fns=None, static=None):
+    """LivePlanKit matching the {phase, active_from, env} plan structure
+    (host/liveplan.py): O(1) host work an event instead of a full re-plan."""
+    from . import liveplan as lp
+
+    def env_fn(k, p, _c=env_const):
+        return {**_c, "note_on": bool(p["note_on"])}
+
+    return lp.LivePlanKit(
+        {
+            "phase": lp.IncPhase(polyphony, sample_rate, freq_fn,
+                                 guard_div8=guard_div8, extra_fns=extra_fns),
+            "active_from": lp.IncActiveFrom(polyphony),
+            "env": lp.IncEnvelope(polyphony, sample_rate, env_fn),
+        },
+        static=static,
+    )
+
+
 class PMOscInstrument:
     """Two-operator phase-mod instrument + ADSR (examples/modules.zig:80-128).
 
@@ -109,6 +137,12 @@ class PMOscInstrument:
         }
         return _plan_envelope(timelines, sample_rate,
                               _cubed_adsr(self.release_duration), prog)
+
+    lane_foldable = True
+
+    def live_planner(self, polyphony: int, sample_rate: float):
+        return _live_env_kit(polyphony, sample_rate, self.freq_fn,
+                             _cubed_adsr(self.release_duration))
 
     def init_state(self, num_voices: int, device):
         return ()
@@ -162,16 +196,36 @@ class NiceInstrument:
             "sustain_volume": 0.8,
         }
 
+    lane_foldable = True
+
+    def live_planner(self, polyphony: int, sample_rate: float):
+        f = F32
+
+        def cut_fn(p):  # scalar twin of plan()'s vectorized cutoff math
+            fr = f(self.freq_fn(p))
+            x = f(2.0) * (f(1.0) - np.cos(f(np.pi) * (fr * f(8.0)) / f(sample_rate)))
+            return np.sqrt(np.clip(x, f(0.0), f(1.0)))
+
+        return _live_env_kit(polyphony, sample_rate, self.freq_fn,
+                             self._env_const(), guard_div8=True,
+                             extra_fns={"cut": cut_fn})
+
     def init_state(self, num_voices: int, device):
         return {"l": _zeros(num_voices, torch.float32, device),
                 "b": _zeros(num_voices, torch.float32, device)}
 
+    @staticmethod
+    def _t(ctx, voices):
+        """The frames of the voices in the slice `voices` (every voice's
+        when t_idx is [n])."""
+        return ctx.t_idx[voices] if ctx.t_idx.dim() == 2 else ctx.t_idx
+
     def _osc(self, prog, ctx, voices):
         """The pulse oscillator of the voices in the slice `voices`, [v, n]."""
-        vals = eval_chunk({k: v[voices] for k, v in prog["phase"].items() if k != "cut"},
-                          ctx.t_idx)
-        cnt, ifreq, valid = oscillators.phase_from_chunk(vals, ctx.t_idx)
-        act = ctx.t_idx[None, :] >= prog["active_from"][voices, None]
+        t = self._t(ctx, voices)
+        vals = eval_chunk({k: v[voices] for k, v in prog["phase"].items() if k != "cut"}, t)
+        cnt, ifreq, valid = oscillators.phase_from_chunk(vals, t)
+        act = t_rows(t) >= prog["active_from"][voices, None]
         color = self.color
         if np.ndim(color) == 1:  # per-voice -> broadcast over samples
             color = torch.as_tensor(np.asarray(color, F32)[voices],
@@ -206,7 +260,8 @@ class NiceInstrument:
                                            0.7, _active(prog, ctx))
         env = prog["env"]
         for g in groups:
-            buf[g] *= _env({"env": {k: v[g] for k, v in env.items()}}, ctx)
+            t = self._t(ctx, g)
+            buf[g] *= control.eval_painter(eval_chunk({k: v[g] for k, v in env.items()}, t), t)
         return {"l": l, "b": b}, buf
 
 
@@ -224,6 +279,17 @@ class HardSquareInstrument:
             "gate": control.painter_program(
                 [control.compile_gate(tl) for tl in timelines], timelines[0].total),
         }
+
+    lane_foldable = True
+
+    def live_planner(self, polyphony: int, sample_rate: float):
+        from . import liveplan as lp
+
+        return lp.LivePlanKit({
+            "phase": lp.IncPhase(polyphony, sample_rate, self.freq_fn, guard_div8=True),
+            "active_from": lp.IncActiveFrom(polyphony),
+            "gate": lp.IncGate(polyphony),
+        })
 
     def init_state(self, num_voices: int, device):
         return ()
@@ -249,9 +315,19 @@ class FilteredSawtoothInstrument:
             "active_from": active_from(timelines),
         }
         _plan_envelope(timelines, sample_rate, _cubed_adsr(), prog)
-        prog["cutoff"] = filters.cutoff_from_frequency(
-            F32(F32(440.0) * F32(twelve_tet.c5)), sample_rate)
+        prog["cutoff"] = self._cutoff(sample_rate)
         return prog
+
+    @staticmethod
+    def _cutoff(sample_rate):
+        return filters.cutoff_from_frequency(F32(F32(440.0) * F32(twelve_tet.c5)),
+                                             sample_rate)
+
+    lane_foldable = True
+
+    def live_planner(self, polyphony: int, sample_rate: float):
+        return _live_env_kit(polyphony, sample_rate, self.freq_fn, _cubed_adsr(),
+                             guard_div8=True, static={"cutoff": self._cutoff(sample_rate)})
 
     def init_state(self, num_voices: int, device):
         return {"l": _zeros(num_voices, torch.float32, device),
@@ -290,6 +366,8 @@ class SquareWithEnvelope:
         }
         return _plan_envelope(timelines, sample_rate, env_const, prog)
 
+    lane_foldable = True
+
     def init_state(self, num_voices: int, device):
         return ()
 
@@ -301,17 +379,41 @@ class SquareWithEnvelope:
 
 
 class MousePMInstrument:
-    """Keyboard notes plus pointer-driven PM parameters (example_mouse.zig),
-    offline: the controller streams ({"x": [(frame, value)], "y": ...}) are
-    baked into the plan. Each move re-targets a linear 0.1 s glide toward
-    x*4 (the modulator ratio; x*880 Hz in absolute mode) and y*2 (the
-    multiplier). mode 0: modulator frequency = note frequency * ratio; mode
-    1: ratio is the frequency."""
+    """Keyboard notes plus pointer-driven PM parameters (example_mouse.zig).
+
+    Continuous controllers (LiveSession.push_controller, or the offline
+    `controllers` streams {"x": [(frame, value)], "y": ...} baked into the
+    plan): each move re-targets a linear 0.1 s glide toward x*4 (the
+    modulator ratio; x*880 Hz in absolute mode) and y*2 (the multiplier).
+    mode 0: modulator frequency = note frequency * ratio; mode 1: ratio is
+    the frequency. `mode` is a live parameter of kind "both": render's
+    select rides the per-block device vector, the goal mapping applies to
+    later controller paints on the host. On the full re-plan path a mode
+    flip remaps the whole controller history, as in the JAX package."""
+
+    lane_foldable = True
 
     def __init__(self, mode: int = 0, controllers=None) -> None:
         self.cfg = {"mode": int(mode)}
-        # without a script the pointer stays centred
-        self._controllers = controllers or {"x": [(0, 0.5)], "y": [(0, 0.5)]}
+        # the offline default stream, for plan() calls that pass none
+        self._controllers = controllers
+
+    # -- live parameter protocol (host/params.py) ---------------------------
+
+    def param_specs(self) -> List[ParamSpec]:
+        return [ParamSpec("mode", 2, self.cfg["mode"],
+                          "Modulator frequency: 0 relative / 1 absolute",
+                          kind="both")]
+
+    def device_params(self, values: Dict[str, int]) -> np.ndarray:
+        return np.asarray([float(values["mode"])], np.float32)
+
+    def apply_plan_params(self, values: Dict[str, int]) -> None:
+        self.cfg["mode"] = int(values.get("mode", self.cfg["mode"]))
+
+    def controller_specs(self) -> Dict[str, float]:
+        """Pointer position in [0,1]^2; centred before the first move."""
+        return {"x": 0.5, "y": 0.5}
 
     def _ratio_params(self, p: dict) -> dict:
         v = float(p["value"])
@@ -333,15 +435,38 @@ class MousePMInstrument:
             st.feed(int(s), int(e), True, {"value": float(v)})
         return control.painter_program([st.segs], total)
 
-    def plan(self, timelines, sample_rate):
+    def plan(self, timelines, sample_rate, controllers=None):
         total = timelines[0].total
+        if controllers is None:
+            controllers = self._controllers or {
+                n: [(0, v)] for n, v in self.controller_specs().items()}
         prog = {"active_from": active_from(timelines)}
         prog["ratio"] = self._controller_program(
-            self._controllers["x"], self._ratio_params, sample_rate, total)
+            controllers["x"], self._ratio_params, sample_rate, total)
         prog["mult"] = self._controller_program(
-            self._controllers["y"], self._mult_params, sample_rate, total)
+            controllers["y"], self._mult_params, sample_rate, total)
         prog["freqs"] = _freq_program(timelines)
         return _plan_envelope(timelines, sample_rate, _cubed_adsr(), prog)
+
+    def live_planner(self, polyphony: int, sample_rate: float):
+        from . import liveplan as lp
+
+        env_const = _cubed_adsr()
+        return lp.LivePlanKit(
+            {
+                "active_from": lp.IncActiveFrom(polyphony),
+                "env": lp.IncEnvelope(
+                    polyphony, sample_rate,
+                    lambda k, p: {**env_const, "note_on": bool(p["note_on"])}),
+                "freqs": lp.IncValues(polyphony, {"freq": default_freq}),
+            },
+            controllers={
+                "x": {"ratio": lp.IncPortamento(
+                    1, sample_rate, lambda k, p: self._ratio_params(p))},
+                "y": {"mult": lp.IncPortamento(
+                    1, sample_rate, lambda k, p: self._mult_params(p))},
+            },
+        )
 
     def init_state(self, num_voices: int, device):
         return {"mod_cnt": _zeros(num_voices, torch.int64, device),
@@ -352,7 +477,13 @@ class MousePMInstrument:
         ratio = _painter(prog, "ratio", ctx)  # [1, n]
         mult = _painter(prog, "mult", ctx)
         freq = eval_chunk(prog["freqs"], ctx.t_idx)["freq"]
-        base = torch.ones_like(freq) if self.cfg["mode"] else freq
+        if "__params__" in prog:
+            mode = prog["__params__"][:, 0:1]  # [V, 1]
+            # relative: mod freq = note freq * ratio; absolute: ratio IS the
+            # frequency (the goal mapping already scaled it by 880)
+            base = torch.where(mode > 0.5, torch.ones_like(freq), freq)
+        else:
+            base = torch.ones_like(freq) if self.cfg["mode"] else freq
         mod_cnt, mod_sig = oscillators.sine_osc(
             state["mod_cnt"], base * ratio, 0.0, ctx.sample_rate, act)
         car_cnt, car = oscillators.sine_osc(
@@ -419,6 +550,11 @@ _FEEDBACK = [0.0, np.pi / 16, np.pi / 8, np.pi / 4,
 _TREMOLO_HZ = 3.7
 _VIBRATO_HZ = 6.4
 
+# device param vector layout (render() reads prog["__params__"] by column)
+_FM_DEV = ("mod_freq_mul", "mod_waveform", "mod_volume", "mod_feedback",
+           "mod_tremolo", "mod_vibrato", "car_freq_mul", "car_waveform",
+           "car_volume", "car_tremolo", "car_vibrato", "algorithm")
+
 
 class FMSynthInstrument:
     """2-op FM with the reference example's parameters, offline.
@@ -429,7 +565,18 @@ class FMSynthInstrument:
     (example_fmsynth.zig:295-311). The modulator's feedback (_FEEDBACK[3] =
     pi/4 by default) runs through fm.fm_feedback (the FM feedback CUDA
     kernel for CUDA tensors); the carrier's feedback is a literal 0.0, so it
-    stays on the parallel path."""
+    stays on the parallel path.
+
+    Live control: param_specs() exposes all 22 parameters. The 12
+    device-kind values reach render() as prog["__params__"], an f32 tensor
+    [V, 12] on the card (_FM_DEV columns; a row a voice, so a fleet's lanes
+    each keep their own): the waveform and algorithm selects are where
+    chains, and the modulator's feedback and waveform go to the FM kernel
+    by pointer, a value a voice, so a change needs no read back. The
+    envelope values are plan-kind: the incremental planners re-read
+    self.mod/self.car when painting the open segment."""
+
+    lane_foldable = True
 
     def __init__(self, mod_freq_mul=2, mod_waveform=0, mod_volume=12,
                  mod_adr=(8, 8, 8, 8), mod_feedback=3, car_freq_mul=1,
@@ -475,6 +622,69 @@ class FMSynthInstrument:
         )
         self.algorithm = c["algorithm"]
 
+    # -- live parameter protocol (host/params.py) ---------------------------
+
+    def param_specs(self) -> List[ParamSpec]:
+        """The reference's 22 parameters, in its panel order
+        (example_fmsynth.zig:375-398), defaults from this instance's
+        constructor values."""
+        c = self.cfg
+
+        def p(name, desc, n, fav=False, kind="device"):
+            return ParamSpec(name, n, c[name], desc, fav, kind)
+
+        return [
+            p("mod_freq_mul", "Modulator frequency multiplier:", 16, True),
+            p("mod_waveform", "Modulator waveform:", 4),
+            p("mod_volume", "Modulator volume:  ", 64, True),
+            p("mod_attack", "Modulator attack:  ", 16, kind="plan"),
+            p("mod_decay", "Modulator decay:   ", 16, kind="plan"),
+            p("mod_sustain", "Modulator sustain: ", 16, True, kind="plan"),
+            p("mod_release", "Modulator release: ", 16, kind="plan"),
+            p("mod_tremolo", "Modulator tremolo: ", 2),
+            p("mod_vibrato", "Modulator vibrato: ", 2),
+            p("mod_feedback", "Modulator feedback:", 8, True),
+            p("car_freq_mul", "Carrier frequency multiplier:", 16, True),
+            p("car_waveform", "Carrier waveform:", 4),
+            p("car_volume", "Carrier volume:  ", 64, True),
+            p("car_attack", "Carrier attack:  ", 16, kind="plan"),
+            p("car_decay", "Carrier decay:   ", 16, kind="plan"),
+            p("car_sustain", "Carrier sustain: ", 16, True, kind="plan"),
+            p("car_release", "Carrier release: ", 16, kind="plan"),
+            p("car_tremolo", "Carrier tremolo: ", 2),
+            p("car_vibrato", "Carrier vibrato: ", 2),
+            p("tremolo_depth", "Tremolo depth: ", 2),
+            p("vibrato_depth", "Vibrato depth: ", 2),
+            p("algorithm", "Algorithm: ", 2),
+        ]
+
+    def device_params(self, values: Dict[str, int]) -> np.ndarray:
+        """Integer values -> the f32 vector render() unpacks (_FM_DEV
+        layout); every index->value table is applied here, on the host."""
+        td, vd = values["tremolo_depth"], values["vibrato_depth"]
+        out = {
+            "mod_freq_mul": _FREQ_MUL[values["mod_freq_mul"]],
+            "mod_waveform": float(values["mod_waveform"]),
+            "mod_volume": _opl_volume(values["mod_volume"]),
+            "mod_feedback": _FEEDBACK[values["mod_feedback"]],
+            "mod_tremolo": _tremolo_amount(values["mod_tremolo"], td),
+            "mod_vibrato": _vibrato_amount(values["mod_vibrato"], vd),
+            "car_freq_mul": _FREQ_MUL[values["car_freq_mul"]],
+            "car_waveform": float(values["car_waveform"]),
+            "car_volume": _opl_volume(values["car_volume"]),
+            "car_tremolo": _tremolo_amount(values["car_tremolo"], td),
+            "car_vibrato": _vibrato_amount(values["car_vibrato"], vd),
+            "algorithm": float(values["algorithm"]),
+        }
+        return np.asarray([out[k] for k in _FM_DEV], np.float32)
+
+    def apply_plan_params(self, values: Dict[str, int]) -> None:
+        """Adopt the plan-kind values (envelope ADSR) into the config the
+        planners read; device-kind values are mirrored too, so an offline
+        plan()/render() of this instance matches the live values."""
+        self.cfg.update({k: int(v) for k, v in values.items() if k in self.cfg})
+        self._apply_cfg()
+
     def _env(self, timelines, sample_rate, op):
         segs = [control.compile_envelope(tl, sample_rate,
                                          lambda k, p: self._env_params(op, p))
@@ -483,6 +693,9 @@ class FMSynthInstrument:
 
     @staticmethod
     def _env_params(op, p):
+        # reads `op` (self.mod / self.car) at call time: the incremental
+        # planners re-invoke this when painting the open segment, which is
+        # what makes plan-kind parameter changes land on the next block
         return {"attack": PaintCurve.cubed(op["attack"]),
                 "decay": PaintCurve.cubed(op["decay"]),
                 "release": PaintCurve.cubed(op["release"]),
@@ -495,6 +708,18 @@ class FMSynthInstrument:
                 "car_env": self._env(timelines, sample_rate, self.car),
                 "freqs": _freq_program(timelines)}
 
+    def live_planner(self, polyphony: int, sample_rate: float):
+        from . import liveplan as lp
+
+        return lp.LivePlanKit({
+            "active_from": lp.IncActiveFrom(polyphony),
+            "mod_env": lp.IncEnvelope(polyphony, sample_rate,
+                                      lambda k, p: self._env_params(self.mod, p)),
+            "car_env": lp.IncEnvelope(polyphony, sample_rate,
+                                      lambda k, p: self._env_params(self.car, p)),
+            "freqs": lp.IncValues(polyphony, {"freq": lambda p: F32(p["freq"])}),
+        })
+
     def init_state(self, num_voices, device):
         return {"mod_cnt": _zeros(num_voices, torch.int64, device),
                 "car_cnt": _zeros(num_voices, torch.int64, device),
@@ -503,46 +728,71 @@ class FMSynthInstrument:
 
     @staticmethod
     def _lfo(hz, ctx):
-        """A MainModule-level LFO, phase-continuous from frame 0
-        (example_fmsynth.zig:437-451): the u32 phase in closed form from the
-        absolute frame index. Returns [n]."""
+        """A MainModule-level LFO, phase-continuous from each voice's own
+        frame 0 (example_fmsynth.zig:437-451): the u32 phase in closed form
+        from the absolute frame index. Returns [1, n], or [V, n] for a
+        t_idx of rows (a fleet's lanes, each at its own frame)."""
         ifreq = freq_to_ifreq(torch.tensor(hz, dtype=torch.float32,
                                            device=ctx.t_idx.device), ctx.sample_rate)
-        return oscillators.sine_wave(u32(ifreq * ctx.t_idx.to(torch.int64)), 0.0)
+        return oscillators.sine_wave(u32(ifreq * t_rows(ctx.t_idx).to(torch.int64)), 0.0)
 
     def render(self, state, prog, ctx):
         act = _active(prog, ctx)
         freq = eval_chunk(prog["freqs"], ctx.t_idx)["freq"]
         f32 = lambda v: float(F32(v))  # noqa: E731 (the JAX package's f32 constants)
-        if any(op["tremolo"] != 0.0 or op["vibrato"] != 0.0
-               for op in (self.mod, self.car)):
-            trem_lfo = self._lfo(_TREMOLO_HZ, ctx)[None, :]
-            vib_lfo = self._lfo(_VIBRATO_HZ, ctx)[None, :]
+        live = "__params__" in prog
+        # live: each device-kind value a column [V, 1] of the [V, 12] rows
+        P = ({name: prog["__params__"][:, i:i + 1] for i, name in enumerate(_FM_DEV)}
+             if live else None)
+        if live or any(op["tremolo"] != 0.0 or op["vibrato"] != 0.0
+                       for op in (self.mod, self.car)):
+            trem_lfo = self._lfo(_TREMOLO_HZ, ctx)
+            vib_lfo = self._lfo(_VIBRATO_HZ, ctx)
 
-        def op_freq(op):
+        def op_freq(op, pre):
+            if live:
+                f = freq * P[pre + "freq_mul"]
+                return f * (vib_lfo * P[pre + "vibrato"] + 1.0)
             f = freq * f32(op["freq_mul"])
             if op["vibrato"] != 0.0:
                 f = f * (vib_lfo * f32(op["vibrato"]) + 1.0)
             return f
 
-        def op_gain(sig, op):
+        def op_gain(sig, op, pre):
+            if live:
+                sig = sig * P[pre + "volume"]
+                return sig * (trem_lfo * P[pre + "tremolo"] + 1.0)
             sig = sig * f32(op["volume"])
             if op["tremolo"] != 0.0:
                 sig = sig * (trem_lfo * f32(op["tremolo"]) + 1.0)
             return sig
 
+        if live:  # feedback and waveform a voice, read by the kernel on the card
+            m_wave = P["mod_waveform"][:, 0].to(torch.int32)
+            m_fb = P["mod_feedback"][:, 0]
+        else:
+            m_wave, m_fb = self.mod["waveform"], self.mod["feedback"]
         mod_cnt, (fb1, fb2), mod_out = fm.fm_osc(
-            state["mod_cnt"], op_freq(self.mod), 0.0, self.mod["waveform"],
-            self.mod["feedback"], (state["mod_fb1"], state["mod_fb2"]),
-            ctx.sample_rate, act)
-        mod_sig = op_gain(mod_out, self.mod) * _painter(prog, "mod_env", ctx)
+            state["mod_cnt"], op_freq(self.mod, "mod_"), 0.0, m_wave, m_fb,
+            (state["mod_fb1"], state["mod_fb2"]), ctx.sample_rate, act)
+        mod_sig = op_gain(mod_out, self.mod, "mod_") * _painter(prog, "mod_env", ctx)
         # the carrier's feedback is 0 in the reference (example_fmsynth.zig:345)
+        if live:
+            algo = P["algorithm"]
+            car_phase = mod_sig * algo  # algorithm 1 = phase modulation
+            c_wave = P["car_waveform"][:, 0].to(torch.int32)
+        else:
+            car_phase = mod_sig if self.algorithm == 1 else 0.0
+            c_wave = self.car["waveform"]
         car_cnt, _, car_out = fm.fm_osc(
-            state["car_cnt"], op_freq(self.car),
-            mod_sig if self.algorithm == 1 else 0.0, self.car["waveform"], 0.0,
+            state["car_cnt"], op_freq(self.car, "car_"), car_phase, c_wave, 0.0,
             (torch.zeros_like(fb1), torch.zeros_like(fb2)), ctx.sample_rate, act)
-        out = op_gain(car_out, self.car) * _painter(prog, "car_env", ctx)
-        if self.algorithm == 0:
+        out = op_gain(car_out, self.car, "car_") * _painter(prog, "car_env", ctx)
+        if live:
+            # algorithm 0 = additive: the (already enveloped) modulator
+            # signal adds into the output (example_fmsynth.zig:299-303)
+            out = out + mod_sig * (1.0 - algo)
+        elif self.algorithm == 0:
             out = out + mod_sig
         return {"mod_cnt": mod_cnt, "car_cnt": car_cnt,
                 "mod_fb1": fb1, "mod_fb2": fb2}, out

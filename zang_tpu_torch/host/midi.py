@@ -1,5 +1,5 @@
-"""MIDI file input: Standard MIDI File -> SongEvent lists -> rendered WAV
-(port of zang_tpu/host/midi.py, the offline render).
+"""MIDI file input: Standard MIDI File -> SongEvent lists -> rendered WAV,
+or a live replay into a running server (port of zang_tpu/host/midi.py).
 
 A stdlib SMF parser (format 0/1, running status, merged tempo map), channel-
 or track-grouped note streams with the framework's event semantics (a new
@@ -14,10 +14,12 @@ timeline compiler quantizes the times with the reference's f32 block
 arithmetic downstream.
 
     python -m zang_tpu_torch.host.midi song.mid out.wav [--instrument nice] [--device cuda]
+    python -m zang_tpu_torch.host.midi song.mid --live [--port 9800] [--wav take.wav]
 
 --instrument takes a stock name or a zangscript FILE.txt[:Module] (the
-port's script backend). Live replay into a server waits for the port's
-serving tier.
+port's script backend). --live paces the file's events in wall-clock time
+into a lane of a live server (python -m zang_tpu_torch.serve.server),
+replay_live, and captures what comes back.
 """
 
 from dataclasses import dataclass, field
@@ -28,7 +30,8 @@ import torch
 
 from ..core.notes import SongEvent
 
-__all__ = ["parse_smf", "midi_songs", "midi_performance", "render_midi", "main"]
+__all__ = ["parse_smf", "midi_songs", "midi_performance", "render_midi", "replay_live",
+           "main"]
 
 DEFAULT_USPQ = 500_000  # 120 bpm, the SMF default tempo
 
@@ -397,6 +400,57 @@ def _instrument_maker(name: str):
         f"zangscript FILE.txt[:Module]")
 
 
+def replay_live(
+    data: bytes,
+    client,
+    rate: float = 1.0,
+    group: str = "channel",
+    include_velocity: bool = False,
+    transpose: int = 0,
+    skip_channels: Tuple[int, ...] = (9,),
+    now=None,
+    sleep=None,
+) -> int:
+    """Replay an SMF in wall-clock time into a live server lane.
+
+    Beyond the reference (whose only live input is the SDL keyboard):
+    the file's note events go over the existing raw-event wire op
+    ({"op": "event"} with explicit note_id pairing — serve/server.py),
+    so velocity rides along as a note param when include_velocity and the
+    lane hears the exact event stream the offline renderer would compile.
+    Channel/track groups cycle over the lane instrument's parts (the
+    welcome frame's num_parts). `rate` scales playback speed (tests replay
+    fast); returns the number of events sent.
+    """
+    import time as _time
+
+    now = now or _time.monotonic
+    sleep = sleep or _time.sleep
+    parts = midi_songs(data, group=group, include_velocity=include_velocity,
+                       transpose=transpose, skip_channels=skip_channels)
+    nparts = max(1, int(client.welcome.get("num_parts", 1)))
+    stream = []
+    for gi, (_label, song, _poly) in enumerate(parts):
+        p = gi % nparts
+        for ev in song:
+            # JSON wire: numpy scalars -> plain floats
+            params = {k: (bool(v) if isinstance(v, (bool, np.bool_)) else
+                          float(v))
+                      for k, v in ev.params.items()}
+            stream.append((float(ev.t), ev.note_id, p, params))
+    # merged parts stay chronological; same-instant events keep note_id
+    # order, which puts each off (old, smaller id) before the on that
+    # replaces it — the tracker-column pairing midi_songs encodes
+    stream.sort(key=lambda e: (e[0], e[1]))
+    t0 = now()
+    for t, nid, p, params in stream:
+        dt = t / rate - (now() - t0)
+        if dt > 0:
+            sleep(dt)
+        client.send_event(p, params, note_id=nid)
+    return len(stream)
+
+
 def main(argv=None) -> int:
     """CLI: python -m zang_tpu_torch.host.midi song.mid out.wav [options]"""
     import argparse
@@ -407,13 +461,28 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="zang-midi-torch",
         description="Render a Standard MIDI File to WAV with the stock or zangscript "
-                    "instruments on the GPU (or the CPU with --device cpu).")
+                    "instruments on the GPU (or the CPU with --device cpu), or replay "
+                    "it live into a running server (--live).")
     ap.add_argument("midi")
-    ap.add_argument("output", help="output WAV")
-    ap.add_argument("--instrument", default="nice",
-                    help="instrument name, or a comma list cycled over parts "
+    ap.add_argument("output", nargs="?", help="output WAV (offline mode; omit with --live)")
+    ap.add_argument("--instrument", default=None,
+                    help="offline: instrument name, or a comma list cycled over parts "
                          f"(default nice; stock: {', '.join(sorted(stock_instruments()))}; "
-                         "or a zangscript FILE.txt[:Module])")
+                         "or a zangscript FILE.txt[:Module]); live: the server-menu "
+                         "instrument to attach to (default: the server's default)")
+    ap.add_argument("--live", action="store_true",
+                    help="replay into a live server in wall-clock time instead of "
+                         "rendering offline")
+    ap.add_argument("--host", default="127.0.0.1", help="live server host")
+    ap.add_argument("--port", type=int, default=9800, help="live server port")
+    ap.add_argument("--rate", type=float, default=1.0, help="live playback speed multiplier")
+    ap.add_argument("--wav", help="live: capture the returned stream to WAV")
+    ap.add_argument("--sink", metavar="CMD",
+                    help="live: pipe audio into a player command's stdin "
+                         "(see zang-play --sink)")
+    ap.add_argument("--tail", type=float, default=1.5,
+                    help="live: seconds to keep draining after the last event "
+                         "(release tails)")
     ap.add_argument("--group", choices=["channel", "track"], default="channel")
     ap.add_argument("--sample-rate", type=float, default=48000.0)
     ap.add_argument("--seconds", type=float, default=None, help="cap the render length")
@@ -430,7 +499,12 @@ def main(argv=None) -> int:
 
     with open(args.midi, "rb") as f:
         data = f.read()
-    makers = [_instrument_maker(name.strip()) for name in args.instrument.split(",")]
+    if args.live:
+        return _main_live(args, data)
+    if not args.output:
+        ap.error("output WAV is required without --live")
+    makers = [_instrument_maker(name.strip())
+              for name in (args.instrument or "nice").split(",")]
     audio = render_midi(
         data, lambda pi, label: makers[pi % len(makers)](),
         sample_rate=args.sample_rate, seconds=args.seconds,
@@ -441,6 +515,53 @@ def main(argv=None) -> int:
     write_wav_s16(args.output, pcm.reshape(-1), int(args.sample_rate), 1)
     print(f"{args.output}: {audio.shape[-1] / args.sample_rate:.2f}s "
           f"at {int(args.sample_rate)} Hz on {args.device}")
+    return 0
+
+
+def _main_live(args, data: bytes) -> int:
+    """--live: attach a lane, drain+capture its stream with TerminalPlayer,
+    and pace the SMF's events into it (replay_live)."""
+    import sys
+    import time
+
+    from ..serve.client import TerminalPlayer
+    from ..serve.server import LiveClient
+
+    client = LiveClient(args.host, args.port, instrument=args.instrument)
+    w = client.welcome
+    print(f"lane {w['lane']} @ {args.host}:{args.port}  "
+          f"{w.get('num_parts', 1)} part(s), block {w['block_size']} / "
+          f"{w['sample_rate']:.0f} Hz", file=sys.stderr)
+    with TerminalPlayer(client, quiet=True, wav_path=args.wav,
+                        sink_cmd=args.sink,
+                        auto_resume=(args.host, args.port)) as player:
+        # wait for the stream (a cold server builds its kernels before
+        # the first block) so the first notes land in flowing audio
+        deadline = time.monotonic() + 300
+        while (player.blocks_received == 0
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+
+        class _LockedSender:
+            """Serialize event writes with the player's own socket writers
+            (gate timers, recorder pump) and survive a mid-replay resume
+            (player.client is swapped under the same lock)."""
+
+            welcome = w
+
+            @staticmethod
+            def send_event(part, params, note_id=None):
+                with player._lock:
+                    player.client.send_event(part, params, note_id=note_id)
+
+        n = replay_live(
+            data, _LockedSender(), rate=args.rate, group=args.group,
+            include_velocity=args.velocity, transpose=args.transpose,
+            skip_channels=() if args.with_drums else (9,))
+        time.sleep(max(0.0, args.tail))
+    print(f"replayed {n} events "
+          f"({player.blocks_received} blocks back"
+          f"{', wav ' + args.wav if args.wav else ''})", file=sys.stderr)
     return 0
 
 

@@ -52,6 +52,18 @@ def load_song() -> List[List[SongEvent]]:
     ]
 
 
+def live_events(seconds: float, transpose: int = 0) -> List[SongEvent]:
+    """The RegularOrgan part's events before `seconds` (50 notes in the
+    first 10 s), transposed by `transpose` semitones in f32: the input of
+    the live cells (a NiceInstrument session at polyphony 4 steals voices;
+    a fleet gives each lane its own transposition). chip_smoke.py, the
+    tests and tools/make_torch_golden.py feed them through a NoteTracker."""
+    mul = F32(2.0 ** (transpose / 12.0))
+    return [SongEvent({"freq": float(F32(F32(e.params["freq"]) * mul)),
+                       "note_on": e.params["note_on"]}, t=e.t, note_id=e.note_id)
+            for e in load_song()[REGULAR] if e.t < seconds]
+
+
 def pedal_freq(p) -> F32:
     # example_song.zig:36: freq * 0.5 in f32
     return F32(F32(p["freq"]) * F32(0.5))

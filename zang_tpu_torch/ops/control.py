@@ -16,6 +16,7 @@ import torch
 
 from ..core import native
 from ..core.curves import PaintCurve
+from .scan import t_rows
 from .segprog import SegProgram
 
 F32 = np.float32
@@ -90,8 +91,8 @@ def _seg_arrays(segs) -> dict:
 
 def eval_painter(vals: dict, t_idx: torch.Tensor) -> torch.Tensor:
     """Device: evaluated painter program values (a, b, t_step, t0, shape,
-    seg_start, each [V, n]) -> [V, n]."""
-    dt = (t_idx[None, :] - vals["seg_start"]).to(torch.float32)
+    seg_start, each [V, n]) -> [V, n]; t_idx [n] or [V, n] (scan.t_rows)."""
+    dt = (t_rows(t_idx) - vals["seg_start"]).to(torch.float32)
     t = torch.clamp(vals["t0"] + (dt + 1.0) * vals["t_step"], max=1.0)
     it = 1.0 - t
     shape = vals["shape"]
@@ -184,6 +185,20 @@ class _PainterWalk:
         self.table_key = None
         self.table = None
 
+    def snapshot(self) -> tuple:
+        """Copyable walk state (tables are immutable and shared by ref):
+        the live planner paints an open segment provisionally and rewinds
+        (host/liveplan.py)."""
+        return (self.t_value, self.finished, self.last, self.start,
+                self.table_pos, self.table_key, self.table, self.table_t0,
+                len(self.segs))
+
+    def restore(self, snap: tuple) -> None:
+        (self.t_value, self.finished, self.last, self.start,
+         self.table_pos, self.table_key, self.table, self.table_t0,
+         nsegs) = snap
+        del self.segs[nsegs:]
+
     def emit(self, seg: Seg) -> None:
         # merge consecutive constant segments with equal value
         if seg[2] == 0.0 and self.segs:
@@ -239,6 +254,100 @@ class _PainterWalk:
         return s + n, False
 
 
+IDLE, ATTACK, DECAY, SUSTAIN, RELEASE = range(5)
+
+
+class EnvelopeWalkStream:
+    """The envelope compiler (src/modules/Envelope.zig) fed one timeline
+    segment [s, e) at a time, with the ADSR state and the painter walk
+    carried across: the incremental live planner's envelope
+    (host/liveplan.py). Its segments are the C++ compiler's
+    (core/native.compile_envelope_native) for the same timeline."""
+
+    def __init__(self, sample_rate: float, env_params_fn) -> None:
+        self.w = _PainterWalk(sample_rate)
+        self.state = IDLE
+        self.fn = env_params_fn
+        self.k = 0  # segment index passed through to env_params_fn
+        self.w.emit_const(0, 0.0)  # idle before the first note
+
+    @property
+    def segs(self) -> List[Seg]:
+        return self.w.segs
+
+    def snapshot(self) -> tuple:
+        return (self.state, self.k, self.w.snapshot())
+
+    def restore(self, snap: tuple) -> None:
+        self.state, self.k, wsnap = snap
+        self.w.restore(wsnap)
+
+    def feed(self, s: int, e: int, reset: bool, params: dict) -> None:
+        k = self.k
+        self.k += 1
+        if e <= s:
+            return
+        p = self.fn(k, params)
+        w = self.w
+
+        def change(new_state):
+            self.state = new_state
+            w.new_curve()
+
+        pos = s
+        if p["note_on"]:
+            if reset:
+                change(ATTACK)
+            if self.state == IDLE:
+                change(ATTACK)
+            if self.state == RELEASE:
+                raise ValueError(
+                    "note_on while in release without a new note id "
+                    "(the reference asserts here — Envelope.zig:45)"
+                )
+            if self.state == ATTACK:
+                pos, fin = w.paint_toward(pos, e, p["attack"], 1.0)
+                if fin:
+                    change(DECAY if p["sustain_volume"] < 1.0 else SUSTAIN)
+            if self.state == DECAY:
+                pos, fin = w.paint_toward(pos, e, p["decay"], p["sustain_volume"])
+                if fin:
+                    change(SUSTAIN)
+            if self.state == SUSTAIN:
+                w.paint_flat(pos, e, p["sustain_volume"])
+                pos = e
+        else:
+            if self.state == IDLE:
+                w.paint_flat(pos, e, 0.0)
+            else:
+                if self.state != RELEASE:
+                    change(RELEASE)
+                pos, fin = w.paint_toward(pos, e, p["release"], 0.0)
+                if fin:
+                    change(IDLE)
+                w.paint_flat(pos, e, 0.0)
+
+
+class GateWalkStream:
+    """The gate compiler fed one segment at a time: a constant a segment,
+    no painter state."""
+
+    def __init__(self, gate_fn=None) -> None:
+        self.gate_fn = gate_fn or (lambda p: bool(p["note_on"]))
+        self.segs: List[Seg] = [(0, 0.0, 0.0, 0.0, 0.0, SHAPE_CONST)]
+
+    def snapshot(self) -> int:
+        return len(self.segs)
+
+    def restore(self, snap: int) -> None:
+        del self.segs[snap:]
+
+    def feed(self, s: int, e: int, reset: bool, params: dict) -> None:
+        val = 1.0 if self.gate_fn(params) else 0.0
+        if self.segs[-1][1] != val:
+            self.segs.append((int(s), val, 0.0, 0.0, 0.0, SHAPE_CONST))
+
+
 class PortamentoWalkStream:
     """The portamento compiler (src/modules/Portamento.zig) fed one timeline
     segment [s, e) at a time, with the painter walk carried across."""
@@ -252,6 +361,13 @@ class PortamentoWalkStream:
     @property
     def segs(self) -> List[Seg]:
         return self.w.segs
+
+    def snapshot(self) -> tuple:
+        return (self.k, self.w.snapshot())
+
+    def restore(self, snap: tuple) -> None:
+        self.k, wsnap = snap
+        self.w.restore(wsnap)
 
     def feed(self, s: int, e: int, reset: bool, params: dict) -> None:
         k = self.k

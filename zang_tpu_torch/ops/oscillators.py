@@ -11,7 +11,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .scan import F32, as_f32, exclusive_cumsum_u32, freq_to_ifreq, ftou32, u32, utof23
+from .scan import F32, as_f32, exclusive_cumsum_u32, freq_to_ifreq, ftou32, t_rows, u32, utof23
 from .segprog import SegProgram
 
 PI = 3.14159265358979323846  # rounded to f32 where used, as np.float32(PI)
@@ -72,9 +72,10 @@ def plan_phase_segments(timelines, freq_fn, sample_rate: float,
 def phase_from_chunk(vals: dict, t_idx: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Device: (cnt, ifreq, valid) per sample from evaluated phase program
-    values (ifreq, A as u32-in-int64; valid f32). t_idx: [n] frames >= 0."""
+    values (ifreq, A as u32-in-int64; valid f32). t_idx: [n] or [V, n]
+    frames >= 0 (scan.t_rows)."""
     ifreq = vals["ifreq"]
-    cnt = u32(vals["A"] + t_idx.to(torch.int64)[None, :] * ifreq)
+    cnt = u32(vals["A"] + t_rows(t_idx).to(torch.int64) * ifreq)
     return cnt, ifreq, vals["valid"] > 0.5
 
 

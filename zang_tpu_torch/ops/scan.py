@@ -53,12 +53,20 @@ def freq_to_ifreq(freq: torch.Tensor, sample_rate: float) -> torch.Tensor:
     return u32(torch.where(scaled >= 0, mag, -mag))
 
 
+def t_rows(t_idx: torch.Tensor) -> torch.Tensor:
+    """Frame indices broadcastable against [V, n]: t_idx is [n] (the frames
+    of every voice) or [V, n] (a row a voice: a fleet's lanes folded into the
+    voice axis, each lane at its own frame, serve/live.py)."""
+    return t_idx if t_idx.dim() == 2 else t_idx[None, :]
+
+
 def pconst_multi(starts: torch.Tensor, values: dict, t_idx: torch.Tensor) -> dict:
     """Piecewise-constant segment tables evaluated at samples, gather-free
     (zang_tpu/ops/scan.py pconst_multi).
 
     starts: [V, K] int32, sorted per voice; values: {name: [V, K]} (f32,
-    int32, or u32 riding int64); t_idx: [n] int32. Returns {name: [V, n]}.
+    int32, or u32 riding int64); t_idx: [n] or [V, n] int32 (t_rows).
+    Returns {name: [V, n]}.
 
     value(t) = sum_k [t >= starts_k] * (v_k - v_{k-1}), a masked delta sum
     unrolled over K in the JAX package's order: in f32 the sum of deltas is
@@ -70,12 +78,13 @@ def pconst_multi(starts: torch.Tensor, values: dict, t_idx: torch.Tensor) -> dic
     for name, v in values.items():
         d = torch.cat([v[:, :1], v[:, 1:] - v[:, :-1]], dim=1)
         deltas[name] = u32(d) if v.dtype == torch.int64 else d
-        out[name] = torch.zeros((starts.shape[0], t_idx.shape[0]), dtype=v.dtype,
+        out[name] = torch.zeros((starts.shape[0], t_idx.shape[-1]), dtype=v.dtype,
                                 device=v.device)
     zero = {name: torch.zeros((), dtype=v.dtype, device=v.device)
             for name, v in values.items()}
+    t = t_rows(t_idx)
     for k in range(K):
-        mask = t_idx[None, :] >= starts[:, k:k + 1]
+        mask = t >= starts[:, k:k + 1]
         for name, d in deltas.items():
             out[name] = out[name] + torch.where(mask, d[:, k:k + 1], zero[name])
     # int64 sums of K u32 deltas cannot overflow: wrap once at the end

@@ -237,6 +237,13 @@ class ScriptInstrument:
         prog.update(p.programs)
         return prog
 
+    def live_planner(self, polyphony: int, sample_rate: float):
+        """Incremental live planner (script/liveplan.py): O(events) host work
+        a block instead of re-walking the whole session's plan."""
+        from .liveplan import ScriptLivePlanner
+
+        return ScriptLivePlanner(self, polyphony, float(sample_rate))
+
     def init_state(self, num_voices: int, device):
         """The state of every stateful site on `device`: filter (l, b),
         phase counters and the decimator's counter (u32 in int64, ops/scan.py),
