@@ -172,12 +172,43 @@ each of which raises on failure:
                   blocks' length and within 1 LSB of a session fed the
                   events its lane drained, at the blocks it drained them,
                   mixed down
-  10. no module of jax or of zang_tpu was imported
+  11. the serving tiers, on the card, each step with the launch counts set
+     to 0 just before it and read just after (the wrappers count under a
+     lock, so worker threads count exactly):
+       batch      BatchRenderer(devices=["cuda:0"]) with its default
+                  worker: four 385 s Toccatas (one build, traces == 1,
+                  4 x 282 K1), again with four workers, and eight; the 10 s sampler
+                  (7 K4), poly_echo at 1024 voices x 30 s (21 K1) and at
+                  4096 voices x 8 s (6 K3, no K1); every WAV is phase 7's
+                  render mixed down, bit for bit; fleet and per-job RTF,
+                  peak device memory
+       checkpoint render_resumable of the song at 141 chunks a segment,
+                  interrupted for real after its first save (141 K1), then
+                  resumed from that file in a fresh call (141 K1): phase 7's
+                  render bit for bit
+       http       a RenderHTTPServer(device="cuda") on 127.0.0.1: the menu;
+                  /v1/render of play (K2), fmsynth (K5), polyphony (K1) and
+                  sampler (K4), each with phase 9's launches and the PCM of
+                  the port's own example render mixed down;
+                  /v1/render/script with demo_synth.txt's DemoSynth (K2 in
+                  its delay loop) and /v1/render/midi with toccata.mid,
+                  nice, 60 s (K1), each the port's own render's launches and
+                  bits; /v1/render/stream?config=song&seconds=385 (282 K1,
+                  the body phase 7's render mixed down at volume 0.25, byte
+                  for byte; the time to the first byte and to the last, peak
+                  device memory); /v1/render/batch with a song, a sampler and
+                  a DemoSynth job, each /v1/result/<id> the port's render
+                  mixed down; a bad script's 400 with caret diagnostics;
+                  /v1/stats
+       visual     render_image of the streamed song's first 10 s, written
+                  as a PNG and parsed back (CRCs, size)
+  10. no module of jax or of zang_tpu was imported (checked last)
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds; before the
-card's line, {"live": ...} holds phase 9b's block times and fidelity. Exits non-zero,
-printing no result, without CUDA or outside a checkout of the repo.
+card's line, {"live": ...} holds phase 9b's block times and fidelity and
+{"serve": ...} phase 11's numbers. Exits non-zero, printing no result,
+without CUDA or outside a checkout of the repo.
 """
 
 import json
@@ -1227,6 +1258,371 @@ def run_flat_midi_stream(card, filters, fm, lookup, svf_cuda, launches, song_mix
 
 
 # ---------------------------------------------------------------------------
+# the serving tiers: the batch fleet, checkpointed renders, HTTP, the visualizer
+# (phase 11)
+
+SONG_SEGMENT = 141  # render_resumable's segment: the song's 282 chunks in two halves
+HTTP_EXAMPLES = ("play", "fmsynth", "polyphony", "sampler")  # K2, K5, K1, K4
+HTTP_MIDI_SECONDS = 60.0
+VISUAL_SECONDS = 10.0
+
+
+def _http(srv, method, path, body=None, timeout=600.0):
+    """(status, bytes, seconds to the first body byte, seconds to the last)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(srv.host, srv.port, timeout=timeout)
+    try:
+        t = time.perf_counter()
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        first = r.read(1)
+        t_first = time.perf_counter() - t
+        data = first + r.read()
+        return r.status, data, t_first, time.perf_counter() - t
+    finally:
+        conn.close()
+
+
+def _wav_pcm(data: bytes):
+    """(sample rate, channels, int16 [frames * channels]) of a WAV response."""
+    import struct
+
+    import numpy as np
+
+    if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
+        raise AssertionError(f"not a WAV: {data[:64]!r}")
+    n = struct.unpack_from("<I", data, 40)[0]
+    return (struct.unpack_from("<I", data, 24)[0], struct.unpack_from("<H", data, 22)[0],
+            np.frombuffer(data[44:44 + n], dtype=np.int16))
+
+
+def _png_size(path):
+    """(width, height) of an 8-bit RGB PNG, its chunks' CRCs and its pixel
+    data checked."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        png = f.read()
+    if png[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(png):
+        n, tag = struct.unpack_from(">I4s", png, pos)
+        body = png[pos + 8:pos + 8 + n]
+        if struct.unpack_from(">I", png, pos + 8 + n)[0] != zlib.crc32(tag + body):
+            raise AssertionError(f"PNG chunk {tag!r}: bad CRC")
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + n
+    w, h, depth, color = struct.unpack_from(">IIBB", chunks[b"IHDR"])
+    if (depth, color) != (8, 2) or len(zlib.decompress(chunks[b"IDAT"])) != h * (1 + 3 * w):
+        raise AssertionError("PNG pixel data does not fit its header")
+    return w, h
+
+
+def run_serve(card, filters, fm, lookup, svf_cuda, launches, song_mix, config_pcm):
+    """Phase 11: the batch fleet, a checkpointed render interrupted and
+    resumed, the HTTP render tier and the visualizer, each step with the
+    launch counts set to 0 just before it and read just after (the
+    wrappers count under a lock, so the batch's worker threads count
+    exactly). song_mix: phase 7's song render, f32 numpy [1, total];
+    config_pcm: phase 7's s16 renders of the configs. Returns the
+    {"serve": ...} numbers."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from zang_tpu_torch.core.mixdown import mixdown_s16_np
+    from zang_tpu_torch.core.wav import read_wav, read_wav_f32
+    from zang_tpu_torch.graph import checkpoint
+    from zang_tpu_torch.graph.render import render_performance
+    from zang_tpu_torch.host import configs, examples, midi, song, visual
+    from zang_tpu_torch.serve import http
+    from zang_tpu_torch.serve.batch import BatchRenderer, RenderJob
+
+    out = {}
+    total = song_mix.shape[1]
+    seconds = total / song.SAMPLE_RATE
+    song_pcm = mixdown_s16_np(song_mix[0], song.MIX_VOLUME)
+    tmp = tempfile.mkdtemp(prefix="zang_serve_")
+    try:
+        # -- the batch fleet: four Toccatas through one build, then the configs
+        def batch(label, jobs, expect, pcm_of, **kw):
+            br = BatchRenderer(out_dir=os.path.join(tmp, label), devices=["cuda:0"], **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(svf_cuda, lookup, fm)
+            t = time.perf_counter()
+            results = br.run(jobs)
+            wall = time.perf_counter() - t
+            launches[label] = counts(svf_cuda, lookup, fm)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            audio_s = sum(r.seconds for r in results)
+            print(f"{label}: BatchRenderer(devices=['cuda:0'], workers_per_device="
+                  f"{br.workers_per_device}) {len(jobs)} jobs, {audio_s:.1f} s of audio in "
+                  f"{wall:.3f}s (fleet RTF {audio_s / wall:.1f}; per job "
+                  f"{', '.join(f'{r.rtf:.1f}' for r in results)}), traces "
+                  f"{br.cache.traces}, peak device memory {peak:.2f} GiB, launches "
+                  f"{launches[label]} [{card}]")
+            bad = [(r.name, r.error) for r in results if r.status != "ok"]
+            if bad:
+                raise AssertionError(f"{label}: jobs failed: {bad}")
+            if launches[label] != expect:
+                raise AssertionError(f"{label}: launches {launches[label]}, expected {expect}")
+            for r in results:
+                w = read_wav(r.wav_path)
+                got = np.frombuffer(w.data, np.int16)
+                want = pcm_of(r.name)
+                if not np.array_equal(got, np.ascontiguousarray(want.T).reshape(-1)):
+                    d = np.abs(got.astype(np.int32)
+                               - np.ascontiguousarray(want.T).reshape(-1).astype(np.int32))
+                    raise AssertionError(f"{label}/{r.name}: the WAV is not the render's "
+                                         f"mixdown (max {d.max()} LSB apart)")
+            return dict(jobs=len(jobs), audio_s=audio_s, wall_s=wall,
+                        fleet_rtf=audio_s / wall, job_rtf=[r.rtf for r in results],
+                        job_wall_s=[r.wall_s for r in results],
+                        workers=br.workers_per_device, traces=br.cache.traces,
+                        peak_gib=peak), br
+
+        def songs(n):
+            return [RenderJob(f"toccata_{i}", lambda: (song.build_performance(total), total),
+                              volume=song.MIX_VOLUME) for i in range(n)]
+
+        n_song = -(-total // CHUNK)
+        out["batch_songs"], br = batch("batch_songs", songs(4),
+                                       expect_counts(svf_table=4 * n_song),
+                                       lambda name: song_pcm)
+        if br.cache.traces != 1 or out["batch_songs"]["traces"] != 1:
+            raise AssertionError(f"four songs of one structure built {br.cache.traces} steps")
+        # the same four with four workers (the JAX package's default on an
+        # 8-core host: do more workers help?), and eight with the default
+        out["batch_songs_4_workers"], _ = batch(
+            "batch_songs_4_workers", songs(4), expect_counts(svf_table=4 * n_song),
+            lambda name: song_pcm, workers_per_device=4)
+        out["batch_songs_8"], _ = batch("batch_songs_8", songs(8),
+                                        expect_counts(svf_table=8 * n_song),
+                                        lambda name: song_pcm)
+        for label, config, secs, voices, kname in (
+                ("batch_sampler", "sampler", 10.0, None, "table_lookup"),
+                ("batch_poly_echo", "poly_echo", 30.0, 1024, "svf_table"),
+                ("batch_poly_echo_4096", "poly_echo_4096", 8.0, 4096, "svf_onepass")):
+            frames = int(secs * configs.SAMPLE_RATE)
+            build = ((lambda: configs.build_sampler_performance()) if voices is None else
+                     (lambda v=voices, s=secs: configs.build_poly_echo_performance(
+                         num_voices=v, seconds=s)))
+            out[label], _ = batch(label, [RenderJob(config, build, volume=configs.MIX_VOLUME)],
+                                  expect_counts(**{kname: -(-frames // CHUNK)}),
+                                  lambda name, c=config: config_pcm[c])
+
+        # -- a checkpointed render of the song, interrupted after its first save
+        class Interrupted(Exception):
+            pass
+
+        path = os.path.join(tmp, "song_ckpt.npz")
+        real_save = checkpoint.save_checkpoint
+        saved = []
+
+        def save_then_stop(*a, **k):
+            t = time.perf_counter()
+            real_save(*a, **k)
+            saved.append(time.perf_counter() - t)
+            raise Interrupted
+
+        reset_counts(svf_cuda, lookup, fm)
+        t = time.perf_counter()
+        with mock.patch.object(checkpoint, "save_checkpoint", save_then_stop):
+            try:
+                checkpoint.render_resumable(song.build_performance(total), total, path, CHUNK,
+                                            segment_chunks=SONG_SEGMENT, device="cuda")
+                raise AssertionError("render_resumable was not interrupted")
+            except Interrupted:
+                pass
+        first_s = time.perf_counter() - t
+        launches["checkpoint_first"] = counts(svf_cuda, lookup, fm)
+        kept = os.path.join(tmp, "song_ckpt_first.npz")
+        shutil.copy(path, kept)
+        reset_counts(svf_cuda, lookup, fm)
+        t = time.perf_counter()
+        resumed = checkpoint.render_resumable(song.build_performance(total), total, kept,
+                                              CHUNK, segment_chunks=SONG_SEGMENT,
+                                              device="cuda")
+        resume_s = time.perf_counter() - t
+        launches["checkpoint_resume"] = counts(svf_cuda, lookup, fm)
+        same = resumed.shape == song_mix.shape and np.array_equal(resumed, song_mix)
+        print(f"checkpoint: render_resumable(song, segment_chunks={SONG_SEGMENT}, "
+              f"device='cuda') interrupted after its first save ({first_s:.3f}s, the save "
+              f"{saved[0]:.3f}s, {os.path.getsize(kept) / 2 ** 20:.1f} MiB, launches "
+              f"{launches['checkpoint_first']}), resumed from that file in a fresh call "
+              f"({resume_s:.3f}s, launches {launches['checkpoint_resume']}): "
+              f"{'the song render bit for bit' if same else 'NOT the song render'} [{card}]")
+        left = n_song - SONG_SEGMENT
+        if launches["checkpoint_first"] != expect_counts(svf_table=SONG_SEGMENT):
+            raise AssertionError(f"checkpoint: first call launches {launches['checkpoint_first']}")
+        if launches["checkpoint_resume"] != expect_counts(svf_table=left):
+            raise AssertionError(f"checkpoint: resume launches {launches['checkpoint_resume']}")
+        if not same:
+            raise AssertionError("the resumed song is not phase 7's render")
+        out["checkpoint"] = dict(first_s=first_s, save_s=saved[0], resume_s=resume_s,
+                                 file_mib=os.path.getsize(kept) / 2 ** 20,
+                                 resumed_k1=launches["checkpoint_resume"]["svf_table"])
+        del resumed
+
+        # -- the HTTP render tier on localhost
+        with http.RenderHTTPServer(device="cuda", max_notes=1024) as srv:
+            status, data, _, _ = _http(srv, "GET", "/v1/examples")
+            menu = json.loads(data)
+            if status != 200 or "song" not in menu["examples"]:
+                raise AssertionError(f"the menu: {status} {data[:200]!r}")
+            http_t = {}
+
+            def served(label, method, path, body, expect, want_pcm=None):
+                reset_counts(svf_cuda, lookup, fm)
+                status, data, first, last = _http(srv, method, path, body)
+                torch.cuda.synchronize()
+                launches[label] = counts(svf_cuda, lookup, fm)
+                if status != 200:
+                    raise AssertionError(f"{label}: {status} {data[:300]!r}")
+                sr, ch, pcm = _wav_pcm(data)
+                print(f"{label}: {method} {path}: {len(data)} bytes, first byte "
+                      f"{first:.3f}s, last {last:.3f}s, launches {launches[label]} [{card}]")
+                if launches[label] != expect:
+                    raise AssertionError(f"{label}: launches {launches[label]}, "
+                                         f"expected {expect}")
+                if want_pcm is not None and not np.array_equal(pcm, want_pcm):
+                    raise AssertionError(f"{label}: the PCM is not the port's render mixed "
+                                         f"down")
+                http_t[label] = dict(first_byte_s=first, last_byte_s=last, bytes=len(data))
+                return sr, ch, pcm, data
+
+            for name in HTTP_EXAMPLES:
+                _, _, pcm, _ = served(f"http_{name}", "GET", f"/v1/render?example={name}",
+                                      None, launches[f"ex_{name}"])
+                audio, _ = examples.EXAMPLES[name](device="cuda")
+                want = mixdown_s16_np(audio.cpu().numpy(), 0.25)
+                if not np.array_equal(pcm, np.ascontiguousarray(want.T).reshape(-1)):
+                    raise AssertionError(f"http_{name}: not the port's example render")
+            with open(SCRIPT_FILE) as f:
+                script_body = {"script": f.read(), "module": "DemoSynth"}
+            # the port's own render of each request, counted: the served one
+            # must launch as much and be its bits mixed down
+            sperf, stotal = http._build_script_job({**script_body, "seconds": 4.0})
+            schunk = min(16384, stotal)
+            reset_counts(svf_cuda, lookup, fm)
+            want = mixdown_s16_np(render_performance(sperf, stotal, schunk, device="cuda")
+                                  .cpu().numpy(), 0.25)
+            ref = counts(svf_cuda, lookup, fm)
+            # the delay of 11,025 halves a 16,384-frame chunk: K2 twice a chunk
+            if ref != expect_counts(svf_dense=2 * -(-stotal // schunk)):
+                raise AssertionError(f"DemoSynth's render launched {ref}")
+            served("http_script", "POST", "/v1/render/script", dict(script_body), ref,
+                   want.reshape(-1))
+            with open(MIDI_FILE, "rb") as f:
+                mid = f.read()
+            nice = lambda pi, label: midi.stock_instruments()["nice"]()
+            mperf, mtotal = midi.midi_performance(mid, nice, seconds=HTTP_MIDI_SECONDS,
+                                                  skip_channels=(9,))
+            n_midi = len(mperf.parts) * -(-mtotal // midi.midi_chunk(mtotal))
+            reset_counts(svf_cuda, lookup, fm)
+            mwant = mixdown_s16_np(midi.render_midi(
+                mid, nice, seconds=HTTP_MIDI_SECONDS, skip_channels=(9,),
+                device="cuda").cpu().numpy(), 0.25)
+            if counts(svf_cuda, lookup, fm) != expect_counts(svf_table=n_midi):
+                raise AssertionError(f"render_midi launched {counts(svf_cuda, lookup, fm)}")
+            import base64
+
+            served("http_midi", "POST", "/v1/render/midi",
+                   {"midi_base64": base64.b64encode(mid).decode(), "instrument": "nice",
+                    "seconds": HTTP_MIDI_SECONDS}, expect_counts(svf_table=n_midi),
+                   mwant.reshape(-1))
+            torch.cuda.reset_peak_memory_stats()
+            sr, ch, pcm, data = served(
+                "http_stream", "GET", f"/v1/render/stream?config=song&seconds={seconds:g}",
+                None, expect_counts(svf_table=n_song), song_pcm)
+            http_t["http_stream"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            if (sr, ch, len(data)) != (int(song.SAMPLE_RATE), 1, 44 + 2 * total):
+                raise AssertionError(f"http_stream: {sr} Hz, {ch} channels, {len(data)} bytes")
+            stream_wav = os.path.join(tmp, "stream.wav")
+            with open(stream_wav, "wb") as f:
+                f.write(data)
+            del data
+
+            # a song, a sampler and a script job; each result fetched back
+            job_script = {**script_body, "seconds": 4.0}
+            reset_counts(svf_cuda, lookup, fm)
+            t = time.perf_counter()
+            status, data, _, _ = _http(srv, "POST", "/v1/render/batch", {"jobs": [
+                {"name": "song", "config": "song", "seconds": seconds},
+                {"name": "drums", "config": "sampler", "seconds": 10.0},
+                {"name": "synth", **job_script}]})
+            batch_s = time.perf_counter() - t
+            launches["http_batch"] = counts(svf_cuda, lookup, fm)
+            if status != 200:
+                raise AssertionError(f"http_batch: {status} {data[:300]!r}")
+            results = {r["name"]: r for r in json.loads(data)["results"]}
+            reset_counts(svf_cuda, lookup, fm)
+            sperf, stotal = http._build_script_job(dict(job_script))
+            swant = mixdown_s16_np(render_performance(sperf, stotal, CHUNK, device="cuda")
+                                   .cpu().numpy(), 0.25).reshape(-1)
+            script_k2 = counts(svf_cuda, lookup, fm)["svf_dense"]
+            expect = expect_counts(svf_table=n_song, svf_dense=script_k2,
+                                   table_lookup=-(-int(10.0 * configs.SAMPLE_RATE) // CHUNK))
+            print(f"http_batch: POST /v1/render/batch (song {seconds:g} s, sampler 10 s, "
+                  f"DemoSynth 4 s) in {batch_s:.3f}s: "
+                  f"{[(n, r['status'], r['rtf']) for n, r in results.items()]}, launches "
+                  f"{launches['http_batch']} [{card}]")
+            if launches["http_batch"] != expect:
+                raise AssertionError(f"http_batch: launches {launches['http_batch']}, "
+                                     f"expected {expect}")
+            for name, want in (("song", song_pcm), ("drums", config_pcm["sampler"].reshape(-1)),
+                               ("synth", swant)):
+                r = results[name]
+                if r["status"] != "ok":
+                    raise AssertionError(f"http_batch/{name}: {r}")
+                status, data, _, _ = _http(srv, "GET", r["url"])
+                if status != 200 or not np.array_equal(_wav_pcm(data)[2], want):
+                    raise AssertionError(f"http_batch/{name}: {r['url']} is not the port's "
+                                         f"render mixed down")
+            http_t["http_batch"] = dict(wall_s=batch_s,
+                                        job_rtf={n: r["rtf"] for n, r in results.items()})
+            status, data, _, _ = _http(srv, "POST", "/v1/render/script",
+                                       {"script": "Broken = defmodule begin out NoSuchThing() "
+                                                  "end"})
+            err = json.loads(data).get("error", "")
+            print(f"http: a bad script answers {status}: {err.splitlines()[:3]}")
+            if status != 400 or "^" not in err:
+                raise AssertionError(f"a bad script: {status} {err!r}")
+            status, data, _, _ = _http(srv, "GET", "/v1/stats")
+            stats = json.loads(data)
+            print(f"http: /v1/stats {stats}")
+            if status != 200 or stats["failures"] or stats["renders"] < 7:
+                raise AssertionError(f"http stats: {stats}")
+            out["http"] = dict(http_t, stats=stats)
+
+        # -- the visualizer on the streamed song's first seconds
+        audio, sr = read_wav_f32(stream_wav)
+        x = audio[0, :int(VISUAL_SECONDS * sr)]
+        t = time.perf_counter()
+        img = visual.render_image(x, sr, title="toccata")
+        png = os.path.join(tmp, "toccata.png")
+        visual.write_png(png, img)
+        vis_s = time.perf_counter() - t
+        w, h = _png_size(png)
+        print(f"visual: render_image of the streamed song's first {VISUAL_SECONDS:g} s -> "
+              f"{png} {w}x{h} in {vis_s:.3f}s (host)")
+        if (w, h) != (img.shape[1], img.shape[0]) or not img.any():
+            raise AssertionError("the visualizer's PNG")
+        out["visual"] = dict(width=w, height=h, seconds=vis_s)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # live sessions, fleets and the TCP server (phase 9b)
 
 LIVE_SECONDS = 10.0  # the Toccata's first 10 s (host/song.live_events)
@@ -2020,6 +2416,7 @@ def main() -> int:
             # plain path's affine scan at 4096 voices fits one chunk
             ("poly_echo_4096", "poly_echo", 8.0, 4096, "svf_onepass", 1, CHUNK),
             ("poly_echo_16384", "poly_echo", 8.0, 16384, "svf_onepass", 1, None)]
+    config_pcm = {}  # phase 11 holds the batch fleet's WAVs to these
     for name, config, seconds, voices, kname, per_chunk, plain_frames in runs:
         p = params[name]
         want = dict(seconds=seconds, sample_rate=44100.0)
@@ -2054,6 +2451,8 @@ def main() -> int:
             raise AssertionError(f"{name}: launches {launches[name]}, expected {expect}")
         if np.count_nonzero(pcm) < pcm.size // 2:
             raise AssertionError(f"the {name} render is mostly silent")
+        if name != "poly_echo_16384":
+            config_pcm[name] = pcm
         t = time.perf_counter()
         perf, _ = build()
         plan_s = time.perf_counter() - t
@@ -2091,7 +2490,6 @@ def main() -> int:
 
     # 7, 7b, 8. the flat song, the Toccata as an SMF, the zang-midi CLI, streaming
     run_flat_midi_stream(card, filters, fm, lookup, svf_cuda, launches, song_mix)
-    del song_mix
 
     # 9. the examples
     run_examples(examples, filters, fm, lookup, svf_cuda, card, launches)
@@ -2099,6 +2497,10 @@ def main() -> int:
     # 9b. live sessions, fleets and the TCP server
     live = run_live(card, dev, rng, fm, filters, svf_cuda, lookup, k2, k2_emulated, k2_device,
                     dense_err, dense_t, fm_err, fm_t, launches)
+
+    # 11. the serving tiers: the batch fleet, a checkpointed render, HTTP, the visualizer
+    serve = run_serve(card, filters, fm, lookup, svf_cuda, launches, song_mix, config_pcm)
+    del song_mix, config_pcm
 
     # 10. nothing of JAX
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "zang_tpu"))
@@ -2132,6 +2534,7 @@ def main() -> int:
         if not r["launches"]:
             raise AssertionError(f"{r['name']} was launched on no main path")
     print(json.dumps({"live": live}))
+    print(json.dumps({"serve": serve}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

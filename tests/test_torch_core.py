@@ -38,6 +38,8 @@ from zang_tpu_torch.host import song as tsong
 from zang_tpu_torch.ops import _build
 from zang_tpu_torch.ops import control as tctl
 
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "zang_tpu_torch")
 
@@ -203,6 +205,46 @@ def test_native_builds_into_the_port(tmp_path, monkeypatch):
     assert tnative.build() == 0.0  # cached by hash
 
 
+def test_threads_build_a_stem_once(tmp_path, monkeypatch):
+    """8 threads ask for one small C++ library at once through build_shared
+    with g++: the compiler runs once, every thread gets the one .so and
+    loads it, and no temp file is left behind."""
+    import ctypes
+    import shutil
+    import threading
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    src = tmp_path / "probe.cpp"
+    src.write_text('extern "C" int zt_probe(int x) { return 3 * x + 1; }\n')
+    runs = []
+
+    def gxx():
+        runs.append(threading.get_ident())
+        return shutil.which("g++")
+
+    barrier = threading.Barrier(8, timeout=60)
+    got, errors = [], []
+
+    def build():
+        try:
+            barrier.wait()
+            so = _build.build_shared(str(src), gxx, ["-O1", "-shared", "-fPIC"], "probe")
+            got.append((so, ctypes.CDLL(so).zt_probe(4)))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert len(runs) == 1
+    assert len(got) == 8 and len({so for so, _ in got}) == 1
+    assert all(v == 13 for _, v in got)
+    assert os.listdir(tmp_path / "build") == [os.path.basename(got[0][0])]
+
+
 def test_native_source_is_the_reference_copy():
     with open(os.path.join(ROOT, "zang_tpu", "core", "native", "zang_host.cpp")) as f:
         ref = f.read()
@@ -267,7 +309,10 @@ def test_port_modules_load_no_jax_package():
         "assert not bad, bad\n"
         "assert 'zang_tpu_torch.host.configs' in sys.modules\n"
         "assert 'zang_tpu_torch.script.torch_backend' in sys.modules\n"
-        "assert 'zang_tpu_torch.serve.server' in sys.modules\n")
+        "assert 'zang_tpu_torch.serve.server' in sys.modules\n"
+        "for m in ('serve.http', 'serve.batch', 'graph.checkpoint', 'host.visual',\n"
+        "          'serve.client'):\n"
+        "    assert 'zang_tpu_torch.' + m in sys.modules, m\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["ZANG_PLATFORM"] = "cpu"  # would make zang_tpu/__init__.py import jax
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -27,6 +27,8 @@ from zang_tpu_torch.host import instruments as tinstruments
 from zang_tpu_torch.host import render_wav
 from zang_tpu_torch.ops import delay as tdelay
 
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
+
 POLY = dict(num_voices=4, seconds=3.0, main_delay=3000, seed=7)  # tests/test_configs.py
 CHUNK = 16384
 

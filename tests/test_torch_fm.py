@@ -25,6 +25,8 @@ from zang_tpu.ops.scan import freq_to_ifreq as j_ifreq
 from zang_tpu.ops.scan import utof23 as j_utof23
 from zang_tpu_torch.ops import fm as tfm
 
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
+
 FB = np.float32(np.pi / 4)  # _FEEDBACK[3], the fmsynth example's
 SR = 48000.0
 WAVEFORMS = [0, 1, 2, 3]

@@ -21,6 +21,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from zang_tpu.core.notes import NoteTracker as JNoteTracker
 from zang_tpu.host import instruments as ji
@@ -39,6 +40,8 @@ from zang_tpu_torch.host.song import live_events
 from zang_tpu_torch.ops import delay as tdelay
 from zang_tpu_torch.script.compile import compile_script as tcompile
 from zang_tpu_torch.script.torch_backend import ScriptInstrument as TScript
+
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
 SR = 48000.0
 BLOCK = 1024

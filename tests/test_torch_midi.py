@@ -35,6 +35,8 @@ from zang_tpu_torch.host import midi as tmidi
 from zang_tpu_torch.host import songparse as tparse
 from zang_tpu_torch.tools import toccata_smf
 
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUDGET_DB = -90.0
 SCRIPT = os.path.join(ROOT, "zang_tpu_torch", "data", "demo_synth.txt")

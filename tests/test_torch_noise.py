@@ -21,6 +21,8 @@ from zang_tpu.ops import oscillators as josc
 from zang_tpu_torch.ops import noise as tnoise
 from zang_tpu_torch.ops import oscillators as tosc
 
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
+
 SEEDS = [0xA0D10, 0xDE7]  # the stereo and detuned examples' keys
 SR = 48000.0
 

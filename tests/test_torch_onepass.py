@@ -29,6 +29,8 @@ from zang_tpu_torch.host import instruments as tti
 from zang_tpu_torch.ops import filters as tfilt
 from zang_tpu_torch.ops import svf_cuda
 
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
+
 TYPES = ["low_pass", "band_pass", "high_pass", "notch", "all_pass"]
 
 

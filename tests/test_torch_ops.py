@@ -22,6 +22,8 @@ from zang_tpu_torch.ops import oscillators as tosc
 from zang_tpu_torch.ops import scan as tscan
 from zang_tpu_torch.ops import segprog as tseg
 
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
+
 WRAPS = np.array([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 31 + 1, 2 ** 32 - 1], np.uint32)
 
 

@@ -19,6 +19,8 @@ from zang_tpu_torch.core import mixdown as tmix
 from zang_tpu_torch.graph import fidelity as tfid
 from zang_tpu_torch.host import song as tsong
 
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
+
 TOTAL = 10 * 48000
 
 

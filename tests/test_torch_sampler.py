@@ -40,6 +40,8 @@ from zang_tpu_torch.ops import lookup
 from zang_tpu_torch.ops import sampler as tsam
 from zang_tpu_torch.ops import scan as tscan
 
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
+
 SR = 44100.0
 
 

@@ -56,6 +56,8 @@ from zang_tpu_torch.script.torch_backend import PlanError as TPlanError
 from zang_tpu_torch.script.torch_backend import ScriptInstrument as TScriptInstrument
 from zang_tpu_torch.script.tokenize import Tokenizer as TTokenizer
 
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 SR = 44100.0
 BUDGET_DB = -90.0

@@ -26,6 +26,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from zang_tpu.core.timeline import compile_timelines as jcompile_timelines
 from zang_tpu.graph.render import Performance as JPerformance
@@ -38,6 +39,8 @@ from zang_tpu_torch.graph.render import Performance as TPerformance
 from zang_tpu_torch.graph.render import render_performance as trender_performance
 from zang_tpu_torch.script import compile_script as tcompile
 from zang_tpu_torch.script.torch_backend import ScriptInstrument as TScriptInstrument
+
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
 _spec = importlib.util.spec_from_file_location(
     "_torch_fuzz_generators",

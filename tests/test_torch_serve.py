@@ -23,6 +23,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from zang_tpu.host import instruments as ji
 from zang_tpu.serve.live import LiveFleet as JLiveFleet
@@ -39,6 +40,8 @@ from zang_tpu_torch.serve.server import (
     builtin_instruments,
     list_instruments,
 )
+
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
 SR = 48000.0
 BLOCK = 1024

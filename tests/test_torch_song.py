@@ -28,6 +28,8 @@ from zang_tpu_torch.graph.fidelity import deviation_dbfs
 from zang_tpu_torch.host import render_wav
 from zang_tpu_torch.host import song as tsong
 
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "zang_tpu_torch", "data", "song_golden_jax.npz")
 SECONDS = 3.0

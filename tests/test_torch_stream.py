@@ -23,6 +23,8 @@ from zang_tpu_torch.graph import render as trender
 from zang_tpu_torch.host import configs as tconfigs
 from zang_tpu_torch.host import song as tsong
 
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
+
 BUDGET_DB = -90.0
 
 

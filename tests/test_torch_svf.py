@@ -23,6 +23,8 @@ from zang_tpu_torch.core import twelve_tet
 from zang_tpu_torch.ops import _build, svf_cuda
 from zang_tpu_torch.ops import filters as tfilt
 
+torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
+
 TYPES = ["low_pass", "band_pass", "high_pass", "notch", "all_pass"]
 
 

@@ -1,4 +1,4 @@
-"""Carry a zang_tpu Performance's programs and state, or a playing JAX
+"""Carry a zang_tpu Performance's programs, state and checkpoints, or a playing JAX
 LiveSession, across to the port.
 
 The tests feed both packages identical programs this way; the port's own
@@ -134,6 +134,19 @@ def from_jax_state(state, device):
         return torch.as_tensor(a, device=dev)
 
     return [conv(s) for s in states], conv(post)
+
+
+def from_jax_checkpoint(path: str, perf: Performance, device="cuda"):
+    """(chunk_index, state, audio) of a checkpoint that
+    zang_tpu.graph.checkpoint wrote, for the port's Performance of the same
+    piece (from_jax_performance's, or the port's own plan of it): the JAX
+    leaves, in its pytree order, mapped onto the port's state on `device`
+    (u32 counters as int64). Raises when the leaves do not fit that state
+    (another piece, or another instrument set). render_resumable(perf, ...,
+    path) resumes from such a file directly."""
+    from .graph.checkpoint import load_checkpoint
+
+    return load_checkpoint(path, perf.init_state(require_device(device)))
 
 
 # -- a playing LiveSession ----------------------------------------------------

@@ -12,6 +12,7 @@ build raises.
 import ctypes
 import os
 import shutil
+import threading
 
 import numpy as np
 
@@ -22,6 +23,7 @@ GXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off",
              "-fno-fast-math"]
 
 _lib = None
+_lib_lock = threading.Lock()
 
 
 def _gxx() -> str:
@@ -40,9 +42,17 @@ def build() -> float:
 
 
 def lib():
+    """The loaded library, its entries typed. Threads that ask at once load
+    it once; it is published only when typed."""
     global _lib
-    if _lib is not None:
-        return _lib
+    if _lib is None:
+        with _lib_lock:
+            if _lib is None:
+                _lib = _load()
+    return _lib
+
+
+def _load():
     _lib = ctypes.CDLL(_build.build_shared(SRC, _gxx, GXX_FLAGS, "zang_host"))
     _lib.zt_compile_timelines.restype = ctypes.c_int
     _lib.zt_compile_envelope.restype = ctypes.c_int

@@ -158,23 +158,27 @@ def make_stream_step(perf: Performance, chunk_size: int = 65536, *, device="cuda
     """One chunk's render of `perf` on `device` (the card unless the caller
     asks for the CPU), as a plain function
 
-        step(state, c0, xs_chunk) -> (state', audio [C, chunk_size])
+        step(state, c0, xs_chunk, programs=None) -> (state', audio [C, chunk_size])
 
     state: ((per-part states), post state), or None for perf.init_state;
     c0: the chunk's first frame; xs_chunk: that chunk's slice of
     perf.chunk_xs (numpy), uploaded here. The static programs go to the
     device once, when the step is made, so one step serves any number of
-    streams of the same perf."""
+    streams of the same perf. programs, if given, replaces them: the static
+    programs, already on the device, of another Performance with the same
+    instruments, voice counts and post chain (serve/batch.py shares one step
+    among such songs)."""
     dev = require_device(device)
     static = [_map_arrays(p, lambda a: _to_device(a, dev)) for p in perf.programs]
     base = torch.arange(chunk_size, dtype=torch.int32, device=dev)
 
-    def step(state, c0: int, xs_chunk):
+    def step(state, c0: int, xs_chunk, programs=None):
         if state is None:
             state = perf.init_state(dev)
         ctx = RenderCtx(perf.sample_rate, base + c0, c0, chunk_size)
         chunk_progs = _map_arrays(xs_chunk, lambda a: _to_device(a, dev))
-        return perf.render_chunk(state, chunk_progs, ctx, static)
+        return perf.render_chunk(state, chunk_progs, ctx,
+                                 static if programs is None else programs)
 
     return step
 

@@ -369,15 +369,19 @@ def stock_instruments() -> dict:
     }
 
 
-def _instrument_maker(name: str):
-    """Instrument name -> zero-arg factory: a stock instrument or a
-    zangscript FILE.txt[:Module] (it reads the named file) through the
-    port's script backend, the last exported module when none is named."""
+def _instrument_maker(name: str, allow_script: bool = True):
+    """Instrument name -> zero-arg factory: a stock instrument or (allow_script,
+    for trusted local callers only — it reads the named file) a zangscript
+    FILE.txt[:Module] through the port's script backend, the last exported
+    module when none is named."""
     import os
 
     stock = stock_instruments()
     if name in stock:
         return stock[name]
+    if not allow_script:
+        raise MidiError(
+            f"unknown instrument {name!r}; available: {sorted(stock)}")
     path, module = name, None
     if not os.path.exists(path) and ":" in path:
         path, _, module = path.rpartition(":")

@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -29,6 +30,13 @@ NVCC_FLAGS = [
 
 _loaded = {}  # source name -> ctypes.CDLL, one load per process
 build_seconds = {}  # library stem -> seconds spent compiling (0.0 if cached)
+_locks = {}  # library stem -> its lock: threads build and load a stem once
+_locks_lock = threading.Lock()
+
+
+def _stem_lock(stem: str) -> threading.Lock:
+    with _locks_lock:
+        return _locks.setdefault(stem, threading.Lock())
 
 
 def nvcc_path() -> str:
@@ -51,7 +59,11 @@ def build_shared(src: str, compiler, flags: list, stem: str, deps=()) -> str:
     unless that file exists; the hash covers the source, the files in deps
     (the headers it includes) and the flags. compiler is called only when a
     build is needed and returns the compiler's path. Returns the .so path. A
-    failed build raises with the compiler's stderr."""
+    failed build raises with the compiler's stderr.
+
+    Threads of one process build a stem one at a time (a lock per stem), and
+    processes each write a temp file of their own, named by process and
+    thread; os.replace puts it in place last, so no reader sees half a file."""
     h = hashlib.sha256()
     for path in (src, *sorted(deps)):
         with open(path, "rb") as f:
@@ -59,11 +71,13 @@ def build_shared(src: str, compiler, flags: list, stem: str, deps=()) -> str:
     h.update(" ".join(flags).encode())
     digest = h.hexdigest()[:16]
     so = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
-    build_seconds[stem] = 0.0
-    if not os.path.exists(so):
+    with _stem_lock(stem):
+        if os.path.exists(so):
+            build_seconds[stem] = 0.0
+            return so
         cc = compiler()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
+        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
         t = time.perf_counter()
         proc = subprocess.run([cc, *flags, "-o", tmp, src],
                               capture_output=True, text=True)
@@ -82,11 +96,12 @@ def library(name: str) -> ctypes.CDLL:
     """Load csrc/<name>.cu as a shared library, building it if needed."""
     if name in _loaded:
         return _loaded[name]
-    so = build_shared(os.path.join(SRC_DIR, name + ".cu"), nvcc_path, NVCC_FLAGS,
-                      name, deps=glob.glob(os.path.join(SRC_DIR, "*.cuh")))
-    lib = ctypes.CDLL(so)
-    _loaded[name] = lib
-    return lib
+    with _stem_lock("load:" + name):
+        if name not in _loaded:
+            so = build_shared(os.path.join(SRC_DIR, name + ".cu"), nvcc_path, NVCC_FLAGS,
+                              name, deps=glob.glob(os.path.join(SRC_DIR, "*.cuh")))
+            _loaded[name] = ctypes.CDLL(so)
+    return _loaded[name]
 
 
 def build(name: str) -> float:

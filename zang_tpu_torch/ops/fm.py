@@ -26,6 +26,7 @@ each lane with its own waveform, runs in one launch.
 """
 
 import ctypes
+import threading
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -38,6 +39,7 @@ from .scan import F32, as_f32, freq_to_ifreq, utof23
 Tensor = torch.Tensor
 PI = 3.14159265358979323846  # rounded to f32 where used
 
+_count_lock = threading.Lock()  # the counts below are read across threads
 fm_feedback_launches = 0
 
 _C = ctypes.c_void_p
@@ -159,7 +161,8 @@ def fm_feedback_cuda(base: Tensor, feedback: Union[Number, Tensor],
                                     stream)
     if err != 0:
         raise RuntimeError(f"fm_feedback kernel launch failed: cudaError_t {err}")
-    fm_feedback_launches += 1
+    with _count_lock:  # worker threads launch too
+        fm_feedback_launches += 1
     return out, f1, f2
 
 

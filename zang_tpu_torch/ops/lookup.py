@@ -17,11 +17,13 @@ either entry.
 """
 
 import ctypes
+import threading
 
 import torch
 
 from . import _build
 
+_count_lock = threading.Lock()  # the counts below are read across threads
 table_lookup_launches = 0
 
 _C = ctypes.c_void_p
@@ -124,7 +126,8 @@ def table_lookup_cuda(idx: torch.Tensor, sel: torch.Tensor,
     out = idx.new_empty(idx.shape, dtype=_F32)
     _launch("zt_table_lookup", d, idx.data_ptr(), sel.data_ptr(), table.data_ptr(),
             out.data_ptr(), idx.numel(), table.shape[0])
-    table_lookup_launches += 1
+    with _count_lock:  # worker threads launch too
+        table_lookup_launches += 1
     return out
 
 
@@ -146,7 +149,8 @@ def sampler_taps_cuda(idx_a: torch.Tensor, idx_b: torch.Tensor, table: torch.Ten
     out = idx_a.new_empty((2, *idx_a.shape), dtype=_F32)
     _launch("zt_sampler_taps", d, idx_a.data_ptr(), idx_b.data_ptr(), table.data_ptr(),
             out.data_ptr(), idx_a.numel(), num_samples, 1 if loop else 0)
-    table_lookup_launches += 1
+    with _count_lock:  # worker threads launch too
+        table_lookup_launches += 1
     return out
 
 

@@ -21,6 +21,7 @@ svf_onepass_launches count the launches.
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -28,6 +29,7 @@ import torch
 
 from . import _build
 
+_count_lock = threading.Lock()  # the counts below are read across threads
 svf_table_launches = 0
 svf_dense_launches = 0
 svf_onepass_launches = 0
@@ -197,7 +199,8 @@ def svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
     ret = _launch_table_cut(
         "svf_table", l0, b0, x, filter_type, tb, cutv, res, t0, active_from, None,
         extra=_svf_table_launch)
-    svf_table_launches += 1
+    with _count_lock:  # worker threads launch too
+        svf_table_launches += 1
     return ret
 
 
@@ -337,7 +340,8 @@ def svf_onepass_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None
                              "finished tiles over rows it has yet to read")
     ret = _launch_table_cut("svf_onepass", l0, b0, x, filter_type, tb, cutv, res, t0,
                             active_from, out)
-    svf_onepass_launches += 1
+    with _count_lock:  # worker threads launch too
+        svf_onepass_launches += 1
     return ret
 
 
@@ -448,7 +452,8 @@ def svf_dense_cuda(l0, b0, x, filter_type, cutoff, res, active=None):
             g.threads, shared, stream)
     if err != 0:
         raise RuntimeError(f"svf_dense kernel launch failed: cudaError_t {err}")
-    svf_dense_launches += 1
+    with _count_lock:  # worker threads launch too
+        svf_dense_launches += 1
     return l_end, b_end, out
 
 

@@ -1,6 +1,5 @@
 """Interactive terminal client for LiveServer: play the synth from stdin
-(a copy of zang_tpu/serve/client.py, without the live visualizer, which
-needs host/visual.py: not ported yet).
+(a copy of zang_tpu/serve/client.py).
 
 The reference's interactive host is an SDL event loop — key-downs/ups
 push impulses, the audio callback streams blocks out, backquote toggles
@@ -19,11 +18,16 @@ Keys: two-row musical layout plays notes; "`" cycles the keypress
 recorder — record a performance, loop it back into the lane, off
 (examples/recorder.zig semantics, including held-key drains at mode
 changes and loop seams); "~" toggles a server-side WAV take (an
-addition beyond the reference); "1" prints serving stats. A VU bar shows
-the level. Up/Down select a live parameter, Left/Right step it, Backspace
-randomizes them all (the reference's Parameter panel,
-examples/example.zig:324-392); Esc / Ctrl-C / Ctrl-D quit. Pipe mode
-accepts UP/DOWN/LEFT/RIGHT/BS tokens.
+addition beyond the reference); "1" prints serving stats;
+"2" cycles the live visual (VU bar -> one-line waveform/spectrum/scope
+sparklines -> the full panels); F1-F6 jump straight to the reference's
+visualizer screens (examples/visual.zig:943-1231): F1 help, F2 main
+(waveform + spectrum), F3 synced oscilloscope, F4 full FFT, F5 params
+overlay, F6 back to the VU bar — re-pressing a panel's key toggles it
+off, as the reference does. Up/Down select a live parameter, Left/Right
+step it, Backspace randomizes them all (the reference's Parameter
+panel, examples/example.zig:324-392); Esc / Ctrl-C / Ctrl-D quit. Pipe
+mode accepts UP/DOWN/LEFT/RIGHT/BS/F1..F6 tokens.
 
 Run a server first (python -m zang_tpu_torch.serve.server), then:
     python -m zang_tpu_torch.serve.client --port 9800 --wav take.wav
@@ -73,6 +77,11 @@ class TerminalPlayer:
         self.level = 0.0  # peak of the last block, 0..1
         self.recording_file: Optional[str] = None
         self.last_stats: Optional[dict] = None
+        # live visual mode (the reference's F1-F6 visualizer modes,
+        # examples/visual.zig:943-1231, on one terminal line): None = VU
+        # bar, else "wave" | "spec" | "scope" sparklines of each block
+        self.visual_mode: Optional[str] = None
+        self._panel_height = 0  # lines of the last multi-line panel drawn
         # live parameter panel state (filled by the "params" ack)
         self.param_specs: Optional[list] = None
         self.param_values: Optional[dict] = None
@@ -290,6 +299,8 @@ class TerminalPlayer:
     def _print_param(self) -> None:
         if not self.param_specs or self.param_values is None:
             return
+        if self.visual_mode == "params":
+            return  # the params panel redraws with every block
         s = self.param_specs[self.param_sel]
         val = self.param_values.get(s["name"], 0)
         desc = (s.get("desc") or s["name"]).strip()
@@ -339,7 +350,12 @@ class TerminalPlayer:
                 now = time.monotonic()
                 if not self.quiet and now - last_vu > 0.1:
                     last_vu = now
-                    self._print_vu()
+                    if self.visual_mode is None:
+                        self._print_vu()
+                    elif self.visual_mode in self._PANEL_MODES:
+                        self._print_panel(v)
+                    else:
+                        self._print_visual(v)
             elif kind == "record_started":
                 with self._lock:
                     self.recording_file = v["file"]
@@ -458,6 +474,198 @@ class TerminalPlayer:
 
         return mixdown_s16_np(block, 1.0)
 
+    # one-line sparkline modes, then the reference's full panels
+    # (examples/visual.zig:943-1231: F1 help, F2 main, F3 oscilloscope,
+    # F4 full FFT, F5 params)
+    _VISUAL_MODES = (None, "wave", "spec", "scope",
+                     "help", "main", "oscope", "fft", "params")
+    _PANEL_MODES = ("help", "main", "oscope", "fft", "params")
+    _SPARK = " ▁▂▃▄▅▆▇█"
+    PANEL_WIDTH = 64
+    PANEL_ROWS = 6  # raster height of the wave/spectrum/scope grids
+
+    def cycle_visual(self) -> None:
+        """Step through every visual mode on one key (terminals that
+        swallow F-keys still reach the panels this way)."""
+        modes = self._VISUAL_MODES
+        self.set_visual(modes[(modes.index(self.visual_mode) + 1)
+                              % len(modes)])
+
+    def set_visual(self, mode) -> None:
+        """Select a visual mode directly (F1-F6 analog: "help", "main",
+        "oscope", "fft", "params"; None = VU bar)."""
+        if mode == self.visual_mode:
+            mode = None  # reference toggles a panel off on its own key
+        prev_panel = self._panel_height
+        self.visual_mode = mode
+        self._panel_height = 0
+        if prev_panel and not self.quiet:
+            sys.stderr.write("\n")
+            sys.stderr.flush()
+        if mode == "params":
+            self._ensure_params()
+        self._note(f"visual: {mode or 'vu'}")
+
+    @classmethod
+    def _spark(cls, vals) -> str:
+        """0..1 values -> block-character sparkline."""
+        q = np.clip((np.asarray(vals) * 8.999).astype(int), 0, 8)
+        return "".join(cls._SPARK[i] for i in q)
+
+    @classmethod
+    def _raster(cls, vals, rows: int) -> list:
+        """0..1 values -> `rows` terminal lines of a column bar raster
+        (top row = 1.0). Each column fills from the bottom with a partial
+        block character at the boundary row."""
+        v = np.clip(np.asarray(vals, np.float64), 0.0, 1.0) * rows
+        lines = []
+        for r in range(rows - 1, -1, -1):  # top row first
+            frac = np.clip(v - r, 0.0, 1.0)
+            q = np.clip((frac * 8.999).astype(int), 0, 8)
+            lines.append("".join(cls._SPARK[i] for i in q))
+        return lines
+
+    @classmethod
+    def _raster_bipolar(cls, vals, rows: int) -> list:
+        """-1..1 waveform -> `rows` lines drawn around a center line."""
+        return cls._raster(np.asarray(vals) * 0.5 + 0.5, rows)
+
+    def _sync_freq(self, x: np.ndarray, sr: float):
+        """Estimate the playing frequency from upward zero crossings (the
+        reference syncs its oscilloscope to the synth's sync channel,
+        visual.zig DrawOscilloscope; the wire carries audio only)."""
+        sign = np.signbit(x)
+        ups = np.nonzero(sign[:-1] & ~sign[1:])[0]
+        if len(ups) < 3:
+            return None
+        period = float(np.median(np.diff(ups)))
+        if period < 2.0:
+            return None
+        return sr / period
+
+    # -- full panels (reference F1-F6 screens, visual.zig:943-1231) ---------
+
+    def render_panel(self, block) -> list:
+        """The current panel as a list of terminal lines (pure compute —
+        tests assert on this; _print_panel does the ANSI redraw)."""
+        from ..host import visual as vz
+
+        mode = self.visual_mode
+        W = self.PANEL_WIDTH
+        R = self.PANEL_ROWS
+        if mode == "help":
+            return [
+                "── help ─ keys ────────────────────────────────",
+                " two-row layout plays notes   1 stats",
+                " ` record/loop-playback   ~ WAV take",
+                " 2 cycle visuals   F1 help  F2 main  F3 scope",
+                " F4 full FFT  F5 params (Up/Down select,",
+                " Left/Right step, Backspace randomize)   Esc quit",
+            ]
+        if mode == "params":
+            lines = ["── params ─────────────────────────────────────"]
+            if not self.param_specs:
+                lines.append(" (instrument has no live parameters)")
+                return lines
+            vals = self.param_values or {}
+            for i, s in enumerate(self.param_specs):
+                mark = ">" if i == self.param_sel else " "
+                desc = (s.get("desc") or s["name"]).strip()
+                lines.append(f"{mark} {desc:<38.38s} "
+                             f"{vals.get(s['name'], 0):>4} "
+                             f"(0..{s['num_values'] - 1})")
+            return lines
+        x = np.asarray(block[0], np.float32) / self._full_scale
+        sr = float(self.client.welcome["sample_rate"])
+        if mode == "main":
+            # waveform envelope + spectrum, the reference's main screen
+            cols = vz.waveform_frame(x, width=W)
+            env = np.abs(cols).max(axis=1)
+            mag = vz.spectrum_frame(x)
+            edges = (np.arange(W + 1) * len(mag)) // W
+            bins = np.array([mag[a:b].max() if b > a else 0.0
+                             for a, b in zip(edges[:-1], edges[1:])])
+            spec = np.clip(bins / np.log1p(len(mag)), 0.0, 1.0)
+            lines = ["── main ─ waveform ────────────────────────────"]
+            lines += self._raster(env, max(2, R // 2))
+            lines.append("── spectrum ───────────────────────────────────")
+            lines += self._raster(spec, max(2, R // 2))
+            lines.append(self._status_line())
+            return lines
+        if mode == "oscope":
+            win = vz.oscilloscope_frame(x, self._sync_freq(x, sr), sr,
+                                        width=W)
+            lines = ["── oscilloscope (synced) ──────────────────────"]
+            lines += self._raster_bipolar(win, R)
+            lines.append(self._status_line())
+            return lines
+        # full FFT: log-frequency bins over the whole spectrum
+        mag = vz.spectrum_frame(x, fft_size=1024)
+        nb = len(mag)
+        # logarithmic bin edges (the reference's full-FFT view is log-x)
+        edges = np.unique(np.clip(
+            np.round(np.exp(np.linspace(0, np.log(nb), W + 1))).astype(int),
+            1, nb))
+        bins = np.zeros(W)
+        for c in range(min(W, len(edges) - 1)):
+            a, b = edges[c], edges[c + 1]
+            bins[c] = mag[a:b].max() if b > a else (mag[a - 1] if a <= nb else 0)
+        vals = np.clip(bins / np.log1p(nb), 0.0, 1.0)
+        lines = ["── full FFT (log f) ───────────────────────────"]
+        lines += self._raster(vals, R)
+        lines.append(self._status_line())
+        return lines
+
+    def _status_line(self) -> str:
+        rec = " REC" if self.recording_file else ""
+        if self.recorder.state == "recording":
+            rec += " `rec"
+        elif self.recorder.state == "playing":
+            rec += " `loop"
+        return ("level %5.1f%%  blocks %d%s"
+                % (min(self.level, 1.0) * 100, self.blocks_received, rec))
+
+    def _print_panel(self, block) -> None:
+        lines = self.render_panel(block)
+        out = []
+        if self._panel_height:
+            out.append("\x1b[%dA" % self._panel_height)  # cursor up
+        for ln in lines:
+            out.append("\r\x1b[K" + ln + "\n")
+        sys.stderr.write("".join(out))
+        sys.stderr.flush()
+        self._panel_height = len(lines)
+
+    def _print_visual(self, block: np.ndarray) -> None:
+        """One-line live visualization of the newest block (channel 0),
+        built on the same frame computations as the offline renderer
+        (host/visual.py; examples/visual.zig:205-791's widgets)."""
+        from ..host import visual as vz
+
+        x = np.asarray(block[0], np.float32) / self._full_scale
+        width = 48
+        mode = self.visual_mode
+        if mode == "wave":
+            cols = vz.waveform_frame(x, width=width)
+            vals = np.abs(cols).max(axis=1)  # envelope magnitude per column
+            label = "wav"
+        elif mode == "spec":
+            mag = vz.spectrum_frame(x)  # log1p |FFT|, fft_size/2 bins
+            edges = (np.arange(width + 1) * len(mag)) // width
+            bins = np.array([mag[a:b].max() if b > a else 0.0
+                             for a, b in zip(edges[:-1], edges[1:])])
+            # fixed scale: a full-scale sine peaks at |FFT| = fft_size/2
+            vals = np.clip(bins / np.log1p(len(mag)), 0.0, 1.0)
+            label = "fft"
+        else:  # scope
+            sr = float(self.client.welcome["sample_rate"])
+            win = vz.oscilloscope_frame(x, None, sr, width=width)
+            vals = np.clip(win * 0.5 + 0.5, 0.0, 1.0)  # -1..1 -> 0..1
+            label = "osc"
+        rec = " REC" if self.recording_file else ""
+        sys.stderr.write("\r%s[%s]%s " % (label, self._spark(vals), rec))
+        sys.stderr.flush()
+
     def _print_vu(self) -> None:
         bar = int(min(self.level, 1.0) * 40)
         rec = " REC" if self.recording_file else ""
@@ -503,6 +711,12 @@ class TerminalPlayer:
 
     def __exit__(self, *exc):
         self.stop()
+
+
+# F-key -> visualizer screen (reference visual.zig:943-1231); F6 returns
+# to the VU bar
+_FKEY_PANELS = {"F1": "help", "F2": "main", "F3": "oscope", "F4": "fft",
+                "F5": "params", "F6": None}
 
 
 def _stdin_keys():
@@ -652,6 +866,11 @@ def main(argv=None) -> int:
                         player.toggle_recording()
                     elif ch == "1":
                         player.request_stats()
+                    elif ch == "2":
+                        player.cycle_visual()
+                    # reference visualizer screens (visual.zig:943-1231)
+                    elif ch in _FKEY_PANELS:
+                        player.set_visual(_FKEY_PANELS[ch])
                     # live parameter panel (example.zig:324-392)
                     elif ch == "UP":
                         player.param_select(-1)
@@ -684,6 +903,8 @@ def main(argv=None) -> int:
                         player.param_step(-1 if key == "LEFT" else 1)
                     elif key == "BS":
                         player.param_randomize()
+                    elif key in _FKEY_PANELS:
+                        player.set_visual(_FKEY_PANELS[key])
                     elif key == "`":  # recorder cycle, as in tty mode
                         player.cycle_recorder()
                     elif key == "~":  # server-side WAV take toggle
