@@ -202,12 +202,34 @@ each of which raises on failure:
                   /v1/stats
        visual     render_image of the streamed song's first 10 s, written
                   as a PNG and parsed back (CRCs, size)
+  12. several devices (zang_tpu_torch/parallel/mesh.py), each launch of
+     ranks one process a device (spawned; a file:// rendezvous), every
+     rank's launch counts set to 0 just before its render and read just
+     after, its kernel by its own voice count:
+       (a)        NCCL at one rank on cuda:0: the whole song and poly_echo at
+                  16384 voices x 8 s, each bit for bit with phase 7's
+                  render_performance (282 K1; 6 K3)
+       (b)        two ranks on cuda:0 through gloo (NCCL refuses two ranks
+                  on one card): the same two pieces padded to 2, each rank
+                  at half the voices (282 K1 a rank; 6 K3 a rank), within
+                  -120 dBFS of phase 7's renders, the song also within the
+                  parity budget of the JAX golden windows, both ranks' mixes
+                  the same bits; a rank's voices, kernel, timelines, plan,
+                  slice and render seconds and peak device memory
+       (c)        with two cards or more, (b) through NCCL over every card
+       (d)        the live fleet at 256 lanes (block 4096, the Toccata's
+                  first 5 s: phase 9b's live_fleet_256 cut to 59 blocks)
+                  on one card and with its lanes in a group a device of
+                  [cuda:0, cuda:0] (every card when there are two), in
+                  turns: one K2 a group and block, every block within 1e-6
+                  of the one-group fleet's, median and p99 block times
+                  beside PERF.md §5's live_fleet_256
   10. no module of jax or of zang_tpu was imported (checked last)
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds; before the
-card's line, {"live": ...} holds phase 9b's block times and fidelity and
-{"serve": ...} phase 11's numbers. Exits non-zero, printing no result,
+card's line, {"live": ...} holds phase 9b's block times and fidelity,
+{"serve": ...} phase 11's numbers and {"multi_gpu": ...} phase 12's. Exits non-zero, printing no result,
 without CUDA or outside a checkout of the repo.
 """
 
@@ -745,19 +767,18 @@ def fm_bytes_ops(V, n):
 
 
 def counts(svf_cuda, lookup, fm):
-    return {"svf_table": svf_cuda.svf_table_launches,
-            "svf_dense": svf_cuda.svf_dense_launches,
-            "svf_onepass": svf_cuda.svf_onepass_launches,
-            "table_lookup": lookup.table_lookup_launches,
-            "fm_feedback": fm.fm_feedback_launches}
+    """The five kernels' launch counts in this process (each wrapper's own
+    counter, read through zang_tpu_torch/parallel/mesh.py, which a rank
+    reads too)."""
+    from zang_tpu_torch.parallel.mesh import launch_counts
+
+    return launch_counts()
 
 
 def reset_counts(svf_cuda, lookup, fm):
-    svf_cuda.svf_table_launches = 0
-    svf_cuda.svf_dense_launches = 0
-    svf_cuda.svf_onepass_launches = 0
-    lookup.table_lookup_launches = 0
-    fm.fm_feedback_launches = 0
+    from zang_tpu_torch.parallel.mesh import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def expect_counts(**n):
@@ -2004,6 +2025,209 @@ def run_live(card, dev, rng, fm, filters, svf_cuda, lookup, k2, k2_emulated, k2_
     return out
 
 
+# ---------------------------------------------------------------------------
+# several devices: voice-sharded renders, one process a device, and the live
+# fleet's lanes over devices (phase 12)
+
+SHARD_TOL_DB = -120.0  # W ranks against one: the voice sum reordered (tests/test_parallel.py:45-47)
+SHARD_TIMEOUT = 600.0  # seconds one launch of ranks may take
+SHARD_POLY_VOICES = 16384  # poly_echo's voices in (a)-(c): bench_poly's largest
+SHARD_POLY_SECONDS = 8.0
+FLEET_LANES = 256  # zang-serve's cap; block 4096 (bench.py bench_fleet)
+FLEET_SECONDS = 5.0  # the Toccata's first 5 s: 59 blocks a turn
+# live_fleet_256's median and p99 block (ms) on an H100 at 700 W, PERF.md §5's table
+FLEET_256_MS = (60.713, 166.279)
+
+
+def song_golden():
+    import numpy as np
+
+    return np.load(os.path.join(ROOT, "zang_tpu_torch", "data", "song_golden_jax.npz"))
+
+
+def shard_jobs(tmp, tag, multiple):
+    """The whole song (the merged organ) and poly_echo at SHARD_POLY_VOICES x
+    8 s as RenderJobs, padded to `multiple`; rank 0 saves each mix in tmp."""
+    import functools
+
+    from zang_tpu_torch.host import configs, song
+    from zang_tpu_torch.parallel import RenderJob
+
+    total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
+    return [
+        ("song", RenderJob(functools.partial(song.song_build, total, multiple), total,
+                           CHUNK, os.path.join(tmp, f"{tag}_song.npy"))),
+        (f"poly_echo_{SHARD_POLY_VOICES}",
+         RenderJob(functools.partial(configs.poly_echo_build, SHARD_POLY_VOICES,
+                                     SHARD_POLY_SECONDS, multiple=multiple),
+                   int(SHARD_POLY_SECONDS * configs.SAMPLE_RATE), CHUNK,
+                   os.path.join(tmp, f"{tag}_poly.npy"))),
+    ]
+
+
+def run_sharded(card, tag, mesh, launches, want, gold):
+    """One launch of ranks over `mesh` (run_ranks with render_rank, as
+    render_performance_sharded runs them) rendering the song and poly_echo.
+    Each mix against the one-card render in `want` (bit for bit at one rank,
+    else within SHARD_TOL_DB on every channel), the song also against the
+    JAX golden windows; every rank's bits alike; each rank's kernel by its
+    own voice count (filters.svf_table_route). The launches, summed over
+    the ranks, go into `launches` as "<piece>_<tag>". Returns the ranks'
+    numbers."""
+    import tempfile
+
+    import numpy as np
+
+    from zang_tpu_torch.ops import filters
+    from zang_tpu_torch.parallel import render_rank, run_ranks
+
+    W = mesh.size
+    where = ", ".join(str(d) for d in mesh.devices)
+    with tempfile.TemporaryDirectory(prefix="zang_shard_") as tmp:
+        jobs = shard_jobs(tmp, tag, W)
+        t = time.perf_counter()
+        stats = run_ranks(render_rank, mesh, [job for _, job in jobs], timeout=SHARD_TIMEOUT)
+        wall = time.perf_counter() - t
+        mixes = [np.load(job.out_path) for _, job in jobs]
+    print(f"{tag}: {W} rank(s), one process each, on {where} through {mesh.backend}: the "
+          f"song and poly_echo_{SHARD_POLY_VOICES} in {wall:.3f}s (the processes' start "
+          f"included) [{card}]")
+    out = {"ranks": W, "devices": [str(d) for d in mesh.devices], "backend": mesh.backend,
+           "wall_s": wall}
+    for i, ((name, job), mix) in enumerate(zip(jobs, mixes)):
+        ranks = [r[i] for r in stats]
+        total_launches = expect_counts()
+        for r in ranks:
+            V = max(r["voices"])
+            kname = ("svf_onepass" if name.startswith("poly_echo")
+                     and V >= filters.ONEPASS_V_MIN else "svf_table")
+            n_chunks = -(-job.total_frames // job.chunk_size)
+            if r["launches"] != expect_counts(**{kname: n_chunks}):
+                raise AssertionError(f"{tag} {name} rank {r['rank']}: launches "
+                                     f"{r['launches']}, expected {n_chunks} {kname}")
+            peak = r["peak_gib"]
+            print(f"  {name} rank {r['rank']} on {r['device']}: voices {r['voices']}, ran "
+                  f"{kname} x {r['launches'][kname]}; timelines {r['build_s']:.3f}s, plan "
+                  f"{r['plan_s']:.3f}s, slice {r['slice_s']:.3f}s, render {r['render_s']:.3f}s, "
+                  f"peak device memory {peak:.2f} GiB [{card}]")
+            if not peak < 64.0:
+                raise AssertionError(f"{tag} {name}: peak device memory {peak:.2f} GiB")
+            for k, v in r["launches"].items():
+                total_launches[k] += v
+        launches[f"{name}_{tag}"] = total_launches
+        if len({r["digest"] for r in ranks}) != 1:
+            raise AssertionError(f"{tag} {name}: the ranks' mixes differ")
+        if not np.isfinite(mix).all() or mix.shape != want[name].shape:
+            raise AssertionError(f"{tag} {name}: {mix.shape}, or not finite")
+        if W == 1:
+            same = np.array_equal(mix, want[name])
+            print(f"  {name}: {'bit for bit' if same else 'NOT bit for bit'} with the "
+                  f"one-card render_performance (phase 7)")
+            if not same:
+                raise AssertionError(f"{tag} {name}: not render_performance's bits at one rank")
+            dbs = [-np.inf]
+        else:
+            dbs = [rms_db(mix[ch], want[name][ch]) for ch in range(mix.shape[0])]
+            print(f"  {name}: {max(dbs):.1f} dBFS from the one-card render (phase 7; bound "
+                  f"{SHARD_TOL_DB}); the {W} ranks' mixes the same bits")
+            if not max(dbs) < SHARD_TOL_DB:
+                raise AssertionError(f"{tag} {name}: {max(dbs):.1f} dBFS from one card")
+        if name == "song":
+            check_golden(gold["windows"], gold["offsets"], gold["chunk_rms"], mix[0],
+                         f"{tag} song")
+        out[name] = {"vs_one_card_db": max(dbs), "ranks": [
+            {k: r[k] for k in ("device", "voices", "build_s", "plan_s", "slice_s",
+                               "render_s", "peak_gib", "launches")} for r in ranks]}
+    return out
+
+
+def run_lane_fleet(card, launches, devices):
+    """(d): the live fleet at FLEET_LANES lanes, block 4096, the Toccata's
+    first FLEET_SECONDS (phase 9b's live_fleet_256, shorter), on one device
+    and with its lanes in a group a device of `devices`, in turns (one,
+    groups, groups, one): one K2 a group and block, every block within
+    LIVE_TOL_LANES of the one-device fleet's; block times beside PERF.md
+    §5's."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from profile_torch import live_runner
+
+    from zang_tpu_torch.host.song import SAMPLE_RATE
+    from zang_tpu_torch.ops import fm, lookup, svf_cuda
+    from zang_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=devices, axis="lanes")
+    block = 4096
+    audio, out = {}, {"devices": [str(d) for d in mesh.devices]}
+    for turn, m in enumerate((None, mesh, mesh, None)):
+        key = "one_group" if m is None else f"{m.size}_groups"
+        render, n = live_runner(FLEET_LANES, block, FLEET_SECONDS, mesh=m)
+        reset_counts(svf_cuda, lookup, fm)
+        a = render()
+        c = counts(svf_cuda, lookup, fm)
+        groups = 1 if m is None else m.size
+        if c != expect_counts(svf_dense=n * groups):
+            raise AssertionError(f"live_fleet_{FLEET_LANES} {key}: launches {c}, expected "
+                                 f"one K2 a group and block ({n * groups})")
+        if m is not None and turn == 1:
+            launches[f"live_fleet_{FLEET_LANES}_mesh"] = c
+        if not (np.isfinite(a).all() and np.abs(a).max() > 0.01):
+            raise AssertionError(f"live_fleet_{FLEET_LANES} {key}: silent or not finite")
+        audio.setdefault(key, a)
+        bt = block_times(render.times, block, SAMPLE_RATE, FLEET_LANES)
+        out.setdefault(key, []).append(bt)
+        print(f"live_fleet_{FLEET_LANES}, {key} ({', '.join(out['devices']) if m else 'cuda:0'}):"
+              f" {n} blocks, K2 {c['svf_dense']} ({groups} a block); block median "
+              f"{bt['median_ms']:.3f} ms, p99 {bt['p99_ms']:.3f} ms, best {bt['best_ms']:.3f} "
+              f"ms of {bt['budget_ms']:.1f} (PERF.md §5's live_fleet_256: {FLEET_256_MS[0]} / "
+              f"{FLEET_256_MS[1]} ms) [{card}]")
+        del render, a
+    keys = sorted(audio)
+    diff = float(np.abs(audio[keys[0]] - audio[keys[1]]).max())
+    out["max_abs_diff"] = diff
+    print(f"  live_fleet_{FLEET_LANES}: {keys[1]} vs {keys[0]} over {n} blocks: max |diff| "
+          f"{diff:.3e} (<= {LIVE_TOL_LANES})")
+    if not diff <= LIVE_TOL_LANES:
+        raise AssertionError(f"live_fleet_{FLEET_LANES}: the lane groups are off the fleet")
+    return out
+
+
+def run_multi_gpu(card, launches, song_mix, poly_mix):
+    """Phase 12: (a) NCCL at one rank on cuda:0, bit for bit; (b) two gloo
+    ranks on cuda:0; (c) NCCL over every card when there are two or more;
+    (d) the lane-sharded live fleet. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from zang_tpu_torch.parallel import make_mesh
+
+    gold = song_golden()
+    want = {"song": song_mix, f"poly_echo_{SHARD_POLY_VOICES}": poly_mix}
+    torch.cuda.empty_cache()  # the ranks' processes share the card with this one
+    out = {}
+    mesh = make_mesh(1)
+    if mesh.backend != "nccl":
+        raise AssertionError(f"one card: backend {mesh.backend}")
+    out["a_nccl_1"] = run_sharded(card, "a_nccl_1", mesh, launches, want, gold)
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    print(f"(b): two ranks on one card (cuda:0, cuda:0), backend {mesh.backend}")
+    if mesh.backend != "gloo":
+        raise AssertionError(f"two ranks on one card: backend {mesh.backend}")
+    out["b_gloo_2_one_card"] = run_sharded(card, "b_gloo_2", mesh, launches, want, gold)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        mesh = make_mesh(n_cards)
+        out[f"c_nccl_{n_cards}"] = run_sharded(card, f"c_nccl_{n_cards}", mesh, launches,
+                                               want, gold)
+    else:
+        print("(c): one card, so no NCCL run over distinct cards")
+    fleet_devices = (["cuda:0", "cuda:0"] if n_cards < 2
+                     else [f"cuda:{i}" for i in range(n_cards)])
+    out["d_fleet"] = run_lane_fleet(card, launches, fleet_devices)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2417,6 +2641,7 @@ def main() -> int:
             ("poly_echo_4096", "poly_echo", 8.0, 4096, "svf_onepass", 1, CHUNK),
             ("poly_echo_16384", "poly_echo", 8.0, 16384, "svf_onepass", 1, None)]
     config_pcm = {}  # phase 11 holds the batch fleet's WAVs to these
+    poly16_mix = None  # phase 12 holds the sharded renders to it
     for name, config, seconds, voices, kname, per_chunk, plain_frames in runs:
         p = params[name]
         want = dict(seconds=seconds, sample_rate=44100.0)
@@ -2474,6 +2699,8 @@ def main() -> int:
             raise AssertionError(f"two renders of {name} differ")
         audio_np = audio.cpu().numpy()
         del audio
+        if name == "poly_echo_16384":
+            poly16_mix = audio_np
         check_golden(cgold[f"{name}_windows"], cgold[f"{name}_offsets"],
                      cgold[f"{name}_chunk_rms"], audio_np, name)
         if plain_frames is not None:
@@ -2500,7 +2727,11 @@ def main() -> int:
 
     # 11. the serving tiers: the batch fleet, a checkpointed render, HTTP, the visualizer
     serve = run_serve(card, filters, fm, lookup, svf_cuda, launches, song_mix, config_pcm)
-    del song_mix, config_pcm
+
+    # 12. several devices: voice-sharded renders, one process a device, and the
+    # live fleet's lanes over devices
+    multi = run_multi_gpu(card, launches, song_mix, poly16_mix)
+    del song_mix, config_pcm, poly16_mix
 
     # 10. nothing of JAX
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "zang_tpu"))
@@ -2535,6 +2766,7 @@ def main() -> int:
             raise AssertionError(f"{r['name']} was launched on no main path")
     print(json.dumps({"live": live}))
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"multi_gpu": multi}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -311,7 +311,7 @@ def test_port_modules_load_no_jax_package():
         "assert 'zang_tpu_torch.script.torch_backend' in sys.modules\n"
         "assert 'zang_tpu_torch.serve.server' in sys.modules\n"
         "for m in ('serve.http', 'serve.batch', 'graph.checkpoint', 'host.visual',\n"
-        "          'serve.client'):\n"
+        "          'serve.client', 'parallel.mesh'):\n"
         "    assert 'zang_tpu_torch.' + m in sys.modules, m\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["ZANG_PLATFORM"] = "cpu"  # would make zang_tpu/__init__.py import jax

@@ -62,11 +62,13 @@ LIVE = {"live_session": (1, 1024), "live_fleet_4": (4, 4096), "live_fleet_64": (
         "live_fleet_256": (256, 4096)}
 
 
-def live_runner(lanes: int, block: int, seconds: float = LIVE_SECONDS, device="cuda"):
+def live_runner(lanes: int, block: int, seconds: float = LIVE_SECONDS, device="cuda",
+                mesh=None):
     """render() drives a fresh LiveSession (lanes 1) or LiveFleet of NiceInstrument(0.3)
     at polyphony 4 through `seconds` of host/song.live_events (lane l transposed by
     l % 12), a NoteTracker a lane, and returns the blocks [L, C, frames] (numpy), the
-    seconds of each block in `times` (render's attribute)."""
+    seconds of each block in `times` (render's attribute). mesh: the fleet's lanes
+    in a group a device of this parallel.Mesh."""
     import numpy as np
 
     from zang_tpu_torch.core.notes import NoteTracker
@@ -87,7 +89,8 @@ def live_runner(lanes: int, block: int, seconds: float = LIVE_SECONDS, device="c
             pushes = [lambda params, **kw: s.push_event(0, params, **kw)]
             step = lambda: s.render_block()[None]  # noqa: E731
         else:
-            fleet = LiveFleet(parts, lanes, sr, block_size=block, device=device)
+            fleet = LiveFleet(parts, lanes, sr, block_size=block, device=device,
+                              mesh=mesh)
             pushes = [lambda params, lane=lane, **kw: fleet.push_event(lane, 0, params, **kw)
                       for lane in range(lanes)]
             step = fleet.render_block

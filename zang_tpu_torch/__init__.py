@@ -18,6 +18,11 @@ Its layout mirrors zang_tpu's, so each counterpart sits at the same path:
             the examples, MIDI files and tracker text, the CLIs
   script    zangscript: the compiler (a copy of zang_tpu.script's front
             end), a torch backend, live reload and the zangc CLI
+  serve     live fleets, the TCP server and client, the batch fleet and
+            the HTTP render tier
+  parallel  voice-sharded renders, one process a device with the mix
+            all-reduced (torch.distributed), and the device list a live
+            fleet splits its lanes over
   convert   carry a zang_tpu Performance's programs and state across
 
 It imports torch and numpy, never jax and nothing of zang_tpu: it reads

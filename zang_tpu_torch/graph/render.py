@@ -113,13 +113,15 @@ class Performance:
             return type(prog)(self.merge_chunk(v, x) for v, x in zip(prog, xs_chunk))
         return prog
 
-    def render_chunk(self, state, chunk_progs, ctx: RenderCtx, programs=None):
-        """One chunk (zang_tpu/graph/render.py render_chunk): each part
-        renders [V, n], summed into the mono mix, or [C, n] when it has
-        `output_channels`; then post_fn, or the mix on every channel.
-        programs: the static programs with numpy leaves already on the
-        device (render_performance passes them). Returns (state', [C, n])."""
-        states, post_state = state
+    def render_parts(self, states, chunk_progs, ctx: RenderCtx, programs=None):
+        """Every part's share of one chunk (zang_tpu/graph/render.py
+        render_chunk, the loop over parts): each part renders [V, n], summed
+        over its voices into the mono mix, or [C, n] when it has
+        `output_channels`. programs: the static programs with numpy leaves
+        already on the device. Returns (states', mix [n], multi [C, n]).
+        Both sums are linear in the voices, so ranks that each hold a slice
+        of every part's voices add theirs up before finish_chunk
+        (parallel/mesh.py)."""
         dev = ctx.t_idx.device
         mix = torch.zeros((ctx.n,), dtype=torch.float32, device=dev)
         multi = torch.zeros((self.num_channels, ctx.n), dtype=torch.float32, device=dev)
@@ -136,11 +138,23 @@ class Performance:
             else:
                 mix = mix + audio
             new_states.append(st2)
+        return new_states, mix, multi
+
+    def finish_chunk(self, post_state, mix, multi, ctx: RenderCtx):
+        """The rest of the chunk: post_fn on the mix (not linear in it: the
+        echoes feed back through a filter), or the mix on every channel.
+        Returns (post_state', [C, n])."""
         if self.post_fn is not None:
             post_state, out = self.post_fn(post_state, mix, ctx)
-            out = out + multi if out.shape == multi.shape else out
-        else:  # mono contributions go to every channel (centre)
-            out = multi + mix[None, :]
+            return post_state, out + multi if out.shape == multi.shape else out
+        return post_state, multi + mix[None, :]  # mono goes to every channel (centre)
+
+    def render_chunk(self, state, chunk_progs, ctx: RenderCtx, programs=None):
+        """One chunk (zang_tpu/graph/render.py render_chunk): render_parts,
+        then finish_chunk. Returns (state', [C, n])."""
+        states, post_state = state
+        new_states, mix, multi = self.render_parts(states, chunk_progs, ctx, programs)
+        post_state, out = self.finish_chunk(post_state, mix, multi, ctx)
         return (new_states, post_state), out
 
 

@@ -27,6 +27,7 @@ from ..ops import delay as d_ops
 from ..ops import effects
 from ..ops import sampler as sampler_ops
 from ..ops.segprog import SegProgram, eval_chunk
+from ..parallel.mesh import pad_timelines
 from . import instruments as ti
 
 F32 = np.float32
@@ -173,6 +174,28 @@ def poly_echo_post(num_voices: int, main_delay: int):
     return post_fn, post_init
 
 
+def poly_echo_build(
+    num_voices: int = 1024,
+    seconds: float = 30.0,
+    sample_rate: float = SAMPLE_RATE,
+    main_delay: int = 15000,
+    seed: int = 0,
+    multiple: int = 1,
+):
+    """Host: (parts, sample_rate, perf_kwargs) of poly_echo, as
+    parallel.render_performance_sharded's `build` returns them (wrap it in
+    functools.partial): num_voices NiceInstrument voices padded with
+    silent ones to a multiple of `multiple`, and the post chain made for
+    num_voices (its 1/num_voices scale is the whole piece's, whatever
+    share of the voices a rank renders)."""
+    total = int(seconds * sample_rate)
+    tls = [compile_timelines(song, 1, sample_rate, total)[0]
+           for song in make_texture_song(num_voices, seconds, seed)]
+    post_fn, post_init = poly_echo_post(num_voices, main_delay)
+    return ([(ti.NiceInstrument(0.3), pad_timelines(tls, multiple))], sample_rate,
+            dict(num_channels=2, post_fn=post_fn, post_init_state=post_init))
+
+
 def build_poly_echo_performance(
     num_voices: int = 1024,
     seconds: float = 30.0,
@@ -182,13 +205,8 @@ def build_poly_echo_performance(
 ):
     """Host: (Performance, total frames) of num_voices NiceInstrument
     voices -> mono mix -> StereoEchoes, stereo."""
-    total = int(seconds * sample_rate)
-    tls = [compile_timelines(song, 1, sample_rate, total)[0]
-           for song in make_texture_song(num_voices, seconds, seed)]
-    post_fn, post_init = poly_echo_post(num_voices, main_delay)
-    perf = Performance([(ti.NiceInstrument(0.3), tls)], sample_rate,
-                       num_channels=2, post_fn=post_fn, post_init_state=post_init)
-    return perf, total
+    parts, sr, kw = poly_echo_build(num_voices, seconds, sample_rate, main_delay, seed)
+    return Performance(parts, sr, **kw), int(seconds * sample_rate)
 
 
 def build_config(name: str, seconds: Optional[float] = None, voices: int = 1024):

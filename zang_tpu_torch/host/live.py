@@ -144,6 +144,12 @@ class BlockPack:
         return tuple((p, leaf.shape, leaf.dtype.str) for p, leaf in _paths(window)
                      if isinstance(leaf, np.ndarray))
 
+    def fits(self, windows, device: torch.device, lanes: int) -> bool:
+        """Whether this pack takes these windows, `lanes` of them, to `device`
+        (not after a slot-capacity growth changed their shapes)."""
+        return (self.key() == self.layout_key(windows[0]) and self.lanes == lanes
+                and self.device == device)
+
     def upload(self, f0s: Sequence[int], windows: Sequence) -> dict:
         """Pack and copy; returns {path: [L, ...] tensor on the card} and the
         lanes' first frames as "f0" [L] int32."""
@@ -725,8 +731,7 @@ class LiveSession:
     def pack_for(self, windows, lanes: int) -> BlockPack:
         """The BlockPack of these windows' layout (made anew when it changed,
         as after a slot-capacity growth)."""
-        key = BlockPack.layout_key(windows[0])
-        if self._pack is None or self._pack.key() != key or self._pack.lanes != lanes:
+        if self._pack is None or not self._pack.fits(windows, self.device, lanes):
             self._pack = BlockPack(windows[0], self.device, lanes)
         return self._pack
 

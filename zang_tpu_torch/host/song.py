@@ -22,6 +22,7 @@ from ..core.notes import SongEvent
 from ..core.timeline import compile_timelines
 from ..device import require_device
 from ..graph.render import Performance, render_performance
+from ..parallel.mesh import pad_timelines
 from . import instruments as ti
 
 F32 = np.float32
@@ -69,23 +70,42 @@ def pedal_freq(p) -> F32:
     return F32(F32(p["freq"]) * F32(0.5))
 
 
-def build_performance(total_frames: int, song=None) -> Performance:
-    """Host: timelines and plans of the song over [0, total_frames)."""
+def song_parts(total_frames: int, song=None, multiple: int = 1,
+               three_part: bool = False) -> list:
+    """[(instrument, timelines)] of the song over [0, total_frames): the
+    Pedal and the two organs merged into one part with a per-voice color,
+    or, with three_part, each organ a part of its own with its scalar
+    color (tests/test_parallel.py:27-38). Each part is padded with silent
+    voices to a multiple of `multiple` (parallel/mesh.py pad_timelines);
+    the merged organ's pad voices take its last color."""
     song = song or load_song()
     tls = [
         compile_timelines(song[i], POLYPHONY[i], SAMPLE_RATE, total_frames)
         for i in range(3)
     ]
-    organ_colors = np.array(
-        [0.25] * POLYPHONY[REGULAR] + [0.1] * POLYPHONY[WEIRD], np.float32
-    )
-    return Performance(
-        [
-            (ti.PMOscInstrument(0.4, freq_fn=pedal_freq), tls[PEDAL]),
-            (ti.NiceInstrument(organ_colors), tls[REGULAR] + tls[WEIRD]),
-        ],
-        SAMPLE_RATE,
-    )
+    pedal = ti.PMOscInstrument(0.4, freq_fn=pedal_freq)
+    if three_part:
+        parts = [(pedal, tls[PEDAL]), (ti.NiceInstrument(0.25), tls[REGULAR]),
+                 (ti.NiceInstrument(0.1), tls[WEIRD])]
+    else:
+        organ = tls[REGULAR] + tls[WEIRD]
+        colors = [0.25] * POLYPHONY[REGULAR] + [0.1] * POLYPHONY[WEIRD]
+        colors += colors[-1:] * (-len(organ) % multiple)
+        parts = [(pedal, tls[PEDAL]),
+                 (ti.NiceInstrument(np.array(colors, np.float32)), organ)]
+    return [(inst, pad_timelines(t, multiple)) for inst, t in parts]
+
+
+def build_performance(total_frames: int, song=None) -> Performance:
+    """Host: timelines and plans of the song over [0, total_frames)."""
+    return Performance(song_parts(total_frames, song), SAMPLE_RATE)
+
+
+def song_build(total_frames: int, multiple: int = 1, three_part: bool = False):
+    """The song as parallel.render_performance_sharded's `build` takes it
+    (wrap it in functools.partial): (song_parts(...), SAMPLE_RATE, {})."""
+    return (song_parts(total_frames, multiple=multiple, three_part=three_part),
+            SAMPLE_RATE, {})
 
 
 def render_song(seconds: float = NUM_SECONDS, chunk_size: int = 65536, *,

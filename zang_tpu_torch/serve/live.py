@@ -33,11 +33,20 @@ instruments render), one block size, one sample rate and one slot
 capacity (growth is fleet-wide and re-lays the packed upload). A lane can
 be reset in place without touching the others.
 
+Several devices (mesh=, zang_tpu/serve/live.py:68-88): the lanes split
+into len(mesh.devices) contiguous groups, each with its own folded state
+and BlockPack on its device, and render_lanes runs once a group and block,
+every group launched before any is fetched. Lanes never interact, so there
+is no collective, and no process: the host work stays this thread's (one
+process a card is parallel/mesh.py's offline render). The lane count is a
+multiple of the device count.
+
 Elasticity: attach_lane()/detach_lane() admit and remove sessions from a
-running fleet; growth doubles the lane count. prewarm=True renders one
-throwaway block at the next size in a background thread (warmup), so
-the kernels are built and the allocator holds the larger buffers before
-a real block needs them.
+running fleet; growth doubles the lane count (in multiples of the device
+count), and lanes whose group changes move to its device. prewarm=True
+renders one throwaway block at the next size in a background thread
+(warmup), so the kernels are built and the allocator holds the larger
+buffers before a real block needs them.
 """
 
 import threading
@@ -47,6 +56,7 @@ import numpy as np
 import torch
 
 from ..host.live import (
+    BlockPack,
     LiveSession,
     card_context,
     folds,
@@ -67,6 +77,11 @@ def _set_lane_rows(tree, lane: int, voices: int, value) -> None:
     tree_map(put, tree, value)
 
 
+def _to(tree, device):
+    """The tree's tensors on `device` (the same tensors where they are)."""
+    return tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, tree)
+
+
 class LiveFleet:
     """N concurrent live sessions rendered by one folded device step a block.
 
@@ -74,6 +89,9 @@ class LiveFleet:
     session_kwargs pass through to each LiveSession (block_size,
     num_channels, post_fn/post_init_state, slot caps...). device: the card
     unless the caller asks for the CPU; every lane's session lives there.
+    mesh: a parallel.Mesh instead (device is then not read): the lanes
+    split into contiguous groups, one a mesh device; num_lanes must be a
+    multiple of the mesh size.
 
     pcm16_volume: when set, the step mixes down to i16 PCM ON THE CARD
     (core.mixdown semantics) at that volume and render_block returns
@@ -88,17 +106,26 @@ class LiveFleet:
         prewarm: bool = False,
         pcm16_volume: Optional[float] = None,
         device="cuda",
+        mesh=None,
         **session_kwargs,
     ) -> None:
         if num_lanes < 1:
             raise ValueError("num_lanes must be >= 1")
-        self.device = live_device(device)
+        self.devices = ([live_device(d) for d in mesh.devices] if mesh is not None
+                        else [live_device(device)])
+        if num_lanes % len(self.devices):
+            raise ValueError(f"num_lanes={num_lanes} must be a multiple of the mesh size "
+                             f"({len(self.devices)}) to shard the lane axis")
+        self.device = self.devices[0]  # where render_block_async gathers the groups
         self._make_parts = make_parts
         self._sample_rate = float(sample_rate)
         self._session_kwargs = dict(session_kwargs)
-        self.lanes: List[LiveSession] = [self._new_session() for _ in range(num_lanes)]
-        self._states = None  # a part's state: folded [L * V] leaves, or L lane states
-        self._post_states = None  # L post states
+        self.lanes: List[LiveSession] = [
+            self._new_session(self._lane_device(lane, num_lanes)) for lane in range(num_lanes)]
+        # a group's part states (each folded [Lg * V] leaves, or Lg lane states)
+        self._states = None
+        self._post_states = None  # L post states, each on its lane's device
+        self._packs = {}  # group -> its BlockPack
         self._pending_reset: List[int] = []
         self._free: set = set()  # detached lane slots, reusable by attach
         self._lock = threading.Lock()
@@ -117,43 +144,57 @@ class LiveFleet:
     def active_lanes(self) -> List[int]:
         return [i for i in range(len(self.lanes)) if i not in self._free]
 
-    def _new_session(self) -> LiveSession:
-        return LiveSession(self._make_parts(), self._sample_rate, device=self.device,
+    def _new_session(self, device) -> LiveSession:
+        return LiveSession(self._make_parts(), self._sample_rate, device=device,
                            **self._session_kwargs)
 
+    def _groups(self, L: int):
+        """(first lane, end lane, device) of each group at L lanes."""
+        G = len(self.devices)
+        if L % G:
+            raise ValueError(f"{L} lanes are not a multiple of the mesh size ({G})")
+        return [(g * (L // G), (g + 1) * (L // G), d) for g, d in enumerate(self.devices)]
+
+    def _lane_device(self, lane: int, L: int) -> torch.device:
+        return self.devices[lane // (L // len(self.devices))]
+
     def _folded(self, L: Optional[int] = None) -> List[bool]:
+        """Whether each part renders a group's lanes as one pass, at L lanes."""
         L = self.num_lanes if L is None else L
-        return [folds(p.instrument, L) for p in self.lanes[0].parts]
+        return [folds(p.instrument, L // len(self.devices)) for p in self.lanes[0].parts]
 
     def reset_lane(self, lane: int) -> None:
         """Replace a lane with a fresh session (fresh queues, planners,
         clock); its device state re-initializes on the next block. Other
         lanes are untouched."""
         with self._lock:
-            self.lanes[lane] = self._new_session()
+            self.lanes[lane] = self._new_session(self._lane_device(lane, self.num_lanes))
             self._pending_reset.append(lane)
 
     def attach_lane(self) -> int:
         """Admit a new session to a running fleet; returns its lane id.
 
         Reuses a detached slot when one is free; otherwise the fleet GROWS
-        (doubling): the folded state gets the new lanes' rows, and existing
-        lanes render on unaffected."""
+        (doubling, in multiples of the mesh size: zang_tpu/serve/live.py
+        :141-146): the folded states get the new lanes' rows, lanes whose
+        group changes move to its device, and existing lanes render on
+        unaffected."""
         with self._lock:
             if self._free:
                 return self._free.pop()
-        grow_by = max(1, len(self.lanes))
+        G = len(self.devices)
         first_new = len(self.lanes)
-        new_sessions = [self._new_session() for _ in range(grow_by)]
+        L = first_new + -(-max(1, first_new) // G) * G
+        new_sessions = [self._new_session(self._lane_device(lane, L))
+                        for lane in range(first_new, L)]
         with self._lock:
             if self._states is not None:
                 self._states, self._post_states = self._regrouped(
-                    self._lane_states(range(len(self.lanes)))
-                    + [self._session_states(s) for s in new_sessions],
-                    len(self.lanes) + grow_by)
+                    self._lane_states(range(first_new))
+                    + [self._session_states(s) for s in new_sessions], L)
             self.lanes.extend(new_sessions)
             self._sync_capacity()
-            self._free.update(range(first_new + 1, first_new + grow_by))
+            self._free.update(range(first_new + 1, L))
         if self._prewarm:
             self._prewarm_async(2 * len(self.lanes))
         return first_new
@@ -164,27 +205,35 @@ class LiveFleet:
         return [p.dev_state for p in s.parts], s.post_state
 
     def _lane_states(self, lanes):
-        """(per-part states, post state) of each lane, sliced from the
-        fleet's state."""
+        """(per-part states, post state) of each lane, sliced from its
+        group's state."""
         folded = self._folded()
+        size = self.num_lanes // len(self.devices)
         out = []
         for lane in lanes:
+            g, j = divmod(lane, size)
             parts = []
-            for p, (st, f) in enumerate(zip(self._states, folded)):
+            for p, (st, f) in enumerate(zip(self._states[g], folded)):
                 V = self.lanes[0].parts[p].polyphony
-                parts.append(_lane_rows(st, lane, V) if f else st[lane])
+                parts.append(_lane_rows(st, j, V) if f else st[j])
             out.append((parts, self._post_states[lane]))
         return out
 
     def _regrouped(self, per_lane, L: int):
-        """The fleet's state for L lanes from each lane's (parts, post)."""
+        """The groups' states and the L post states for L lanes from each
+        lane's (parts, post), moved to its group's device."""
         folded = self._folded(L)
-        states = []
-        for p, f in enumerate(folded):
-            lane_parts = [parts[p] for parts, _ in per_lane]
-            states.append(tree_map(lambda *xs: torch.cat(xs), *lane_parts) if f
-                          else list(lane_parts))
-        return states, [post for _, post in per_lane]
+        states, posts = [], []
+        for lo, hi, dev in self._groups(L):
+            group = [_to(lane, dev) for lane in per_lane[lo:hi]]
+            part_states = []
+            for p, f in enumerate(folded):
+                lane_parts = [parts[p] for parts, _ in group]
+                part_states.append(tree_map(lambda *xs: torch.cat(xs), *lane_parts) if f
+                                   else list(lane_parts))
+            states.append(part_states)
+            posts += [post for _, post in group]
+        return states, posts
 
     # -- lane migration (snapshot/restore) -----------------------------------
 
@@ -207,7 +256,7 @@ class LiveFleet:
         """Replace a lane with a restored session; the lane continues the
         captured stream bit for bit on the next block. Accepts an attached
         or detached lane slot; slot capacity synchronizes fleet-wide."""
-        s = self._new_session()
+        s = self._new_session(self._lane_device(lane, self.num_lanes))
         s.restore(blob)
         with self._lock:
             self.lanes[lane] = s
@@ -236,7 +285,7 @@ class LiveFleet:
         touching the fleet's lanes. Blocks until done."""
         counts = list(lane_counts) if lane_counts is not None else [self.num_lanes]
         for count in counts:
-            s = self._new_session()
+            s = self._new_session(self.device)
             s.slot_capacity = self.lanes[0].slot_capacity
             f0, f1 = s._host_block()
             window = s._window_progs(f0, f1)
@@ -244,16 +293,17 @@ class LiveFleet:
             per_lane += [tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
                                   per_lane[0]) for _ in range(count - 1)]
             states, posts = self._regrouped(per_lane, count)
-            pack = s.pack_for([window], count)
-            dev = pack.upload([f0] * count, [window] * count)
-            with card_context(self.device):
-                _, _, out = render_lanes(
-                    [p.instrument for p in s.parts], [p.polyphony for p in s.parts],
-                    states, posts, dev, [f0] * count, window,
-                    sample_rate=self._sample_rate, block_size=s.block_size,
-                    num_channels=s.num_channels, post_fn=s.post_fn, device=self.device,
-                    pcm16_volume=self._pcm16_volume)
-                out.cpu()
+            for g, (lo, hi, dev) in enumerate(self._groups(count)):
+                n = hi - lo
+                up = BlockPack(window, dev, n).upload([f0] * n, [window] * n)
+                with card_context(dev):
+                    _, _, out = render_lanes(
+                        [p.instrument for p in s.parts], [p.polyphony for p in s.parts],
+                        states[g], posts[lo:hi], up, [f0] * n, window,
+                        sample_rate=self._sample_rate, block_size=s.block_size,
+                        num_channels=s.num_channels, post_fn=s.post_fn, device=dev,
+                        pcm16_volume=self._pcm16_volume)
+                    out.cpu()
             self._warm_counts.add(count)
 
     def _prewarm_async(self, lane_count: int) -> None:
@@ -360,35 +410,49 @@ class LiveFleet:
                 [self._session_states(s) for s in self.lanes], self.num_lanes)
             return
         folded = self._folded()
+        size = self.num_lanes // len(self.devices)
         for lane in resets:
-            parts, post = self._session_states(self.lanes[lane])
-            for p, (st, f) in enumerate(zip(self._states, folded)):
+            g, j = divmod(lane, size)
+            parts, post = _to(self._session_states(self.lanes[lane]), self.devices[g])
+            for p, (st, f) in enumerate(zip(self._states[g], folded)):
                 if f:
                     V = self.lanes[0].parts[p].polyphony
-                    _set_lane_rows(st, lane, V, parts[p])
+                    _set_lane_rows(st, j, V, parts[p])
                 else:
-                    st[lane] = parts[p]
+                    st[j] = parts[p]
             self._post_states[lane] = post
 
+    def _pack(self, g: int, windows, device) -> BlockPack:
+        """Group g's BlockPack, made anew when it no longer fits."""
+        pack = self._packs.get(g)
+        if pack is None or not pack.fits(windows, device, len(windows)):
+            pack = self._packs[g] = BlockPack(windows[0], device, len(windows))
+        return pack
+
     def render_block_async(self) -> torch.Tensor:
-        """Render every lane's next block on the card and return it there,
-        [num_lanes, num_channels, block_size], without waiting for it."""
+        """Render every lane's next block and return it on the (first) card,
+        [num_lanes, num_channels, block_size], without waiting for it: every
+        group is launched before any is gathered."""
         spans, windows = self._collect_windows()
         self._init_states()
         ref = self.lanes[0]
         f0s = [f0 for f0, _ in spans]
-        pack = ref.pack_for(windows, self.num_lanes)
-        dev = pack.upload(f0s, windows)
-        with card_context(self.device):
-            self._states, self._post_states, out = render_lanes(
-                [p.instrument for p in ref.parts], [p.polyphony for p in ref.parts],
-                self._states, self._post_states, dev, f0s, windows[0],
-                sample_rate=self._sample_rate, block_size=ref.block_size,
-                num_channels=ref.num_channels, post_fn=ref.post_fn, device=self.device,
-                pcm16_volume=self._pcm16_volume)
+        outs = []
+        for g, (lo, hi, dev) in enumerate(self._groups(self.num_lanes)):
+            up = self._pack(g, windows[lo:hi], dev).upload(f0s[lo:hi], windows[lo:hi])
+            with card_context(dev):
+                self._states[g], self._post_states[lo:hi], out = render_lanes(
+                    [p.instrument for p in ref.parts], [p.polyphony for p in ref.parts],
+                    self._states[g], self._post_states[lo:hi], up, f0s[lo:hi],
+                    windows[lo], sample_rate=self._sample_rate, block_size=ref.block_size,
+                    num_channels=ref.num_channels, post_fn=ref.post_fn, device=dev,
+                    pcm16_volume=self._pcm16_volume)
+            outs.append(out)
         for s, (_f0, f1) in zip(self.lanes, spans):
             s.frame = f1
-        return out
+        if len(outs) == 1:
+            return outs[0]
+        return torch.cat([o.to(self.device, non_blocking=True) for o in outs])
 
     def render_block(self) -> np.ndarray:
         """Render every lane's next block: [num_lanes, num_channels,
