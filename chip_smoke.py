@@ -224,12 +224,27 @@ each of which raises on failure:
                   turns: one K2 a group and block, every block within 1e-6
                   of the one-group fleet's, median and p99 block times
                   beside PERF.md §5's live_fleet_256
+  13. the port's kernel tests on the card: `python -m pytest --noconftest
+     -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
+     tests/test_torch_cuda_paths.py` in a subprocess (those files import
+     neither jax nor zang_tpu; the suite's conftest does), beside the soak
+     of phase 14: rc 0 and every collected case passed, more than none
+  14. the port's bench and soak, each in a subprocess as a user runs them:
+     `python -m zang_tpu_torch.bench` at a cut size (the song 60 s,
+     poly_echo 4096 voices x 8 s, the sampler 10 s, serve 2 jobs x 30 s in
+     one pass, the fleet at 64 lanes, no idle wait): its six JSON lines in
+     bench.py's order with the headline last, finite values, the fidelity
+     under the parity budget, and each metric's launches (from its `#`
+     lines) those of its chunks and renders; then `python -m
+     zang_tpu_torch.tools.soak --seconds 20 --clients 2 --json` (run beside
+     phase 13), every invariant of its report holding
   10. no module of jax or of zang_tpu was imported (checked last)
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds; before the
 card's line, {"live": ...} holds phase 9b's block times and fidelity,
-{"serve": ...} phase 11's numbers and {"multi_gpu": ...} phase 12's. Exits non-zero, printing no result,
+{"serve": ...} phase 11's numbers, {"multi_gpu": ...} phase 12's and
+{"bench": ...} phases 13 and 14's. Exits non-zero, printing no result,
 without CUDA or outside a checkout of the repo.
 """
 
@@ -2228,6 +2243,134 @@ def run_multi_gpu(card, launches, song_mix, poly_mix):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the port's kernel tests on the card (phase 13), its bench and soak (phase 14)
+
+CUDA_TESTS = ("tests/test_torch_cuda_kernels.py", "tests/test_torch_cuda_paths.py")
+BENCH_SONG_SECONDS = 60.0
+BENCH_POLY_VOICES, BENCH_POLY_SECONDS = 4096, 8.0
+BENCH_SAMPLER_SECONDS = 10.0
+BENCH_SERVE_SONGS, BENCH_SERVE_SECONDS = 2, 30.0
+BENCH_FLEET_LANES = 64
+BENCH_ENV = dict(ZANG_BENCH_SECONDS=str(BENCH_SONG_SECONDS),
+                 ZANG_BENCH_POLY_VOICES=str(BENCH_POLY_VOICES),
+                 ZANG_BENCH_POLY_SECONDS=str(BENCH_POLY_SECONDS),
+                 ZANG_BENCH_SAMPLER_SECONDS=str(BENCH_SAMPLER_SECONDS),
+                 ZANG_BENCH_SERVE_SONGS=str(BENCH_SERVE_SONGS),
+                 ZANG_BENCH_SERVE_SECONDS=str(BENCH_SERVE_SECONDS),
+                 ZANG_BENCH_SERVE_PASSES="1", ZANG_BENCH_FLEET_LANES=str(BENCH_FLEET_LANES),
+                 ZANG_BENCH_IDLE_WAIT="0")
+BENCH_METRICS = ("torch_sampler_chain_rtf_44k", "torch_poly_echo_voices_per_chip",
+                 "torch_batch_serve_rtf_aggregate", "torch_live_fleet_sessions_per_chip",
+                 "torch_bach_render_fidelity_rms_dbfs", "torch_bach_toccata_render_rtf_48k")
+SOAK_SECONDS, SOAK_CLIENTS = 20.0, 2
+
+
+def bench_launches():
+    """Each bench metric's launches at BENCH_ENV's sizes: its chunks times
+    its renders (a warm one and 3 timed; serve's warm job of 8 s and one
+    pass; the fleet's warm block and 8 timed)."""
+    chunks = lambda seconds, sr: -(-int(seconds * sr) // CHUNK)
+    return {
+        "bench_sampler": {"table_lookup": 4 * chunks(BENCH_SAMPLER_SECONDS, 44100.0)},
+        "bench_poly": {"svf_onepass": 4 * chunks(BENCH_POLY_SECONDS, 44100.0)},
+        "bench_serve": {"svf_table": chunks(8.0, 48000.0)
+                        + BENCH_SERVE_SONGS * chunks(BENCH_SERVE_SECONDS, 48000.0)},
+        "bench_fleet": {"svf_dense": 1 + 8},
+        "bench_fidelity": {"svf_table": chunks(BENCH_SONG_SECONDS, 48000.0)},
+        "bench_song": {"svf_table": 4 * chunks(BENCH_SONG_SECONDS, 48000.0)},
+    }
+
+
+def run_bench_soak_tests(card):
+    """Phases 13 and 14, each command in a subprocess from the repo root:
+    the card's kernel tests beside the soak, then the bench alone. Returns
+    their numbers."""
+    import math
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        junit = os.path.join(tmp, "cuda.xml")
+        t = time.perf_counter()
+        tests = subprocess.Popen(
+            [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
+             "-m", "cuda", "-q", f"--junitxml={junit}", *CUDA_TESTS],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            soak = subprocess.run(
+                [sys.executable, "-m", "zang_tpu_torch.tools.soak", "--seconds",
+                 str(SOAK_SECONDS), "--clients", str(SOAK_CLIENTS), "--json"],
+                cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+            test_log, _ = tests.communicate(timeout=900)
+        finally:
+            if tests.poll() is None:
+                tests.kill()
+                tests.wait()
+        tests_s = time.perf_counter() - t
+        # 13. the kernel tests
+        suite = ET.parse(junit).getroot()
+        suite = suite if suite.tag == "testsuite" else suite.find("testsuite")
+        n = {k: int(suite.get(k)) for k in ("tests", "errors", "failures", "skipped")}
+        passed = n["tests"] - n["errors"] - n["failures"] - n["skipped"]
+        print(f"phase 13: {' '.join(CUDA_TESTS)} -m cuda --noconftest: {passed} of "
+              f"{n['tests']} collected passed (rc {tests.returncode}, {tests_s:.1f}s beside "
+              f"the soak) [{card}]")
+        if tests.returncode != 0 or not passed == n["tests"] > 0:
+            print(test_log[-6000:])
+            raise AssertionError(f"phase 13: the card's kernel tests: {n}, rc {tests.returncode}")
+        out["tests"] = dict(collected=n["tests"], passed=passed, seconds=round(tests_s, 1))
+    # 14. the soak's report
+    if soak.returncode != 0:
+        print(soak.stdout[-4000:], soak.stderr[-4000:])
+    report = json.loads(soak.stdout.strip().splitlines()[-1])
+    print(f"phase 14: soak {SOAK_SECONDS:g} s, {SOAK_CLIENTS} clients: blocks "
+          f"{report['blocks_per_client']}, churn drops {report['churn_drops']}, RSS growth "
+          f"{report.get('rss_growth_mb')} MB, device memory growth "
+          f"{report.get('device_growth_mb')} MB, failures {report['failures']} [{card}]")
+    if soak.returncode != 0 or not report["ok"] or report["device"] != "cuda:0":
+        raise AssertionError(f"phase 14: the soak failed: {report['failures']}")
+    out["soak"] = {k: report.get(k) for k in (
+        "blocks_per_client", "churn_drops", "stats_acks", "num_clients_at_end",
+        "rss_growth_mb", "device_mb_end", "device_growth_mb", "wall_seconds")}
+    # 14. the bench, alone on the card
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "zang_tpu_torch.bench"], cwd=ROOT,
+                          env={**env, **BENCH_ENV}, capture_output=True, text=True,
+                          timeout=900)
+    bench_s = time.perf_counter() - t
+    notes = [ln for ln in proc.stderr.splitlines() if ln.startswith("# ")]
+    print("\n".join(notes))
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:])
+        raise AssertionError(f"phase 14: the bench exited {proc.returncode}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    print("\n".join(json.dumps(ln) for ln in lines))
+    if tuple(ln["metric"] for ln in lines) != BENCH_METRICS or \
+            proc.stdout.strip().splitlines()[-1] != json.dumps(lines[-1]):
+        raise AssertionError(f"phase 14: the bench printed {[ln['metric'] for ln in lines]}")
+    if not all(math.isfinite(ln["value"]) and math.isfinite(ln["vs_baseline"])
+               for ln in lines):
+        raise AssertionError("phase 14: a metric is not finite")
+    values = {ln["metric"]: ln["value"] for ln in lines}
+    if not values["torch_bach_render_fidelity_rms_dbfs"] < PARITY_DB:
+        raise AssertionError(f"phase 14: fidelity {values} over the parity budget")
+    got = {}
+    for ln in notes:  # "# bench_song launches {...} over ..."
+        label, _, rest = ln[2:].partition(" launches ")
+        if rest:
+            got[label] = json.loads(rest.split(" over ")[0])
+    if got != bench_launches():
+        raise AssertionError(f"phase 14: the bench's launches {got}, expected "
+                             f"{bench_launches()}")
+    print(f"phase 14: the bench at a cut size in {bench_s:.1f}s, launches {got} [{card}]")
+    out.update(metrics=values, launches=got, seconds=round(bench_s, 1),
+               sizes={k[len("ZANG_BENCH_"):].lower(): v for k, v in BENCH_ENV.items()})
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2733,6 +2876,9 @@ def main() -> int:
     multi = run_multi_gpu(card, launches, song_mix, poly16_mix)
     del song_mix, config_pcm, poly16_mix
 
+    # 13-14. the port's kernel tests on the card, its bench and its soak
+    bench = run_bench_soak_tests(card)
+
     # 10. nothing of JAX
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "zang_tpu"))
     if bad:
@@ -2767,6 +2913,7 @@ def main() -> int:
     print(json.dumps({"live": live}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"multi_gpu": multi}))
+    print(json.dumps({"bench": bench}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

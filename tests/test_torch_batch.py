@@ -15,8 +15,8 @@
   duplicate names, cache eviction, the WAV written segment by segment,
   script instruments sharing one entry; devices=["cpu", "cpu"] runs two
   worker groups at once; devices=None without CUDA raises.
-- On the card (marker `cuda`): a batch of songs launches K1 once a real
-  chunk, never the plain SVF.
+- On the card, tests/test_torch_cuda_paths.py (marker `cuda`): a batch of
+  songs launches K1 once a real chunk, never the plain SVF.
 """
 
 import threading
@@ -392,33 +392,3 @@ def test_default_devices_need_cuda(monkeypatch):
         BatchRenderer(chunk_size=CHUNK).run([RenderJob("a", lambda: _song(SONG_B, 0.5))])
     with pytest.raises(RuntimeError, match="is_available"):
         render_song_shared(tbatch.SharedGraphCache(), *_song(SONG_B, 0.5), CHUNK)
-
-
-# ---------------------------------------------------------------------------
-# on the card
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_batch_launches_k1_once_a_real_chunk(cuda_device, monkeypatch):
-    from zang_tpu_torch.ops import filters as tfilt
-    from zang_tpu_torch.ops import svf_cuda
-
-    def refuse(*a, **k):
-        raise AssertionError("the plain SVF on a CUDA tensor")
-
-    monkeypatch.setattr(tfilt, "svf_filter_table_ref", refuse)
-    before = svf_cuda.svf_table_launches
-    br = BatchRenderer(chunk_size=CHUNK, segment_chunks=2, devices=[cuda_device])
-    results = br.run([RenderJob("a", lambda: _song(SONG_A, 1.0)),
-                      RenderJob("c", lambda: _song(SONG_C, 1.3))])
-    torch.cuda.synchronize()
-    assert all(r.status == "ok" for r in results) and br.cache.traces == 1
-    chunks = sum(-(-int(s * SR) // CHUNK) for s in (1.0, 1.3))
-    assert svf_cuda.svf_table_launches - before == chunks

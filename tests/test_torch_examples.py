@@ -501,25 +501,3 @@ def test_demo_script_is_the_jax_packages():
     """zang_tpu_torch/data/demo_synth.txt is the JAX package's DEMO_SCRIPT,
     byte for byte (the script and midi_script paths read the file)."""
     assert tex.DEMO_SCRIPT == jex.DEMO_SCRIPT
-
-
-@pytest.mark.cuda
-def test_script_example_counts_k2_launches(cuda_device):
-    """The script example at its default 6 s, chunk 16,384: the delay of
-    11,025 halves each chunk to two sub-chunks of 8,192, and the feedback
-    Filter (scalar res, low-pass) launches K2 once a sub-chunk: 17 chunks,
-    34 launches."""
-    from zang_tpu_torch.ops import svf_cuda
-
-    before = svf_cuda.svf_dense_launches
-    audio, sr = tex.ex_script(device="cuda")
-    torch.cuda.synchronize()
-    assert svf_cuda.svf_dense_launches - before == 34
-    assert audio.shape == (1, int(6.0 * sr)) and bool(torch.isfinite(audio).all())
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")

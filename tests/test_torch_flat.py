@@ -15,8 +15,9 @@ A chunk that is not a whole number of 512-frame tiles is sliced flat:
   -140 dBFS and below); the examples are in test_torch_flat_examples.py.
   NiceInstrument's flat branch is the dense-cut SVF (filters.svf_filter,
   never the table path) on both sides.
-- On the card (marker `cuda`): the flat NiceInstrument reaches K2, the
-  dense-cut kernel, once a chunk, and never the plain SVF.
+- On the card, tests/test_torch_cuda_paths.py (marker `cuda`): the flat
+  NiceInstrument reaches K2, the dense-cut kernel, once a chunk, and never
+  the plain SVF.
 """
 
 import numpy as np
@@ -245,33 +246,3 @@ def test_config_at_a_flat_chunk(name):
         db = _rms_db(ta[ch], ja[ch])
         print(f"{name} channel {ch} at chunk {FLAT}: {db:.1f} dBFS")
         assert db < BUDGET_DB, (ch, db)
-
-
-# ---------------------------------------------------------------------------
-# on the card
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_flat_nice_launches_k2_on_the_card(cuda_device, monkeypatch):
-    from zang_tpu_torch.ops import svf_cuda
-
-    def refuse(*a, **k):
-        raise AssertionError("the plain SVF on a CUDA tensor")
-
-    monkeypatch.setattr(tfilt, "svf_filter_ref", refuse)
-    total = FLAT * N_CHUNKS
-    tls = ttl.compile_timelines(_song(TSongEvent), 4, SR, total)
-    before = svf_cuda.svf_dense_launches
-    got = trender.render_performance(
-        trender.Performance([(INSTRUMENTS["nice"](tti), tls)], SR), total, FLAT,
-        device=cuda_device)
-    torch.cuda.synchronize()
-    assert svf_cuda.svf_dense_launches == before + N_CHUNKS
-    assert bool(torch.isfinite(got).all())

@@ -9,7 +9,8 @@ tests/test_ops_effects.py:324-346: rms < -100 dBFS, end states within 1e-4.
 Waveform 3 decides on the sign of sin(2p): a sample whose |sin 2p| is
 within a few ulps of 0 can flip between the two libraries, so those flips
 are counted and the comparison of a voice stops at its first one. The CUDA
-kernel is held to the plain version on the card (marker `cuda`).
+kernel is held to the plain version on the card in
+tests/test_torch_cuda_kernels.py (marker `cuda`).
 """
 
 import numpy as np
@@ -256,53 +257,6 @@ def test_wrapper_raises_on_cpu_tensor():
         tfm.fm_feedback_cuda(torch.zeros(2, 64), float(FB), 0, z, z)
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("waveform", WAVEFORMS)
-@pytest.mark.parametrize("shape", [(8, 16384), (1024, 2048), (3, 777)])
-def test_kernel_matches_plain_on_card(cuda_device, waveform, shape):
-    V, n = shape
-    rng = np.random.default_rng(70 + waveform)
-    base = _base(_freqs(rng, V, n))
-    fb1 = rng.uniform(-0.5, 0.5, V).astype(np.float32)
-    fb2 = rng.uniform(-0.5, 0.5, V).astype(np.float32)
-    args = [torch.from_numpy(a).to(cuda_device) for a in (base, fb1, fb2)]
-    before = tfm.fm_feedback_launches
-    got = tfm.fm_feedback(args[0], float(FB), waveform, args[1], args[2])
-    ref = tfm.fm_feedback_ref(args[0], float(FB), waveform, args[1], args[2])
-    torch.cuda.synchronize()
-    assert tfm.fm_feedback_launches == before + 1
-    out, ro = got[0].cpu().numpy(), ref[0].cpu().numpy()
-    if not _hold(out, ro, waveform, _angles(base, ro, fb1, fb2, FB)):
-        assert (got[1] - ref[1]).abs().max() < 1e-4 and (got[2] - ref[2]).abs().max() < 1e-4
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("waveform", WAVEFORMS)
-@pytest.mark.parametrize("shape", [(8, 16384), (40, 1000), (3, 777)])
-def test_kernel_is_the_plain_bits_on_card(cuda_device, waveform, shape):
-    """Full-precision sinf and no contraction: the kernel gives the plain
-    loop's bits, with feedback and waveform by value and by pointer."""
-    V, n = shape
-    rng = np.random.default_rng(100 + waveform)
-    base, fb1, fb2 = (torch.from_numpy(a).to(cuda_device) for a in (
-        _base(_freqs(rng, V, n)), rng.uniform(-0.5, 0.5, V).astype(np.float32),
-        rng.uniform(-0.5, 0.5, V).astype(np.float32)))
-    fb = torch.from_numpy(rng.uniform(0.1, 0.9, V).astype(np.float32)).to(cuda_device)
-    w = torch.tensor([waveform], dtype=torch.int32, device=cuda_device)
-    for args in ((float(FB), waveform), (fb, w)):
-        got = tfm.fm_feedback_cuda(base, *args, fb1, fb2)
-        want = tfm.fm_feedback_ref(base, *args, fb1, fb2)
-        torch.cuda.synchronize()
-        assert all(torch.equal(g, x) for g, x in zip(got, want))
-
-
 def test_plain_waveform_a_voice_matches_pallas_interpret():
     """A waveform a voice (an int32 tensor [V], waveforms 0-3 mixed, as a
     fleet's lanes give them) with feedback a voice: fm_feedback_ref
@@ -356,22 +310,3 @@ def test_fm_osc_tensor_feedback_takes_the_recurrence(monkeypatch):
     tfm.fm_osc(torch.zeros(2, dtype=torch.int64), torch.full((2, 64), 220.0), 0.0,
                torch.tensor([0, 2], dtype=torch.int32), torch.zeros(2), (z, z), SR)
     assert len(seen) == 1
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 16384), (128, 4096), (37, 777)])
-def test_kernel_waveform_a_voice_is_the_plain_bits_on_card(cuda_device, shape):
-    """A waveform a voice (stride 1): mixed inside every warp, one a warp,
-    and one for all by pointer (stride 0), bit for bit with the plain loop."""
-    V, n = shape
-    rng = np.random.default_rng(110)
-    base, fb1, fb2 = (torch.from_numpy(a).to(cuda_device) for a in (
-        _base(_freqs(rng, V, n)), rng.uniform(-0.5, 0.5, V).astype(np.float32),
-        rng.uniform(-0.5, 0.5, V).astype(np.float32)))
-    idx = torch.arange(V, device=cuda_device)
-    for w in (idx % 4, (idx // 32) % 4, torch.tensor(3, device=cuda_device)):
-        w = w.to(torch.int32)
-        got = tfm.fm_feedback_cuda(base, float(FB), w, fb1, fb2)
-        want = tfm.fm_feedback_ref(base, float(FB), w, fb1, fb2)
-        torch.cuda.synchronize()
-        assert all(torch.equal(g, x) for g, x in zip(got, want))

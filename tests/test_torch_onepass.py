@@ -8,7 +8,7 @@ in interpret mode at that kernel's own test case (tests/test_ops_effects.py
 TestPallasSVFOnepass: V = 4096, n = 2048, active_from inside the chunk;
 rms < -120 dBFS, end states within 1e-5) and to the affine-scan filter
 (< -110 dBFS, that test's bound). The kernel itself is held to the loop on
-the card (marker `cuda`, skipped without one).
+the card in tests/test_torch_cuda_kernels.py (marker `cuda`).
 
 NiceInstrument renders large voice counts by groups of voices into one
 buffer that a single filter call takes whole: a forced small group gives
@@ -278,32 +278,3 @@ def test_group_size_fits_the_card():
     group = tti.GROUP_VOICE_SAMPLES // 65536
     assert 1024 <= group <= 4096
     assert group * 6 * 2 ** 20 + 16384 * 65536 * 4 < 32 * 2 ** 30
-
-
-# ---------------------------------------------------------------------------
-# on the card
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4096, 2048, 128, 3), (5000, 1000, 8, 4),
-                                   (4100, 768, 8, 2), (33, 640, 5, 1)])
-def test_kernel_is_the_loop_on_card(cuda_device, shape):
-    V, n, nt, S = shape
-    c = _case(12, V, n, nt, max(S, 2), 7 * 65536)
-    if S == 1:
-        c["tb"], c["cutv"] = c["tb"][:, :, :1].copy(), c["cutv"][:, :, :1].copy()
-    args = _args(c, "low_pass", lambda a: torch.from_numpy(a).to(cuda_device))
-    before = svf_cuda.svf_onepass_launches
-    x = args[2].clone()
-    got = svf_cuda.svf_onepass_cuda(*args[:2], x, *args[3:], out=x)
-    ref = tfilt.svf_onepass_table_ref(*args)
-    torch.cuda.synchronize()
-    assert svf_cuda.svf_onepass_launches == before + 1 and got[2] is x
-    assert all(torch.equal(g, w) for g, w in zip(got, ref))

@@ -18,8 +18,8 @@ fixture), once more at W = 1. Bounds:
   mesh below -110 dBFS (tests/test_torch_serve.py's TOL_DB); a lane's
   snapshot restored onto another sharded fleet bit for bit.
 
-The `cuda`-marked cases (NCCL at W = 1, two gloo ranks on one card) skip
-without a card.
+The cases on the card (NCCL at W = 1, two gloo ranks on one card) are in
+tests/test_torch_cuda_paths.py (marker `cuda`).
 """
 
 import functools
@@ -413,42 +413,3 @@ def test_fleet_warmup_over_the_mesh():
     out = fleet.render_block()
     assert out.dtype == np.int16 and out.shape == (2, 1, BLOCK)
     assert np.abs(out[0]).max() == 0 and np.abs(out[1]).max() > 0
-
-
-# -- on the card ------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    return torch.device("cuda", 0)
-
-
-@pytest.mark.cuda
-def test_nccl_one_rank_is_render_performance(cuda_device):
-    """NCCL at W = 1 on cuda:0: the one-card render's bits."""
-    build = functools.partial(song.song_build, SONG_TOTAL)
-    got = pm.render_performance_sharded(build, SONG_TOTAL, pm.make_mesh(1), SONG_CHUNK,
-                                        timeout=TIMEOUT)
-    want = render_performance(song.build_performance(SONG_TOTAL), SONG_TOTAL, SONG_CHUNK,
-                              device=cuda_device).cpu().numpy()
-    np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.cuda
-def test_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
-    """Two ranks on cuda:0 through gloo: each launches K1 a chunk at its own
-    voices, the mix within -120 dBFS of the one-card render."""
-    mesh = pm.make_mesh(devices=[cuda_device, cuda_device])
-    assert mesh.backend == "gloo"
-    job = pm.RenderJob(functools.partial(song.song_build, SONG_TOTAL, 2), SONG_TOTAL,
-                       SONG_CHUNK, str(tmp_path / "mix.npy"))
-    stats = pm.run_ranks(pm.render_rank, mesh, [job], timeout=TIMEOUT)
-    got = np.load(tmp_path / "mix.npy")
-    want = render_performance(song.build_performance(SONG_TOTAL), SONG_TOTAL, SONG_CHUNK,
-                              device=cuda_device).cpu().numpy()
-    assert _db(got, want) < TOL_SHARD_DB
-    n_chunks = -(-SONG_TOTAL // SONG_CHUNK)
-    assert [s[0]["launches"]["svf_table"] for s in stats] == [n_chunks, n_chunks]
-    assert len({s[0]["digest"] for s in stats}) == 1

@@ -9,7 +9,8 @@ the lookup, plans, taps, decimator and the chain without distortion are
 bit-exact; distortion is within 1e-6 absolute (atan and exp2 differ by
 ulps between XLA:CPU and torch); the whole chain with distortion is held
 below -110 dBFS RMS (tests/test_configs.py:52). The CUDA kernel is held to
-its plain version on the card (marker `cuda`, skipped without one).
+its plain version on the card in tests/test_torch_cuda_kernels.py (marker
+`cuda`).
 """
 
 import numpy as np
@@ -393,67 +394,3 @@ def test_render_wav_sampler_cli(tmp_path, capsys):
     np.testing.assert_array_equal(
         pcm, tconfigs.render_config_s16("sampler", 0.5, device="cpu")[0])
     assert "rendered 0.5s at 44100Hz (1 ch)" in capsys.readouterr().out
-
-
-# ---------------------------------------------------------------------------
-# on the card
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", [
-    dict(seed=10, N=35280, nt=128),                       # the sampler's shape
-    dict(seed=11, N=128 * 2048, nt=128),                  # the largest table
-    dict(seed=12, N=35280, nt=7, p_sel=0.5, out_of_range=True),  # one-shot edges
-])
-def test_lookup_kernel_matches_plain_on_card(cuda_device, case):
-    idx, sel, table = (torch.from_numpy(a).to(cuda_device) for a in _lookup_case(**case))
-    before = lookup.table_lookup_launches
-    got = lookup.table_lookup(idx, sel, table)
-    want = lookup.table_lookup_ref(idx, sel, table)
-    torch.cuda.synchronize()
-    assert lookup.table_lookup_launches == before + 1
-    assert torch.equal(got, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", list(TAPS_CASES))
-def test_sampler_taps_kernel_matches_plain_on_card(cuda_device, name):
-    """One launch for both taps, bit for bit with the plain version."""
-    kw = dict(TAPS_CASES[name])
-    loop = kw.pop("loop")
-    ia, ib, table = (torch.from_numpy(a).to(cuda_device) for a in _taps_case(**kw))
-    before = lookup.table_lookup_launches
-    got = lookup.sampler_taps(ia, ib, table, table.shape[0], loop)
-    want = lookup.sampler_taps_ref(ia, ib, table, table.shape[0], loop)
-    torch.cuda.synchronize()
-    assert lookup.table_lookup_launches == before + 1
-    assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="num_samples"):
-        lookup.sampler_taps(ia, ib, table, table.shape[0] - 1, loop)
-
-
-@pytest.mark.cuda
-def test_eval_sampler_on_card_matches_cpu(cuda_device):
-    tls, _, tinst = _sampler_case(**CASES["looped_reverse"])
-    prog = tinst.plan(tls, SR)
-    sp = prog["sampler"]
-    n = 8192
-    from zang_tpu_torch.ops.segprog import chunkify_tiled, eval_tiled_chunk
-
-    ch = chunkify_tiled(sp, n, 1, tls[0].total, 512)
-    outs = []
-    for dev in ("cpu", cuda_device):
-        t_idx = torch.arange(n, dtype=torch.int32, device=dev)
-        vals = eval_tiled_chunk({k: torch.from_numpy(v[0]).to(dev) for k, v in ch.items()},
-                                t_idx)
-        outs.append(tsam.eval_sampler(vals, t_idx,
-                                      torch.from_numpy(tinst.table.data_f32).to(dev),
-                                      tinst.table.num_samples, tinst.ratio, True).cpu())
-    assert torch.equal(outs[0], outs[1])

@@ -7,8 +7,8 @@ card.
 The plain torch versions are held to the JAX package's CPU fallback and to
 its Pallas kernels in interpret mode, with the bounds of
 tests/test_ops_effects.py: rms < -120 dBFS, end states within 1e-5. The
-CUDA kernels are held to the plain versions on the card (marker `cuda`,
-skipped without one).
+CUDA kernels are held to the plain versions on the card in
+tests/test_torch_cuda_kernels.py, which imports no JAX (marker `cuda`).
 """
 
 import numpy as np
@@ -300,51 +300,6 @@ def test_k1_slot_walk_is_the_table_rule(T, S, window):
     np.testing.assert_array_equal(_slot_walk(tb, cv, n, t0, window), want)
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(14, 128, 512, 2), (3, 4, 512, 3), (6, 128, 16, 3)])
-def test_kernel_matches_plain_on_card(cuda_device, shape):
-    V, nt, T, S = shape
-    c = _case(5, V=V, nt=nt, T=T, S=S, t0=7 * 65536)
-    args = _torch_args(c, "low_pass", cuda_device)
-    before = svf_cuda.svf_table_launches
-    got = tfilt.svf_filter_table(*args)
-    ref = tfilt.svf_filter_table_ref(*args)
-    torch.cuda.synchronize()
-    assert svf_cuda.svf_table_launches == before + 1
-    _assert_close(tuple(v.cpu() for v in got), tuple(v.cpu() for v in ref))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(14, 128, 512, 2), (5, 32, 512, 3), (2, 512, 24, 5)])
-def test_kernel_matches_emulation_on_card(cuda_device, shape):
-    """The kernel against its seams composed in torch on the card."""
-    V, nt, T, S = shape
-    c = _case(6, V=V, nt=nt, T=T, S=S, t0=3 * 65536)
-    args = _torch_args(c, "low_pass", cuda_device)
-    got = svf_cuda.svf_table_cuda(*args)
-    want = svf_cuda.svf_table_emulated(*args)
-    torch.cuda.synchronize()
-    _assert_close(tuple(v.cpu() for v in got), tuple(v.cpu() for v in want))
-
-
-@pytest.mark.cuda
-def test_kernel_raises_on_refused_shape(cuda_device):
-    """A chunk that runs of 16 frames do not tile raises; nothing falls
-    back to the plain version."""
-    c = _case(7, V=2, nt=8, T=125, S=3)
-    before = svf_cuda.svf_table_launches
-    with pytest.raises(ValueError, match="multiple of 16"):
-        tfilt.svf_filter_table(*_torch_args(c, "low_pass", cuda_device))
-    assert svf_cuda.svf_table_launches == before
-
-
 # ---------------------------------------------------------------------------
 # the dense-cut filter (K2)
 
@@ -586,32 +541,3 @@ def test_k2_reads_each_form_through_its_strides(form):
 def test_dense_wrapper_raises_on_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA"):
         svf_cuda.svf_dense_cuda(*_dense_torch(_dense_case(12, 2, 256), "low_pass"))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [
-    (1, 16384, "scalar"), (3, 1000, "column"), (1024, 4096, "dense"), (5, 777, "dense")])
-def test_dense_kernel_matches_plain_on_card(cuda_device, shape):
-    V, n, form = shape
-    c = _dense_case(13, V, n, dense=form == "dense")
-    args = list(_dense_torch(c, "low_pass", cuda_device))
-    if form == "scalar":
-        args[4] = 0.2
-    before = svf_cuda.svf_dense_launches
-    got = tfilt.svf_filter(*args)
-    ref = tfilt.svf_filter_ref(*args)
-    torch.cuda.synchronize()
-    assert svf_cuda.svf_dense_launches == before + 1
-    _assert_close(tuple(v.cpu() for v in got), tuple(v.cpu() for v in ref))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", EXAMPLE_CASES)
-def test_dense_kernel_is_its_emulation_on_card(cuda_device, name):
-    """K2 against its seams composed in torch on the card, bit for bit."""
-    args = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor) else a
-                 for a in _example_case(name))
-    got = svf_cuda.svf_dense_cuda(*args)
-    want = svf_cuda.svf_dense_emulated(*args)
-    torch.cuda.synchronize()
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
