@@ -8,8 +8,9 @@ each of which raises on failure:
 
   1. the card: nvidia-smi name and power limit, torch's device name
   2. build, all at once: the five CUDA kernels from zang_tpu_torch/csrc/
-     (nvcc, one process per source) and the C++ host compiler (g++), into
-     zang_tpu_torch/build/
+     (nvcc, one process per source), the C++ host compiler and the
+     reference oracle's inner loops (g++, csrc/zang_host.cpp and
+     csrc/zang_oracle.cpp), into zang_tpu_torch/build/
   3. K1, the table-cut SVF kernel, against its plain torch version
      (svf_filter_table_ref) on the card: the song's shape, a ragged shape,
      a state chain across two calls, poly_echo's shape (1024 voices), the
@@ -238,13 +239,42 @@ each of which raises on failure:
      lines) those of its chunks and renders; then `python -m
      zang_tpu_torch.tools.soak --seconds 20 --clients 2 --json` (run beside
      phase 13), every invariant of its report holding
+  15. the reference oracle on the card's host (zang_tpu_torch/oracle: numpy
+     and C++ on the CPU, held bit for bit to the JAX package's oracle by
+     tests/test_torch_oracle*.py), against which the card's renders are
+     held over every frame, within the parity budget (< -90 dBFS RMS, every
+     channel); the oracle's seconds are the host CPU's:
+       (a)        phase 7's 385 s song (282 K1) against
+                  render_song_oracle(385), printed beside its reading on the
+                  JAX golden windows
+       (b)        phase 9's twenty example renders (their launches checked
+                  there) against their backend="oracle" twins; detuned's
+                  on the JAX trajectory stored in examples_golden_jax.npz
+                  (the cascade render of phase 9) against the twin fed the
+                  same trajectory
+       (c)        phase 7's 10 s sampler config (7 K4) against
+                  render_sampler_chain(10)
+       (d)        F2: a zangscript whose delay body calls Gate (a painter)
+                  and low-passes its feedback, rendered at chunks 8,192 and
+                  16,384 on the card (K2 once a sub-chunk of 2,048: 24
+                  launches each) against render_script_oracle
+       (e)        `python -m zang_tpu_torch.host.render_wav song OUT.wav
+                  --engine oracle --seconds 60`, a process of its own: its
+                  WAV byte for byte render_song_oracle(60) mixed down
+       (f)        the oracle's SHA-256 fingerprint of each example at
+                  tools/oracle_fingerprints.py's windows against
+                  tests/oracle_fingerprints.json (read as data): "k of 20
+                  match" and the mismatches, printed only (detuned's
+                  trajectory is the port's own; a numpy whose sin or exp
+                  rounds otherwise would move the others)
   10. no module of jax or of zang_tpu was imported (checked last)
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds; before the
 card's line, {"live": ...} holds phase 9b's block times and fidelity,
-{"serve": ...} phase 11's numbers, {"multi_gpu": ...} phase 12's and
-{"bench": ...} phases 13 and 14's. Exits non-zero, printing no result,
+{"serve": ...} phase 11's numbers, {"multi_gpu": ...} phase 12's,
+{"bench": ...} phases 13 and 14's and {"oracle": ...} phase 15's
+readings and the oracle's host seconds. Exits non-zero, printing no result,
 without CUDA or outside a checkout of the repo.
 """
 
@@ -275,6 +305,30 @@ FB = 0.7853981633974483  # pi / 4, the fmsynth example's modulator feedback
 # a feedback FM sample: 3 for the angle, 1 for the shape, and about 15 for
 # sinf's range reduction and polynomial (an estimate of libdevice's fast path)
 FM_OPS_PER_SAMPLE = 19
+# phase 15 (d): F2, a painter (Gate) inside a delay body (the sub-chunks of
+# the delay are 2,048 frames at both chunks: 4,000 >= 2,048), its feedback
+# low-passed so K2 runs in the loop; tests/test_torch_oracle.py renders it
+# on the CPU
+F2_SCRIPT = """
+F2 = defmodule freq: cob, note_on: boolean, begin
+    out delay 4000 begin
+        out Gate(note_on) * PulseOsc(freq, color=0.5) * 0.3 + feedback * 0.5
+        feedback Filter(input=Gate(note_on) * PulseOsc(freq, color=0.5) * 0.3,
+                        type=.low_pass, cutoff=0.2, res=0)
+    end
+end
+"""
+F2_NOTES = [(0.1, 0.3, 220.0), (0.5, 0.2, 330.0), (0.8, 0.25, 440.0)]
+F2_TOTAL, F2_SUB = 3 * 16384, 2048
+ORACLE_CLI_SECONDS = 60.0
+# tools/oracle_fingerprints.py's render windows (seconds)
+FINGERPRINT_WINDOW = {
+    "play": 2.0, "envelope": 2.0, "vibrato": 2.0, "curve": 2.0,
+    "laser": 2.0, "subsong": 3.0, "two": 2.5, "arpeggiator": 2.0,
+    "polyphony": 2.0, "stereo": 2.0, "detuned": 2.0, "portamento": 2.0,
+    "mouse": 2.0, "fmsynth": 2.0, "sampler": 2.0, "polyphony2": 2.0,
+    "delay": 2.5, "script": 2.0, "script_runtime": 2.0, "song": 4.0,
+}
 
 
 def smi(query="name,power.limit", fmt="csv,noheader") -> str:
@@ -835,15 +889,23 @@ def check_golden(gold_windows, offsets, chunk_rms_gold, audio, label, chunk=CHUN
     return max(db for db, _ in dbs)
 
 
-def check_plain(audio, plain_audio, label):
+def check_plain(audio, plain_audio, label, against="the card's plain-path render"):
+    """audio, plain_audio: f32 numpy [C, n]; every channel within the parity
+    budget of the other. Returns the worst channel's dBFS."""
     from zang_tpu_torch.graph.fidelity import deviation_dbfs
 
+    if audio.shape != plain_audio.shape:
+        raise AssertionError(f"{label}: {audio.shape} against {against}'s "
+                             f"{plain_audio.shape}")
+    worst = -float("inf")
     for ch in range(audio.shape[0]):
         db, peak = deviation_dbfs(audio[ch], plain_audio[ch])
-        print(f"  {label} vs the card's plain-path render, channel {ch}: "
+        print(f"  {label} vs {against}, channel {ch}: "
               f"rms {db:.1f} dBFS, peak {peak:.1f} dBFS")
         if not db < PARITY_DB:
-            raise AssertionError(f"{label}: {db:.1f} dBFS from the plain path")
+            raise AssertionError(f"{label}: {db:.1f} dBFS from {against}")
+        worst = max(worst, float(db))
+    return worst
 
 
 # the kernel each example launches once a render chunk (detuned's twice: its
@@ -925,13 +987,15 @@ def check_detuned(examples, filters, fm, lookup, svf_cuda, gold, p, free_np, lau
     dbs = [deviation_dbfs(ours[:, ch], gold["detuned_windows"][:, ch])[0] for ch in range(2)]
     print("  detuned free-running (the port's own warble) vs JAX golden, not bounded: "
           + ", ".join(f"{db:.1f}" for db in dbs) + " dBFS")
+    return cascade
 
 
 def run_examples(examples, filters, fm, lookup, svf_cuda, card, launches):
     """Each registered example through its ex_* entry on the card at its
     default seconds: launch counts, shape, finiteness, the JAX golden
     windows and the card's plain-path render. Adds each run's launch counts
-    to `launches` under "ex_<name>"."""
+    to `launches` under "ex_<name>". Returns {name: the render, f32 numpy
+    [C, total]} (detuned's on the JAX trajectory) for phase 15."""
     import inspect
 
     import numpy as np
@@ -942,6 +1006,7 @@ def run_examples(examples, filters, fm, lookup, svf_cuda, card, launches):
     if sorted(params) != sorted(examples.EXAMPLES):
         raise AssertionError(f"the examples' golden holds {sorted(params)}, the registry "
                              f"{sorted(examples.EXAMPLES)}")
+    renders = {}
     for name, fn in examples.EXAMPLES.items():
         p = params[name]
         seconds = inspect.signature(fn).parameters["seconds"].default
@@ -986,9 +1051,10 @@ def run_examples(examples, filters, fm, lookup, svf_cuda, card, launches):
             raise AssertionError(f"{name}: non-finite or silent render")
         audio_np = audio.cpu().numpy()
         if name == "detuned":
-            check_detuned(examples, filters, fm, lookup, svf_cuda, gold, p, audio_np,
-                          launches)
+            renders[name] = check_detuned(examples, filters, fm, lookup, svf_cuda, gold, p,
+                                          audio_np, launches)
             continue
+        renders[name] = audio_np
         check_golden(gold[f"{name}_windows"], gold[f"{name}_offsets"],
                      gold[f"{name}_chunk_rms"], audio_np, name, chunk=chunk)
         plain_s = FM_PLAIN_SECONDS if name == "fmsynth" else seconds
@@ -1002,6 +1068,7 @@ def run_examples(examples, filters, fm, lookup, svf_cuda, card, launches):
         check_plain(ours, plain, f"{name} ({plain_s:g} s)")
         if name == "fmsynth" and not np.array_equal(ours, plain):
             raise AssertionError("fmsynth: the render is not the plain path's bits")
+    return renders
 
 
 # ---------------------------------------------------------------------------
@@ -2371,6 +2438,149 @@ def run_bench_soak_tests(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the reference oracle on the card's host (phase 15)
+
+
+def check_oracle(audio, ref, label):
+    """audio, ref: f32 numpy [C, total] or [total]; every channel within the
+    parity budget of the oracle's render over every frame."""
+    import numpy as np
+
+    return check_plain(np.atleast_2d(audio), np.atleast_2d(ref), label,
+                       against=f"the oracle ({np.shape(ref)[-1]} frames)")
+
+
+def run_oracle(card, svf_cuda, lookup, fm, launches, song_mix, song_window_db,
+               sampler_mix, example_renders):
+    """Phase 15: the card's renders against the port's reference oracle on
+    the host. song_mix: phase 7's song, f32 numpy [1, total];
+    song_window_db: its worst reading on the JAX golden windows;
+    sampler_mix: phase 7's 10 s sampler config [1, total]; example_renders:
+    phase 9's renders by name. Returns the phase's readings and the
+    oracle's host seconds."""
+    import hashlib
+    import inspect
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from zang_tpu_torch.core.mixdown import mixdown_s16_np
+    from zang_tpu_torch.core.notes import SongEvent
+    from zang_tpu_torch.core.timeline import compile_timelines
+    from zang_tpu_torch.core.wav import read_wav
+    from zang_tpu_torch.graph.render import Performance, render_performance
+    from zang_tpu_torch.host import examples, song
+    from zang_tpu_torch.oracle import examples as oex
+    from zang_tpu_torch.oracle.script import render_script_oracle
+    from zang_tpu_torch.script import compile_script
+    from zang_tpu_torch.script.torch_backend import ScriptInstrument
+
+    out = {"card": card, "host_seconds": {}}
+    host_s = out["host_seconds"]  # the oracle's seconds, the host CPU's
+
+    # (a) the song over every frame
+    t = time.perf_counter()
+    ref = song.render_song_oracle(song.NUM_SECONDS)
+    host_s["song"] = time.perf_counter() - t
+    print(f"phase 15 (a): render_song_oracle({song.NUM_SECONDS}) in {host_s['song']:.2f}s "
+          f"of host CPU; the card's render (launches {launches['song']}):")
+    out["song_db"] = check_oracle(song_mix, ref, "song")
+    out["song_window_db"] = song_window_db
+    print(f"  song: {out['song_db']:.1f} dBFS over all {ref.size} frames against the "
+          f"oracle, {song_window_db:.1f} on the JAX golden's windows [{card}]")
+    del ref
+
+    # (b) the twenty examples at their defaults, against their twins
+    gold = np.load(os.path.join(ROOT, "zang_tpu_torch", "data", "examples_golden_jax.npz"))
+    out["examples_db"] = {}
+    host_s["examples"] = {}
+    for name, fn in examples.EXAMPLES.items():
+        kw = {"warble_mul": gold["detuned_warble"]} if name == "detuned" else {}
+        t = time.perf_counter()
+        twin, _sr = fn(backend="oracle", **kw)
+        host_s["examples"][name] = time.perf_counter() - t
+        seconds = inspect.signature(fn).parameters["seconds"].default
+        label = f"{name} ({seconds:g} s{', the JAX trajectory' if kw else ''}; launches " \
+                f"{launches['ex_detuned_cascade' if kw else 'ex_' + name]})"
+        out["examples_db"][name] = check_oracle(example_renders[name], twin, label)
+    print(f"phase 15 (b): twenty twins in {sum(host_s['examples'].values()):.2f}s of host "
+          f"CPU; worst {max(out['examples_db'].values()):.1f} dBFS [{card}]")
+
+    # (c) the sampler config
+    t = time.perf_counter()
+    chain = oex.render_sampler_chain(10.0)
+    host_s["sampler"] = time.perf_counter() - t
+    out["sampler_db"] = check_oracle(sampler_mix, chain,
+                                     f"sampler config 10 s (launches {launches['sampler']})")
+
+    # (d) F2 on the card
+    sr = 44100.0
+    f2_song = []
+    for i, (t0, dur, f) in enumerate(F2_NOTES):
+        f2_song.append(SongEvent({"freq": f, "note_on": True}, t=t0, note_id=i + 1))
+        f2_song.append(SongEvent({"freq": f, "note_on": False}, t=t0 + dur, note_id=i + 1))
+    t = time.perf_counter()
+    f2_ref = render_script_oracle(compile_script(F2_SCRIPT), "F2", f2_song, F2_TOTAL, sr)
+    host_s["f2"] = time.perf_counter() - t
+    out["f2_db"] = {}
+    for chunk in (8192, 16384):
+        tls = compile_timelines(f2_song, 1, sr, F2_TOTAL)
+        perf = Performance([(ScriptInstrument(compile_script(F2_SCRIPT), "F2"), tls)], sr)
+        reset_counts(svf_cuda, lookup, fm)
+        audio = render_performance(perf, F2_TOTAL, chunk, device="cuda")
+        torch.cuda.synchronize()
+        got = counts(svf_cuda, lookup, fm)
+        launches[f"f2_{chunk}"] = got
+        if got != expect_counts(svf_dense=F2_TOTAL // F2_SUB):
+            raise AssertionError(f"F2 at chunk {chunk}: launches {got}")
+        out["f2_db"][chunk] = check_oracle(audio.cpu().numpy(), f2_ref,
+                                           f"F2 at chunk {chunk} (launches {got})")
+
+    # (e) the CLI's --engine oracle, a process of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "oracle.wav")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "zang_tpu_torch.host.render_wav", "song", wav,
+             "--engine", "oracle", "--seconds", f"{ORACLE_CLI_SECONDS:g}"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"render_wav --engine oracle exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        w = read_wav(wav)
+        pcm = np.frombuffer(w.data, "<i2")
+    want = mixdown_s16_np(song.render_song_oracle(ORACLE_CLI_SECONDS)[None, :],
+                          song.MIX_VOLUME)[0]
+    if w.sample_rate != 48000 or w.num_channels != 1 or pcm.tobytes() != want.tobytes():
+        raise AssertionError("render_wav --engine oracle: the WAV is not "
+                             "render_song_oracle mixed down")
+    host_s["cli"] = cli_s
+    print(f"phase 15 (e): {proc.stdout.strip()} ({cli_s:.2f}s wall, the process's start "
+          f"included): byte for byte render_song_oracle({ORACLE_CLI_SECONDS:g}) mixed down")
+
+    # (f) the fingerprints, printed only
+    with open(os.path.join(ROOT, "tests", "oracle_fingerprints.json")) as f:
+        manifest = json.load(f)
+    missed = []
+    for name, seconds in FINGERPRINT_WINDOW.items():
+        audio, sr_ = examples.EXAMPLES[name](seconds=seconds, backend="oracle")
+        a = np.ascontiguousarray(np.asarray(audio, dtype=np.float32))
+        h = hashlib.sha256()
+        h.update(repr((a.shape, float(sr_))).encode())
+        h.update(a.tobytes())
+        if h.hexdigest() != manifest.get(name):
+            missed.append(name)
+    out["fingerprints"] = {"match": len(FINGERPRINT_WINDOW) - len(missed),
+                           "of": len(FINGERPRINT_WINDOW), "mismatch": missed}
+    print(f"phase 15 (f): oracle fingerprints {out['fingerprints']['match']} of "
+          f"{len(FINGERPRINT_WINDOW)} match tests/oracle_fingerprints.json; mismatches: "
+          f"{missed or 'none'} (printed only; detuned's trajectory is the port's own)")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2389,6 +2599,7 @@ def main() -> int:
     from zang_tpu_torch.graph.render import render_performance
     from zang_tpu_torch.host import configs, examples, midi, song
     from zang_tpu_torch.ops import _build, filters, fm, lookup, svf_cuda
+    from zang_tpu_torch.oracle import native as oracle_native
 
     # 1. the card
     card = smi()
@@ -2399,11 +2610,12 @@ def main() -> int:
 
     # 2. build: one compiler process per source, all started together
     t = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         jobs = {f"{stem}.cu": pool.submit(_build.build, stem)
                 for stem in ("svf_table", "svf_dense", "svf_onepass", "table_lookup",
                              "fm_feedback")}
         jobs["zang_host.cpp"] = pool.submit(native.build)
+        jobs["zang_oracle.cpp"] = pool.submit(oracle_native.build)
         secs = {name: job.result() for name, job in jobs.items()}
     print(f"build: {', '.join(f'{k} {v:.2f}s' for k, v in secs.items())} "
           f"(compiler time; {time.perf_counter() - t:.2f}s wall, in parallel)")
@@ -2761,7 +2973,8 @@ def main() -> int:
     if int(gold["total"]) != total or int(gold["chunk_size"]) != CHUNK:
         raise AssertionError("the song's golden file is for another song length")
     mix_np = mix.cpu().numpy()
-    check_golden(gold["windows"], gold["offsets"], gold["chunk_rms"], mix_np[0], "song")
+    song_window_db = check_golden(gold["windows"], gold["offsets"], gold["chunk_rms"],
+                                  mix_np[0], "song")
     with mock.patch.object(filters, "svf_filter_table", filters.svf_filter_table_ref):
         plain = render_performance(perf, total, CHUNK, device="cuda").cpu().numpy()
     check_plain(mix_np, plain, "song")
@@ -2844,6 +3057,8 @@ def main() -> int:
         del audio
         if name == "poly_echo_16384":
             poly16_mix = audio_np
+        if name == "sampler":
+            sampler_mix = audio_np  # phase 15 holds it to the oracle
         check_golden(cgold[f"{name}_windows"], cgold[f"{name}_offsets"],
                      cgold[f"{name}_chunk_rms"], audio_np, name)
         if plain_frames is not None:
@@ -2862,7 +3077,13 @@ def main() -> int:
     run_flat_midi_stream(card, filters, fm, lookup, svf_cuda, launches, song_mix)
 
     # 9. the examples
-    run_examples(examples, filters, fm, lookup, svf_cuda, card, launches)
+    example_renders = run_examples(examples, filters, fm, lookup, svf_cuda, card, launches)
+
+    # 15. the reference oracle on the card's host: the song, the examples, the
+    # sampler and F2 against it, over every frame
+    oracle = run_oracle(card, svf_cuda, lookup, fm, launches, song_mix, song_window_db,
+                        sampler_mix, example_renders)
+    del example_renders, sampler_mix
 
     # 9b. live sessions, fleets and the TCP server
     live = run_live(card, dev, rng, fm, filters, svf_cuda, lookup, k2, k2_emulated, k2_device,
@@ -2914,6 +3135,7 @@ def main() -> int:
     print(json.dumps({"serve": serve}))
     print(json.dumps({"multi_gpu": multi}))
     print(json.dumps({"bench": bench}))
+    print(json.dumps({"oracle": oracle}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

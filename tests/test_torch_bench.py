@@ -3,8 +3,9 @@ bench.py, on the CPU at tiny sizes.
 
 - The command with --device cpu prints bench.py's six metrics, `torch_` in
   front, in bench.py's order with the headline last, bench.py's units (the
-  fidelity's is against the JAX golden windows) and vs_baseline formulas,
-  and loads no module of jax, jaxlib or zang_tpu (~12 s alone).
+  fidelity's is the whole render against the port's oracle, as bench.py's)
+  and vs_baseline formulas, and loads no module of jax, jaxlib or zang_tpu
+  (~12 s alone).
 - Without CUDA and without --device cpu it exits non-zero and prints no
   metric (~3 s).
 - The timed path (bench.prepare's run) is render_performance's bits, uploads
@@ -59,7 +60,7 @@ METRICS = [
     ("torch_poly_echo_voices_per_chip", "voices_at_rtf1", lambda v: round(v / 1024.0, 2), 0.0),
     ("torch_batch_serve_rtf_aggregate", "x_realtime_wav_delivery", lambda v: v, 0.0),
     ("torch_live_fleet_sessions_per_chip", "realtime_sessions", lambda v: v, 0.0),
-    ("torch_bach_render_fidelity_rms_dbfs", "dbfs_rms_vs_jax_golden", lambda v: v / -90.0,
+    ("torch_bach_render_fidelity_rms_dbfs", "dbfs_rms_vs_oracle", lambda v: v / -90.0,
      0.0005 + 0.05 / 90),
     ("torch_bach_toccata_render_rtf_48k", "x_realtime", lambda v: v / 1000.0,
      0.0005 + 0.05 / 1000),
@@ -108,7 +109,8 @@ def test_bench_cpu_prints_the_six_metrics():
     stderr = proc.stderr
     assert stderr.startswith("# card cpu (no card)"), stderr[:200]
     for label in ("bench_song end to end", "bench_poly end to end", "bench_fleet block ms",
-                  "bench_sampler launches", "bench_serve walls="):
+                  "bench_sampler launches", "bench_serve walls=", "bench_fidelity oracle",
+                  "bench_fidelity on the JAX golden's windows: -"):
         assert label in stderr, label
 
 

@@ -298,12 +298,16 @@ def test_port_sources_import_no_jax_package():
 
 
 def test_port_modules_load_no_jax_package():
-    """Importing every module of the port leaves no jax and no zang_tpu
+    """Importing every module of the port, the reference oracle's copy
+    (zang_tpu_torch.oracle) among them, leaves no jax and no zang_tpu
     module in sys.modules."""
     code = (
         "import pkgutil, sys, zang_tpu_torch\n"
         "for m in pkgutil.walk_packages(zang_tpu_torch.__path__, 'zang_tpu_torch.'):\n"
         "    __import__(m.name)\n"
+        "from zang_tpu_torch.host.examples import ex_detuned, ex_stereo\n"
+        "for ex in (ex_detuned, ex_stereo):  # the twins whose JAX twins use jax\n"
+        "    assert ex(seconds=0.2, backend='oracle')[0].any()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'zang_tpu'))\n"
         "assert not bad, bad\n"
@@ -311,7 +315,9 @@ def test_port_modules_load_no_jax_package():
         "assert 'zang_tpu_torch.script.torch_backend' in sys.modules\n"
         "assert 'zang_tpu_torch.serve.server' in sys.modules\n"
         "for m in ('serve.http', 'serve.batch', 'graph.checkpoint', 'host.visual',\n"
-        "          'serve.client', 'parallel.mesh'):\n"
+        "          'serve.client', 'parallel.mesh', 'oracle', 'oracle.native',\n"
+        "          'oracle.modules', 'oracle.instruments', 'oracle.engine',\n"
+        "          'oracle.examples', 'oracle.script'):\n"
         "    assert 'zang_tpu_torch.' + m in sys.modules, m\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["ZANG_PLATFORM"] = "cpu"  # would make zang_tpu/__init__.py import jax

@@ -26,11 +26,14 @@ headline (the full Bach Toccata's render RTF) LAST. In print order:
                                      block (serve/live.LiveFleet); lanes x
                                      block budget / best block time; K2;
                                      vs_baseline = value
-  torch_bach_render_fidelity_rms_dbfs  the song against the JAX package's
-                                     golden windows
-                                     (data/song_golden_jax.npz: the JAX
-                                     package does not run where the card
-                                     is); unit dbfs_rms_vs_jax_golden;
+  torch_bach_render_fidelity_rms_dbfs  the whole song rendered on the
+                                     device (K1) against the port's
+                                     reference oracle over every frame
+                                     (host/song.render_song_oracle: numpy
+                                     and C++ on the host, held bit for bit
+                                     to the JAX package's oracle), as
+                                     bench.py defines it; unit
+                                     dbfs_rms_vs_oracle;
                                      vs_baseline = value / -90
   torch_bach_toccata_render_rtf_48k  the full 385 s song; K1;
                                      vs_baseline = value / 1000
@@ -47,8 +50,10 @@ and poly_echo.
 Lines starting with "#" go to stderr and are not metrics: the card's
 nvidia-smi name and power limit and the host's load first, then the
 kernels' build seconds, each metric's end-to-end seconds, kernel launches
-(the wrappers' counters), peak device memory and spread, and the fleet's
-median and p99 block beside its best.
+(the wrappers' counters), peak device memory and spread, the fleet's
+median and p99 block beside its best, and fidelity's oracle seconds (host
+CPU time, outside any timed window) beside its reading on the JAX
+package's golden windows (data/song_golden_jax.npz).
 
 Env (bench.py's knobs and defaults):
   ZANG_BENCH_SECONDS   song length (default 385); also fidelity's
@@ -84,6 +89,7 @@ from .host import configs
 from .host import instruments as ti
 from .host import song as sm
 from .ops import _build
+from .oracle import native as oracle_native
 from .parallel.mesh import launch_counts, reset_launch_counts
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -306,6 +312,8 @@ def song_fidelity(audio: np.ndarray, gold) -> float:
 
 
 def bench_fidelity(seconds, chunk, dev):
+    """bench.py's fidelity: the whole song on `dev` against the oracle's
+    render over every frame (graph/fidelity.deviation_dbfs)."""
     from .graph.render import render_performance
 
     total = int(seconds * sm.SAMPLE_RATE)
@@ -314,11 +322,21 @@ def bench_fidelity(seconds, chunk, dev):
                              chunk_size=min(chunk, total), device=dev)
     if not bool(torch.isfinite(mix).all()):
         raise RuntimeError("bench_fidelity: non-finite samples in the song")
-    with np.load(GOLDEN) as gold:
-        rms = song_fidelity(mix[0].cpu().numpy(), gold)
     meter.note("1 render")
+    mix = mix[0].cpu().numpy()
+    t = time.perf_counter()
+    ref = sm.render_song_oracle(seconds)
+    _note(f"bench_fidelity oracle {seconds:g} s of song in {time.perf_counter() - t:.2f} s "
+          f"(host CPU, render_song_oracle, not timed)")
+    rms, _peak = deviation_dbfs(mix, ref)
+    try:
+        with np.load(GOLDEN) as gold:
+            _note(f"bench_fidelity on the JAX golden's windows: "
+                  f"{song_fidelity(mix, gold):.1f} dBFS")
+    except ValueError as e:  # no window inside a short song
+        _note(f"bench_fidelity on the JAX golden's windows: {e}")
     emit("torch_bach_render_fidelity_rms_dbfs", round(float(rms), 1),
-         "dbfs_rms_vs_jax_golden", round(float(rms) / -90.0, 3))
+         "dbfs_rms_vs_oracle", round(float(rms) / -90.0, 3))
 
 
 def bench_song(seconds, chunk, dev):
@@ -366,11 +384,13 @@ def _card_line(dev) -> str:
 
 
 def _build_kernels(dev) -> None:
-    """Set-up, before any clock: the host compiler (g++) and, on the card,
-    the five kernels (nvcc), one process a source, all started together."""
+    """Set-up, before any clock: the host compiler and the oracle's loops
+    (g++) and, on the card, the five kernels (nvcc), one process a source,
+    all started together."""
     t = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
-        jobs = {"zang_host": pool.submit(native.build)}
+    with ThreadPoolExecutor(len(KERNELS) + 2) as pool:
+        jobs = {"zang_host": pool.submit(native.build),
+                "zang_oracle": pool.submit(oracle_native.build)}
         if dev.type == "cuda":
             jobs.update({k: pool.submit(_build.build, k) for k in KERNELS})
         secs = {k: j.result() for k, j in jobs.items()}

@@ -3,8 +3,12 @@ zang_tpu/host/examples.py: all twenty, the eight zangscript ones through
 the port's script backend).
 
 Each example (examples/example_*.zig) is a function
-`ex_<name>(seconds, device="cuda") -> (audio f32 [C, total] on device,
-sample_rate)`; keyboard and mouse input become scripted event sequences.
+`ex_<name>(seconds, device="cuda", backend="torch") -> (audio f32 [C, total]
+on device, sample_rate)`; keyboard and mouse input become scripted event
+sequences. backend="oracle" renders the example's twin through the port's
+reference oracle instead (zang_tpu_torch/oracle: numpy on the host, f32
+numpy [C, total]; device is not used), as the JAX package's backend="oracle"
+does.
 The instruments live in host/instruments.py. On the card the examples reach
 every CUDA kernel of the port:
 
@@ -45,6 +49,9 @@ from ..graph.render import Performance, render_performance
 from ..ops import control, effects, filters, noise, oscillators
 from ..ops import delay as d_ops
 from ..ops.segprog import eval_chunk
+from ..oracle import examples as oex
+from ..oracle import instruments as oi
+from ..oracle.script import render_script_oracle
 from ..script import compile_script
 from ..script.torch_backend import ScriptInstrument
 from . import configs
@@ -81,18 +88,59 @@ def _simple_song(notes: List[Tuple[float, float, float]], extra=None):
     return song
 
 
-def _render_script(src, name, song, seconds, device, sr=44100.0):
-    """A zangscript module as a one-voice instrument over `song`."""
+BACKENDS = ("torch", "oracle")
+
+
+def _device(device, backend):
+    """The render's device for backend "torch" (raises without CUDA unless
+    the caller asks for the CPU: before planning, to fail fast); None for
+    the oracle, which runs on the host."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
+    return require_device(device) if backend == "torch" else None
+
+
+def _render_script(src, name, song, seconds, device, sr=44100.0, polyphony=1,
+                   backend="torch"):
+    """A zangscript module as an instrument of `polyphony` voices over `song`."""
     total = int(seconds * sr)
-    inst = ScriptInstrument(compile_script(src), name)
-    tls = compile_timelines(song, 1, sr, total)
+    cs = compile_script(src)
+    if backend == "oracle":
+        return render_script_oracle(cs, name, song, total, sr, polyphony=polyphony), sr
+    inst = ScriptInstrument(cs, name)
+    tls = compile_timelines(song, polyphony, sr, total)
     return render_performance(Performance([(inst, tls)], sr), total,
                               chunk_size=DEFAULT_CHUNK, device=device), sr
 
 
+def _oracle_twin_part(inst, tls):
+    """(make_module(v), make_params, num_temps, tls) twin for the standard
+    examples/modules.zig instruments (oracle/instruments.py)."""
+    if isinstance(inst, ti.PMOscInstrument):
+        rd = inst.release_duration
+        return (lambda v: oi.PMOscInstrument(rd, mode="parity"), oex.std_params, 3, tls)
+    if isinstance(inst, ti.FilteredSawtoothInstrument):
+        return (lambda v: oi.FilteredSawtoothInstrument(mode="parity"),
+                oex.std_params, 3, tls)
+    if isinstance(inst, ti.NiceInstrument):
+        color = float(inst.color)
+        return (lambda v: oi.NiceInstrument(color, mode="parity"), oex.std_params, 2, tls)
+    if isinstance(inst, ti.HardSquareInstrument):
+        return (lambda v: oi.HardSquareInstrument(mode="parity"), oex.std_params, 2, tls)
+    raise NotImplementedError(type(inst).__name__)
+
+
 def _render_parts(parts, seconds, sr, device, num_channels=1, post_fn=None,
-                  post_init=None):
+                  post_init=None, backend="torch", oracle_parts=None, oracle_post=None):
+    """The parts [(instrument, timelines)] as a Performance on `device`, or,
+    for the oracle, their twins: oracle_parts() (default: each stock
+    instrument's twin) summed, then oracle_post() on the mix if given."""
     total = int(seconds * sr)
+    if backend == "oracle":
+        oparts = (oracle_parts() if oracle_parts is not None
+                  else [_oracle_twin_part(inst, tls) for inst, tls in parts])
+        post = oracle_post() if oracle_post is not None else None
+        return oex.render_parts(oparts, total, sr, num_channels, post), sr
     perf = Performance(parts, sr, num_channels=num_channels, post_fn=post_fn,
                        post_init_state=post_init)
     return render_performance(perf, total, chunk_size=DEFAULT_CHUNK,
@@ -104,8 +152,8 @@ def _render_parts(parts, seconds, sr, device, num_channels=1, post_fn=None,
 # (examples/example_play.zig).
 
 
-def ex_play(seconds=6.0, device="cuda"):
-    dev = require_device(device)
+def ex_play(seconds=6.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     sr = 48000.0
     melody = _simple_song([
         (0.2 + i * 0.45, 0.35, A4 * tt.rel_freq(n))
@@ -117,7 +165,7 @@ def ex_play(seconds=6.0, device="cuda"):
     tls1 = compile_timelines(drone, 1, sr, total)
     return _render_parts(
         [(ti.PMOscInstrument(1.0), tls0), (ti.FilteredSawtoothInstrument(), tls1)],
-        seconds, sr, dev)
+        seconds, sr, dev, backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -133,10 +181,11 @@ end
 """
 
 
-def ex_envelope(seconds=8.0, device="cuda"):
-    dev = require_device(device)
+def ex_envelope(seconds=8.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     song = _simple_song([(0.1, 4.0, A4 * tt.c2)])
-    return _render_script(ENVELOPE_SCRIPT, "EnvDemo", song, seconds, dev, sr=48000.0)
+    return _render_script(ENVELOPE_SCRIPT, "EnvDemo", song, seconds, dev, sr=48000.0,
+                          backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -150,10 +199,11 @@ end
 """
 
 
-def ex_vibrato(seconds=4.0, device="cuda"):
-    dev = require_device(device)
+def ex_vibrato(seconds=4.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     song = _simple_song([(0.1, 1.5, A4 * tt.a3), (2.0, 1.5, A4 * tt.d4)])
-    return _render_script(VIBRATO_SCRIPT, "Vib", song, seconds, dev, sr=48000.0)
+    return _render_script(VIBRATO_SCRIPT, "Vib", song, seconds, dev, sr=48000.0,
+                          backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +236,8 @@ end
 """
 
 
-def ex_laser(seconds=3.0, seed=0, device="cuda"):
-    dev = require_device(device)
+def ex_laser(seconds=3.0, seed=0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     rng = np.random.default_rng(seed)
     song = []
     t = 0.1
@@ -202,11 +252,11 @@ def ex_laser(seconds=3.0, seed=0, device="cuda"):
                            "note_on": False}, t + 0.25, nid))
         nid += 1
         t += 0.3
-    return _render_script(LASER_SCRIPT, "Laser", song, seconds, dev)
+    return _render_script(LASER_SCRIPT, "Laser", song, seconds, dev, backend=backend)
 
 
-def ex_curve(seconds=4.5, device="cuda"):
-    dev = require_device(device)
+def ex_curve(seconds=4.5, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     src = """
 CurvePlayer = defmodule freq_mul: constant, note_on: boolean, begin
     out SineOsc(
@@ -232,7 +282,7 @@ end
     song = _simple_song([(0.0, 4.0, 0.0)])
     for e in song:
         e.params["freq_mul"] = 1.0
-    return _render_script(src, "CurvePlayer", song, seconds, dev)
+    return _render_script(src, "CurvePlayer", song, seconds, dev, backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -258,10 +308,11 @@ end
 """
 
 
-def ex_subsong(seconds=8.0, device="cuda"):
-    dev = require_device(device)
+def ex_subsong(seconds=8.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     song = _simple_song([(0.0, 5.5, A4 * tt.c4), (6.0, 1.8, A4 * tt.e4)])
-    return _render_script(SUBSONG_SCRIPT, "SubtrackPlayer", song, seconds, dev)
+    return _render_script(SUBSONG_SCRIPT, "SubtrackPlayer", song, seconds, dev,
+                          backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -269,8 +320,8 @@ def ex_subsong(seconds=8.0, device="cuda"):
 # impulse streams are active — host-side span intersection feeding one voice.
 
 
-def ex_two(seconds=4.0, device="cuda"):
-    dev = require_device(device)
+def ex_two(seconds=4.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     sr = 48000.0
     # stream 0: keys (freq); stream 1: color changes; intersect note_on
     s0 = [(0.2, 1.2, A4 * tt.a3), (1.8, 1.8, A4 * tt.c4)]
@@ -293,7 +344,7 @@ Two = defmodule freq: cob, note_on: boolean, begin
     out SineOsc(freq, phase=0) * e * 0.5
 end
 """
-    return _render_script(src, "Two", song, seconds, dev, sr=sr)
+    return _render_script(src, "Two", song, seconds, dev, sr=sr, backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -301,8 +352,8 @@ end
 # at 30 ms a step; the host generates the arpeggiator's impulse stream.
 
 
-def ex_arpeggiator(seconds=4.0, device="cuda"):
-    dev = require_device(device)
+def ex_arpeggiator(seconds=4.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     sr = 48000.0
     step = 0.03
     chords = [
@@ -324,7 +375,8 @@ def ex_arpeggiator(seconds=4.0, device="cuda"):
         t += step
     song.sort(key=lambda e: (e.t, e.note_id))
     tls = compile_timelines(song, 1, sr, int(seconds * sr))
-    return _render_parts([(ti.HardSquareInstrument(), tls)], seconds, sr, dev)
+    return _render_parts([(ti.HardSquareInstrument(), tls)], seconds, sr, dev,
+                         backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -340,8 +392,8 @@ class DecimatedNice(ti.NiceInstrument):
         super().__init__(0.3)
 
 
-def ex_polyphony(seconds=5.0, device="cuda"):
-    dev = require_device(device)
+def ex_polyphony(seconds=5.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     sr = 48000.0
     total = int(seconds * sr)
     tlss = []
@@ -365,7 +417,8 @@ def ex_polyphony(seconds=5.0, device="cuda"):
                 "val": torch.zeros((1,), dtype=torch.float32, device=device)}
 
     return _render_parts([(DecimatedNice(), tlss)], seconds, sr, dev,
-                         post_fn=post_fn, post_init=post_init)
+                         post_fn=post_fn, post_init=post_init, backend=backend,
+                         oracle_post=lambda: oex.DecimatorPost(6000.0))
 
 
 # ---------------------------------------------------------------------------
@@ -412,9 +465,11 @@ class StereoNoise:
         return {"pan_cnt": pan_cnt, "l0": l, "b0": b}, out
 
 
-def ex_stereo(seconds=6.0, device="cuda"):
-    dev = require_device(device)
+def ex_stereo(seconds=6.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     sr = 48000.0
+    if backend == "oracle":
+        return oex.render_stereo_noise(int(seconds * sr), sr, chunk=DEFAULT_CHUNK), sr
     tls = compile_timelines(_simple_song([(0.0, seconds, 1.0)]), 1, sr,
                             int(seconds * sr))
     return _render_parts([(StereoNoise(), tls)], seconds, sr, dev, num_channels=2)
@@ -490,15 +545,18 @@ class DetunedInstrument:
         return {"cnt": cnt, "nl": nl, "nb": nb, "l": l, "b": b}, out
 
 
-def ex_detuned(seconds=5.0, device="cuda", warble_mul=None):
-    """warble_mul: see DetunedInstrument (None: the port's own warble)."""
-    dev = require_device(device)
+def ex_detuned(seconds=5.0, device="cuda", backend="torch", warble_mul=None):
+    """warble_mul: see DetunedInstrument (None: the port's own warble). The
+    oracle twin takes the same multiplier: warble_mul if given, else the
+    port's trajectory on the CPU (oracle/examples.py detuned_warble)."""
+    dev = _device(device, backend)
     sr = 48000.0
     song = _simple_song([
         (0.2, 0.8, A4 * tt.c3), (1.2, 0.8, A4 * tt.eb3),
         (2.2, 0.8, A4 * tt.g3), (3.2, 1.2, A4 * tt.c4),
     ])
-    tls = compile_timelines(song, 2, sr, int(seconds * sr))
+    total = int(seconds * sr)
+    tls = compile_timelines(song, 2, sr, total)
 
     def post_fn(state, mix, ctx):
         return d_ops.stereo_echoes(state, mix, 0.6, 0.7)
@@ -506,8 +564,15 @@ def ex_detuned(seconds=5.0, device="cuda", warble_mul=None):
     def post_init(device):
         return d_ops.stereo_echoes_init(15000, device)
 
+    def oracle_parts():
+        warble = (oex.detuned_warble(len(tls), total, sr, chunk=DEFAULT_CHUNK)
+                  if warble_mul is None else np.asarray(warble_mul, F32))
+        return [(lambda v: oex.DetunedTwin(warble[v], sr), oex.std_params, 2, tls)]
+
     return _render_parts([(DetunedInstrument(warble_mul), tls)], seconds, sr, dev,
-                         num_channels=2, post_fn=post_fn, post_init=post_init)
+                         num_channels=2, post_fn=post_fn, post_init=post_init,
+                         backend=backend, oracle_parts=oracle_parts,
+                         oracle_post=lambda: oex.StereoEchoesPost(15000, 0.6, 0.7))
 
 
 # ---------------------------------------------------------------------------
@@ -549,8 +614,8 @@ class PortamentoInstrument:
         return {"cnt": cnt}, ti._env(prog, ctx) * osc
 
 
-def ex_portamento(seconds=4.0, device="cuda"):
-    dev = require_device(device)
+def ex_portamento(seconds=4.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     sr = 48000.0
     # scripted mono keyboard: (time, freq or None = all released)
     moves = [(0.2, A4 * tt.c3), (0.8, A4 * tt.g3), (1.4, A4 * tt.e3),
@@ -569,7 +634,16 @@ def ex_portamento(seconds=4.0, device="cuda"):
                                "prev_note_on": prev_on}, t, nid))
             prev_on = False
     tls = compile_timelines(song, 1, sr, int(seconds * sr))
-    return _render_parts([(PortamentoInstrument(), tls)], seconds, sr, dev)
+
+    def oracle_parts():
+        def porta_params(sr_, p):
+            return {"sample_rate": sr_, "freq": p["freq"], "note_on": p["note_on"],
+                    "prev_note_on": p["prev_note_on"]}
+
+        return [(lambda v: oex.PortaTwin(), porta_params, 2, tls)]
+
+    return _render_parts([(PortamentoInstrument(), tls)], seconds, sr, dev,
+                         backend=backend, oracle_parts=oracle_parts)
 
 
 # ---------------------------------------------------------------------------
@@ -577,8 +651,8 @@ def ex_portamento(seconds=4.0, device="cuda"):
 # multiplier follow glides toward a scripted pointer path.
 
 
-def ex_mouse(seconds=4.0, device="cuda"):
-    dev = require_device(device)
+def ex_mouse(seconds=4.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     sr = 48000.0
     total = int(seconds * sr)
     # scripted pointer path (t, x, y) in [0, 1]^2, quantized to frames as the
@@ -595,8 +669,14 @@ def ex_mouse(seconds=4.0, device="cuda"):
     }
     tls = compile_timelines(_simple_song([(0.1, seconds - 0.8, A4 * tt.a3)]), 1, sr,
                             total)
+
+    def oracle_parts():
+        ratio = oex.controller_buffer(controllers["x"], total, sr, lambda v: F32(v * 4.0))
+        mult = oex.controller_buffer(controllers["y"], total, sr, lambda v: F32(v * 2.0))
+        return [(lambda v: oex.MousePMTwin(ratio, mult), oex.std_params, 2, tls)]
+
     return _render_parts([(ti.MousePMInstrument(controllers=controllers), tls)],
-                         seconds, sr, dev)
+                         seconds, sr, dev, backend=backend, oracle_parts=oracle_parts)
 
 
 # ---------------------------------------------------------------------------
@@ -604,15 +684,20 @@ def ex_mouse(seconds=4.0, device="cuda"):
 # 8-voice polyphony, the instrument's default parameters.
 
 
-def ex_fmsynth(seconds=4.0, device="cuda"):
-    dev = require_device(device)
+def ex_fmsynth(seconds=4.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     sr = 48000.0
     song = _simple_song([
         (0.1 + 0.4 * i, 0.3, A4 * tt.rel_freq(n))
         for i, n in enumerate([-9, -5, -2, 0, 3, 0, -2, -5])
     ])
     tls = compile_timelines(song, 8, sr, int(seconds * sr))
-    return _render_parts([(ti.FMSynthInstrument(), tls)], seconds, sr, dev)
+    inst = ti.FMSynthInstrument()
+
+    return _render_parts(
+        [(inst, tls)], seconds, sr, dev, backend=backend,
+        oracle_parts=lambda: [(lambda v: oex.FMSynthTwin(inst.mod, inst.car, inst.algorithm),
+                               oex.std_params, 1, tls)])
 
 
 # ---------------------------------------------------------------------------
@@ -620,8 +705,10 @@ def ex_fmsynth(seconds=4.0, device="cuda"):
 # through overdrive and decimator (host/configs.py).
 
 
-def ex_sampler(seconds=6.0, device="cuda"):
-    dev = require_device(device)
+def ex_sampler(seconds=6.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
+    if backend == "oracle":
+        return oex.render_sampler_chain(seconds)[None, :], configs.SAMPLE_RATE
     perf, total = configs.build_sampler_performance(seconds=seconds)
     return render_performance(perf, total, chunk_size=DEFAULT_CHUNK,
                               device=dev), perf.sample_rate
@@ -633,15 +720,16 @@ def ex_sampler(seconds=6.0, device="cuda"):
 # recycled and voices stolen.
 
 
-def ex_polyphony2(seconds=6.0, device="cuda"):
-    dev = require_device(device)
+def ex_polyphony2(seconds=6.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     sr = 48000.0
     song = _simple_song([
         (0.2 + 0.25 * i, 1.2, 220.0 * tt.rel_freq(n))
         for i, n in enumerate([0, 4, 7, 12, 16, 12, 7, 4, 0, -5, -1, 2, 7])
     ])
     tls = compile_timelines(song, 3, sr, int(seconds * sr))
-    return _render_parts([(ti.NiceInstrument(0.3), tls)], seconds, sr, dev)
+    return _render_parts([(ti.NiceInstrument(0.3), tls)], seconds, sr, dev,
+                         backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -649,8 +737,8 @@ def ex_polyphony2(seconds=6.0, device="cuda"):
 # through StereoEchoes(15000) (examples/modules.zig:464-525).
 
 
-def ex_delay(seconds=8.0, device="cuda"):
-    dev = require_device(device)
+def ex_delay(seconds=8.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     sr = 48000.0
     song = _simple_song([
         (0.2 + 0.5 * i, 0.25, A4 * tt.rel_freq(n))
@@ -665,7 +753,9 @@ def ex_delay(seconds=8.0, device="cuda"):
         return d_ops.stereo_echoes_init(15000, device)
 
     return _render_parts([(ti.HardSquareInstrument(), tls)], seconds, sr, dev,
-                         num_channels=2, post_fn=post_fn, post_init=post_init)
+                         num_channels=2, post_fn=post_fn, post_init=post_init,
+                         backend=backend,
+                         oracle_post=lambda: oex.StereoEchoesPost(15000, 0.6, 0.7))
 
 
 # ---------------------------------------------------------------------------
@@ -680,13 +770,14 @@ with open(DEMO_SCRIPT_PATH) as _f:
     DEMO_SCRIPT = _f.read()
 
 
-def ex_script(seconds=6.0, device="cuda"):
-    dev = require_device(device)
+def ex_script(seconds=6.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
     song = _simple_song([
         (0.2 + 0.45 * i, 0.3, A4 * tt.rel_freq(n))
         for i, n in enumerate([-9, -2, 0, 3, 0, -2, -9, -14])
     ])
-    return _render_script(DEMO_SCRIPT, "DemoSynth", song, seconds, dev, sr=44100.0)
+    return _render_script(DEMO_SCRIPT, "DemoSynth", song, seconds, dev, sr=44100.0,
+                          backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -696,12 +787,12 @@ def ex_script(seconds=6.0, device="cuda"):
 # and rendered again; the two halves are concatenated.
 
 
-def ex_script_runtime(seconds=6.0, device="cuda"):
+def ex_script_runtime(seconds=6.0, device="cuda", backend="torch"):
     import tempfile
 
     from ..script.runtime import LiveScript
 
-    dev = require_device(device)
+    dev = _device(device, backend)
     sr = 44100.0
     half = seconds / 2.0
     total = int(half * sr)
@@ -709,6 +800,12 @@ def ex_script_runtime(seconds=6.0, device="cuda"):
         (0.15 + 0.4 * i, 0.3, A4 * tt.rel_freq(n))
         for i, n in enumerate([0, 3, 7, 3, 0, -5])
     ])
+    edited = (DEMO_SCRIPT.replace("color=0.3", "color=0.5")
+              .replace(".cubed(0.6)", ".cubed(0.2)"))
+    if backend == "oracle":  # the script before and after the edit, each from frame 0
+        halves = [_render_script(src, "DemoSynth", song, half, None, sr=sr, polyphony=2,
+                                 backend="oracle")[0] for src in (DEMO_SCRIPT, edited)]
+        return np.concatenate(halves, axis=-1), sr
     tls = compile_timelines(song, 2, sr, total)
     with tempfile.NamedTemporaryFile("w", suffix=".txt", delete=False) as f:
         f.write(DEMO_SCRIPT)
@@ -721,8 +818,7 @@ def ex_script_runtime(seconds=6.0, device="cuda"):
                                    chunk_size=DEFAULT_CHUNK, device=dev)
         # edit: brighter pulse + faster release, then hot-reload
         with open(path, "w") as f:
-            f.write(DEMO_SCRIPT.replace("color=0.3", "color=0.5")
-                    .replace(".cubed(0.6)", ".cubed(0.2)"))
+            f.write(edited)
         if not (live.maybe_reload() and live.ok):
             raise RuntimeError(f"reload failed: {live.error}")
         second = render_performance(Performance([(live.instrument, tls)], sr), total,
@@ -736,8 +832,10 @@ def ex_script_runtime(seconds=6.0, device="cuda"):
 # example_song (examples/example_song.zig): a slice of the Bach Toccata.
 
 
-def ex_song(seconds=20.0, device="cuda"):
-    dev = require_device(device)
+def ex_song(seconds=20.0, device="cuda", backend="torch"):
+    dev = _device(device, backend)
+    if backend == "oracle":
+        return song_mod.render_song_oracle(seconds)[None, :], float(song_mod.SAMPLE_RATE)
     total = int(seconds * song_mod.SAMPLE_RATE)
     perf = song_mod.build_performance(total)
     return render_performance(perf, total, chunk_size=SONG_CHUNK,

@@ -2,6 +2,7 @@
 
     python -m zang_tpu_torch.host.render_wav <config> out.wav [--seconds S]
                                                               [--device cuda]
+                                                              [--engine torch]
                                                               [--chunk N]
                                                               [--voices N]
 
@@ -14,6 +15,13 @@ Configs:
 
 All three mix down to s16 at volume 0.25. --device defaults to cuda and
 raises when CUDA is absent; pass --device cpu for the plain torch path.
+
+--engine torch (the default) renders through the port on --device;
+--engine oracle renders the song through the port's reference oracle on the
+host (zang_tpu_torch/oracle, the device contract's "parity" mode) and
+oracle-exact through its "exact" mode (the reference's float accumulation);
+--device and --chunk do not apply to them. As in the JAX package's CLI
+(whose default engine is named tpu), the oracle engines take the song only.
 """
 
 import argparse
@@ -37,17 +45,25 @@ def main(argv=None):
     ap.add_argument("output")
     ap.add_argument("--seconds", type=float, default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--engine", choices=["torch", "oracle", "oracle-exact"],
+                    default="torch")
     ap.add_argument("--chunk", type=int, default=65536)
     ap.add_argument("--voices", type=int, default=1024, help="poly_echo voice count")
     args = ap.parse_args(argv)
+    if args.engine != "torch" and args.config != "song":
+        ap.error(f"--engine {args.engine} only supported for config 'song'")
 
     t0 = time.perf_counter()
     plan = ""
     if args.config == "song":
         seconds = song_mod.NUM_SECONDS if args.seconds is None else args.seconds
         sr, vol = int(song_mod.SAMPLE_RATE), song_mod.MIX_VOLUME
-        audio = song_mod.render_song(seconds, chunk_size=args.chunk,
-                                     device=args.device)[None, :]
+        if args.engine == "torch":
+            audio = song_mod.render_song(seconds, chunk_size=args.chunk,
+                                         device=args.device)[None, :]
+        else:
+            mode = "parity" if args.engine == "oracle" else "exact"
+            audio = torch.from_numpy(song_mod.render_song_oracle(seconds, mode)[None, :])
     else:
         seconds = configs.DEFAULT_SECONDS[args.config] if args.seconds is None \
             else args.seconds
@@ -64,8 +80,9 @@ def main(argv=None):
     channels = pcm.shape[0]
     write_wav_s16(args.output, pcm if channels > 1 else pcm[0], sr,
                   num_channels=channels)
+    where = args.device if args.engine == "torch" else f"the host (engine={args.engine})"
     print(
-        f"rendered {seconds:g}s at {sr}Hz ({channels} ch) on {args.device} in "
+        f"rendered {seconds:g}s at {sr}Hz ({channels} ch) on {where} in "
         f"{dt:.2f}s (RTF {seconds / dt:.1f}x incl. planning and kernel build{plan}), "
         f"peak {peak:.3f}, {np.count_nonzero(pcm)} nonzero samples -> {args.output}"
     )

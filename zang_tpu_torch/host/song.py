@@ -22,6 +22,8 @@ from ..core.notes import SongEvent
 from ..core.timeline import compile_timelines
 from ..device import require_device
 from ..graph.render import Performance, render_performance
+from ..oracle import engine as oe
+from ..oracle import instruments as oi
 from ..parallel.mesh import pad_timelines
 from . import instruments as ti
 
@@ -123,3 +125,44 @@ def render_song_s16(seconds: float = NUM_SECONDS, chunk_size: int = 65536, *,
     """Render and mix down on `device`; returns int16 [total] on the host."""
     return mixdown_s16(render_song(seconds, chunk_size, device=device),
                        MIX_VOLUME).cpu().numpy()
+
+
+# --------------------------------------------------------------------------
+# The oracle twin (the golden source): the reference's block/span engine on
+# the host (zang_tpu_torch/oracle), numpy, no device.
+
+
+def build_oracle_voices(mode: str = "parity", song=None):
+    """The song's three voice stacks for the oracle (the JAX package's
+    build_oracle_voices): Pedal, RegularOrgan and WeirdOrgan, each its own
+    NoteTracker, dispatcher and module a slot."""
+    song = song or load_song()
+
+    def mk_params_pedal(sr, p):
+        return {"sample_rate": sr, "freq": pedal_freq(p), "note_on": p["note_on"]}
+
+    def mk_params(sr, p):
+        return {"sample_rate": sr, "freq": p["freq"], "note_on": p["note_on"]}
+
+    return [
+        oe.Voice(song[PEDAL], POLYPHONY[PEDAL],
+                 lambda: oi.PMOscInstrument(0.4, mode=mode), mk_params_pedal),
+        oe.Voice(song[REGULAR], POLYPHONY[REGULAR],
+                 lambda: oi.NiceInstrument(0.25, mode=mode), mk_params),
+        oe.Voice(song[WEIRD], POLYPHONY[WEIRD],
+                 lambda: oi.NiceInstrument(0.1, mode=mode), mk_params),
+    ]
+
+
+def render_song_oracle(seconds: float = NUM_SECONDS, mode: str = "parity") -> np.ndarray:
+    """The song through the oracle on the host -> f32 [total] mix
+    (pre-mixdown); mode "parity" (the device contract) or "exact" (the
+    reference's float accumulation)."""
+    total = int(seconds * SAMPLE_RATE)
+    voices = build_oracle_voices(mode)
+
+    def paint(span, outputs, temps):
+        for v in voices:
+            v.paint(span, SAMPLE_RATE, outputs, temps)
+
+    return oe.render_blocks(paint, total, num_outputs=1, num_temps=3)[0]

@@ -958,7 +958,8 @@ def _simulate_track(sample_rate, outer_tl: SubvoiceTimeline, track, note_values,
 
 
 class _Renderer:
-    def __init__(self, state, prog, ctx, scale_vals=None, temps=None, active=None):
+    def __init__(self, state, prog, ctx, scale_vals=None, temps=None, active=None,
+                 painters=None):
         self.state = dict(state)
         self.prog = prog
         self.ctx = ctx
@@ -973,11 +974,26 @@ class _Renderer:
             }
         else:
             self.scale_vals = scale_vals
+        # painter name -> its values [V, n] over this renderer's frames. A
+        # chunk's renderer evaluates a painter over the whole chunk, once; a
+        # delay's sub-chunk renderer slices its parent's, as it does the
+        # scale columns: the tiled program's tiles are the chunk's, so
+        # evaluating it at a sub-chunk's frames would read them as tiles of
+        # s / nt frames (the JAX package's renderer does that; the oracle
+        # does not)
+        self.painters = painters if painters is not None else self._chunk_painter
+        self._painter_cache: Dict[str, torch.Tensor] = {}
         self.temps: Dict[int, torch.Tensor] = temps if temps is not None else {}
         if active is None:
             self.active = ctx.t_idx[None, :] >= prog["active_from"][:, None]
         else:
             self.active = active
+
+    def _chunk_painter(self, name: str) -> torch.Tensor:
+        if name not in self._painter_cache:
+            vals = eval_chunk(self.prog[name], self.ctx.t_idx)
+            self._painter_cache[name] = control.eval_painter(vals, self.ctx.t_idx)
+        return self._painter_cache[name]
 
     def resolve(self, ref):
         if ref[0] == "const":
@@ -1045,8 +1061,7 @@ class _Renderer:
             self.write(e["dest"], self.temps.get(e["sub"]["out"], 0.0))
             return
         if op == "painter":
-            vals = eval_chunk(self.prog[e["prog"]], ctx.t_idx)
-            out = control.eval_painter(vals, ctx.t_idx)
+            out = self.painters(e["prog"])
             if e["ambient"] != "note":
                 out = self.where_active(self.ambient_mask(e["ambient"]), out)
             self.write(e["dest"], out)
@@ -1216,7 +1231,8 @@ class _Renderer:
                 states, self.prog, sub_ctx,
                 scale_vals={name: {k: v[:, sl] for k, v in cols.items()}
                             for name, cols in self.scale_vals.items()},
-                temps={k: v[:, sl] for k, v in env_temps.items()}, active=act_sl)
+                temps={k: v[:, sl] for k, v in env_temps.items()}, active=act_sl,
+                painters=lambda name, sl=sl: self.painters(name)[:, sl])
             r.temps[e["fb_temp"]] = buf[..., :s]
             r.temps[e["fb_out_temp"]] = torch.zeros((self.V, s), dtype=torch.float32,
                                                     device=self.dev)
