@@ -26,20 +26,35 @@ each of which raises on failure:
      printed only). At the song's, the polyphony, the ragged, the long and
      the 35-tile shapes K1 is also held bit for bit to svf_table_emulated,
      its seams composed in torch
-  4. K4, the table-lookup kernel: its two-tap entry (sampler_taps, both of
-     the sampler's taps of a chunk in one launch) against sampler_taps_ref
-     on the card, bit for bit: the sampler config's shape (looped, indices
-     wrapping both ways), the sampler example's, a one-shot case with
-     out-of-range indices and the 262,144-entry table; and the generic
-     entry (table_lookup) against table_lookup_ref: the sampler's shape,
-     the example's (idx 32 x 512), the largest table, one-shot edges. Both
-     timed as K1, beside the plain version; the two-tap entry, looped and
-     one shot, also beside the library call (one torch.take on indices
-     stacked, wrapped or clipped and made int64 beforehand; one shot times
-     a sel made beforehand), beside the fewest PyTorch calls that compute
-     its function from its own inputs (the yardstick, which it must not
-     lose to) and beside the two-launch path it replaced, with the host's
-     microseconds a call
+  4. K4, the table-lookup kernel: its fused entry (sampler_play, the
+     sampler's whole chunk from its tiled program in one launch: the slot
+     walk, the position, the wrap, both taps and the inverted lerp) against
+     sampler_play_ref (eval_tiled_chunk, then eval_sampler) on the card,
+     bit for bit (signs of zero included) on every chunk of real programs
+     (plan_sampler, chunkify_tiled): the sampler config's (one slot a tile,
+     ratio 0.5) at its chunk and at the example's, looped and one shot at
+     ratios 1.0 (the copy path), 0.7 and 1.3, reverse at -1.0 and -0.7,
+     dense retriggers (four slots) and a 300,000-sample table; timed a call
+     at the config's and the example's shapes beside (a) the chain it
+     replaced (eval_tiled_chunk, then eval_sampler through sampler_taps),
+     (b) the yardstick, that chain with torch.take taps from the same
+     inputs, which it must beat as it must (a), and (c) the library call,
+     one torch.take on the chunk's indices wrapped and made int64
+     beforehand, with its device time, bound and the host's microseconds a
+     call. Then its two-tap entry (sampler_taps, both of the sampler's
+     taps of a chunk in one launch, which the flat chunk format keeps)
+     against sampler_taps_ref on the card, bit for bit: the sampler
+     config's shape (looped, indices wrapping both ways), the sampler
+     example's, a one-shot case with out-of-range indices and the
+     262,144-entry table; and the generic entry (table_lookup) against
+     table_lookup_ref: the sampler's shape, the example's (idx 32 x 512),
+     the largest table, one-shot edges. Both timed as K1, beside the plain
+     version; the two-tap entry, looped and one shot, also beside the
+     library call (one torch.take on indices stacked, wrapped or clipped
+     and made int64 beforehand; one shot times a sel made beforehand),
+     beside the fewest PyTorch calls that compute its function from its
+     own inputs (the yardstick, which it must not lose to) and beside the
+     two-launch path it replaced, with the host's microseconds a call
   5. K2, the dense-cut SVF kernel, against svf_filter_ref on the card:
      the play example's shape (V=1, n=16384, scalar cutoff, mask), the
      stereo example's (V=2, [2, 1] cutoff, no mask, resonance 0.4), the
@@ -82,7 +97,10 @@ each of which raises on failure:
        song       the full 385 s Bach Toccata, render_song_s16(device="cuda"):
                   282 K1 launches
        sampler    10 s, render_config_s16("sampler", device="cuda"):
-                  7 K4 launches (both taps in one)
+                  7 K4 launches (the fused entry, one a chunk; its own
+                  count 7 too), the render bit for bit with the same
+                  render through the chain the fused entry replaced
+                  (eval_chunk, then eval_sampler with the two-tap entry)
        poly_echo  1024 voices x 30 s stereo, render_config_s16("poly_echo",
                   device="cuda"): 21 K1 launches
        poly_echo at 4096 and at 16384 voices x 8 s (the JAX package's
@@ -125,7 +143,8 @@ each of which raises on failure:
      through its ex_* entry on the card at its default seconds, with the
      launch counts checked (ceil(frames / chunk) a chunk-launched kernel:
      play 18 K2, fmsynth 12 K5, polyphony 15 K1, polyphony2 18 K1,
-     sampler 17 K4, song 15 K1, stereo 18 K2, detuned 30 K2 (two a chunk),
+     sampler 17 K4 (the fused entry; bit for bit with its render through
+     the chain it replaced), song 15 K1, stereo 18 K2, detuned 30 K2 (two a chunk),
      script 34 K2 (two sub-chunks a chunk), script_runtime 36 K2 (two
      halves of 9 chunks), every other count 0), against the JAX
      golden windows and against the card's plain-path render (every
@@ -254,6 +273,16 @@ each of which raises on failure:
                   same trajectory
        (c)        phase 7's 10 s sampler config (7 K4) against
                   render_sampler_chain(10)
+       (c1)       phase 7's song_flat (the 385 s song at a 65,000-frame
+                  chunk, 285 K2) against render_song_oracle(385), (a)'s
+                  reference: the oracle has no chunks
+       (c2)       phase 7's poly_echo at 1024 voices (21 K1) and at 4096
+                  voices (6 K3 in place, NiceInstrument by groups of 2048)
+                  against their oracle twin (host/configs.py
+                  render_poly_echo_oracle: a NiceInstrument a voice and
+                  StereoEchoes) over a cut of their first frames
+                  (POLY_ORACLE_CUTS, sized from the twin's rate on the
+                  card's host: about a minute of host CPU for both)
        (d)        F2: a zangscript whose delay body calls Gate (a painter)
                   and low-passes its feedback, rendered at chunks 8,192 and
                   16,384 on the card (K2 once a sub-chunk of 2,048: 24
@@ -321,6 +350,13 @@ end
 F2_NOTES = [(0.1, 0.3, 220.0), (0.5, 0.2, 330.0), (0.8, 0.25, 440.0)]
 F2_TOTAL, F2_SUB = 3 * 16384, 2048
 ORACLE_CLI_SECONDS = 60.0
+# phase 15 (c2): poly_echo's renders held to the oracle twin over their first
+# frames: (voices, the piece's seconds, frames). The twin runs a Python voice
+# stack a voice and block on the host: 4.7-7.0 M voice-samples a second on
+# the H100 machine's host (NVIDIA H100 80GB HBM3, 700.00 W), so these two
+# cost about a minute of it together
+POLY_ORACLE_CUTS = {"poly_echo": (1024, 30.0, 176_400),        # 4 s of 30 s
+                    "poly_echo_4096": (4096, 8.0, 55_125)}     # 1.25 s of 8 s
 # tools/oracle_fingerprints.py's render windows (seconds)
 FINGERPRINT_WINDOW = {
     "play": 2.0, "envelope": 2.0, "vibrato": 2.0, "curve": 2.0,
@@ -769,6 +805,159 @@ def check_taps(lookup, case, loop, label):
     return err
 
 
+# phase 4: the fused entry's cases, real programs (plan_sampler, chunkify_tiled)
+# at the config's chunk: name -> (loop, speed, seconds between notes, the
+# piece's seconds). The drum loop is at 22,050 Hz, so the ratio is speed / 2.
+PLAY_CASES = {
+    "looped, ratio 1.0 (the copy path)": (True, 2.0, 0.8, 3.0),
+    "looped, ratio 0.7": (True, 1.4, 0.8, 3.0),
+    "looped, ratio 1.3": (True, 2.6, 0.8, 3.0),
+    "looped, reverse at 1.0": (True, -2.0, 0.8, 3.0),
+    "looped, reverse at 0.7": (True, -1.4, 0.8, 3.0),
+    "one shot, ratio 1.0": (False, 2.0, 0.8, 3.0),
+    "one shot, ratio 1.3": (False, 2.6, 0.8, 3.0),
+    "one shot, reverse (silent)": (False, -2.0, 0.8, 3.0),
+    "dense retriggers (4 slots)": (True, 1.8, 0.005, 1.5),
+}
+PLAY_LONG_TABLE = 300_000  # samples, beyond the TPU kernel's 128 x 2048
+PLAY_OPS_PER_SAMPLE = 10  # the slot's f32 position, floor, lerp and casts
+
+
+def play_programs(configs, case, chunk):
+    """(chunked tiled program [nc, V, nt, S], table f32 numpy, num_samples,
+    ratio, loop) of a PLAY_CASES entry, of "config" (the sampler config's
+    own 10 s program: one note at frame 0, one slot a tile) or of "long
+    table, looped" / "long table, one shot" (PLAY_LONG_TABLE random samples
+    at ratio 1.3 over 8 s, past the table's end)."""
+    import numpy as np
+
+    from zang_tpu_torch.core.notes import SongEvent
+    from zang_tpu_torch.core.timeline import compile_timelines
+    from zang_tpu_torch.ops import sampler as sampler_ops
+    from zang_tpu_torch.ops.segprog import chunkify_tiled
+
+    sr = configs.SAMPLE_RATE
+    if case == "config":
+        perf, total = configs.build_sampler_performance()
+        inst, sp = perf.parts[0][0], perf.programs[0]["sampler"]
+        data, N, ratio, loop = inst.table.data_f32, inst.table.num_samples, inst.ratio, True
+    elif case.startswith("long table"):
+        loop, N, total = case.endswith("looped"), PLAY_LONG_TABLE, int(8.0 * sr)
+        data = np.random.default_rng(9).standard_normal(N).astype(np.float32)
+        tls = compile_timelines([SongEvent({"note_on": True}, t=0.0, note_id=1)], 1, sr,
+                                total)
+        sp = sampler_ops.plan_sampler(tls[0], sampler_ops.SampleTable(data, N, 2 * N,
+                                                                      1.3 * sr), sr, loop)
+        ratio = float(np.float32(np.float32(1.3 * sr) / np.float32(sr)))
+    else:
+        loop, speed, gap, seconds = PLAY_CASES[case]
+        total = int(seconds * sr)
+        song = [SongEvent({"note_on": True}, t=i * gap, note_id=i + 1)
+                for i in range(int((seconds - 0.2) / gap) + 1)]
+        tls = compile_timelines(song, 1, sr, total)
+        inst = configs.SamplerInstrument(loop=loop, speed=speed, distort=False,
+                                         fake_sample_rate=None)
+        sp = inst.plan(tls, sr)["sampler"]
+        data, N, ratio = inst.table.data_f32, inst.table.num_samples, inst.ratio
+    return chunkify_tiled(sp, chunk, -(-total // chunk), total), data, N, ratio, loop
+
+
+def check_play(sampler_ops, lookup, programs, chunk, device, label):
+    """The fused entry against sampler_play_ref on every chunk, bit for bit
+    (signs of zero included), one launch a chunk on both of K4's counters.
+    Returns max |diff| (0.0)."""
+    import torch
+
+    xs, data, N, ratio, loop = programs
+    table = torch.from_numpy(data).to(device)
+    n_chunks, V, nt, S = xs["tb"].shape
+    err, modes = 0.0, set()
+    for c in range(n_chunks):
+        prog = {k: torch.from_numpy(v[c]).to(device) for k, v in xs.items()}
+        t_idx = torch.arange(c * chunk, (c + 1) * chunk, dtype=torch.int32, device=device)
+        before = (lookup.table_lookup_launches, lookup.sampler_play_launches)
+        got = sampler_ops.sampler_play(prog, t_idx, table, N, ratio, loop)
+        after = (lookup.table_lookup_launches, lookup.sampler_play_launches)
+        want = sampler_ops.sampler_play_ref(prog, t_idx, table, N, ratio, loop)
+        torch.cuda.synchronize()
+        if after != (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"{label}: the fused entry's counts went {before} -> {after}")
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{label}: sampler_play disagrees with sampler_play_ref "
+                                 f"in chunk {c}")
+        err = max(err, float((got - want).abs().max()))
+        modes |= set(prog["mode"].unique().tolist())
+    print(f"  {label}: {n_chunks} chunks of V={V} x {chunk} ({nt} tiles, S={S}), N={N}, "
+          f"ratio {ratio:g}, {'looped' if loop else 'one shot'}, modes {sorted(modes)}: "
+          f"bit-exact")
+    return err
+
+
+def play_timing(card, sampler_ops, lookup, label, chunk, device):
+    """The fused entry a call at one of the sampler config's chunks (its
+    second), beside its plain version, (a) the chain it replaced, (b) that
+    chain with torch.take taps from the same inputs and (c) one torch.take
+    on the chunk's two taps' indices, wrapped and made int64 beforehand;
+    its device time, bound and the host's microseconds a call. Raises
+    unless it is faster a call than (a) and (b)."""
+    import torch
+
+    from zang_tpu_torch.host import configs
+    from zang_tpu_torch.ops.segprog import eval_tiled_chunk
+
+    xs, data, N, ratio, loop = play_programs(configs, "config", chunk)
+    prog = {k: torch.from_numpy(v[1]).to(device) for k, v in xs.items()}
+    t_idx = torch.arange(chunk, 2 * chunk, dtype=torch.int32, device=device)
+    table = torch.from_numpy(data).to(device)
+    args = (prog, t_idx, table, N, ratio, loop)
+
+    def take_taps(ia, ib, tbl, n, lp):
+        p = torch.stack((ia, ib))
+        if lp:
+            return torch.take(tbl, torch.remainder(p, n).long())
+        return torch.take(tbl, p.clamp(0, n - 1).long()) * ((p >= 0) & (p < n))
+
+    seen = []
+
+    def seeing_taps(ia, ib, *rest):
+        seen.append(torch.stack((ia, ib)))
+        return lookup.sampler_taps_ref(ia, ib, *rest)
+
+    fused = lambda: sampler_ops.sampler_play(*args)
+    chain = lambda: sampler_ops.eval_sampler(eval_tiled_chunk(prog, t_idx), t_idx, table, N,
+                                             ratio, loop)
+    yardstick = lambda: sampler_ops.eval_sampler(eval_tiled_chunk(prog, t_idx), t_idx, table,
+                                                 N, ratio, loop, taps=take_taps)
+    sampler_ops.eval_sampler(eval_tiled_chunk(prog, t_idx), t_idx, table, N, ratio, loop,
+                             taps=seeing_taps)
+    prepared = torch.remainder(seen[0], N).long()
+    library = ("torch.take on the chunk's wrapped int64 indices",
+               lambda: torch.take(table, prepared))
+    want = fused().view(torch.int32)
+    if not (torch.equal(chain().view(torch.int32), want)
+            and torch.equal(yardstick().view(torch.int32), want)):
+        raise AssertionError(f"{label}: the chains differ from the fused entry")
+    V, nt, S = prog["tb"].shape
+    n_bytes = 16 * V * nt * S + 4 * chunk + 4 * V * chunk + 4 * N
+    t = timing(card, f"{label} (sampler_play, V={V} x {chunk}, S={S})", fused,
+               lambda: sampler_ops.sampler_play_ref(*args), "sampler_play_kernel", n_bytes,
+               PLAY_OPS_PER_SAMPLE * V * chunk, 500, 50, library=library)
+    a = [time_ms(chain, 100), time_ms(yardstick, 100), time_ms(yardstick, 100),
+         time_ms(chain, 100)]
+    h = [host_us(f, r) for f, r in ((fused, 500), (chain, 100), (yardstick, 100),
+                                     (library[1], 500))]
+    t.update(chain_ms=(a[0] + a[3]) / 2, yardstick_ms=(a[1] + a[2]) / 2, host_us=h[0],
+             chain_host_us=h[1], yardstick_host_us=h[2], library_host_us=h[3])
+    print(f"  {label} [{card}]: (a) the chain it replaced {a[0]:.4f} / {a[3]:.4f} ms, "
+          f"(b) that chain with torch.take taps {a[1]:.4f} / {a[2]:.4f} ms, the fused "
+          f"call {t['ms']:.4f} ms; host a call: fused {h[0]:.1f} us, (a) {h[1]:.1f} us, "
+          f"(b) {h[2]:.1f} us, (c) {h[3]:.1f} us")
+    if not (t["ms"] < t["chain_ms"] and t["ms"] < t["yardstick_ms"]):
+        raise AssertionError(f"{label}: the fused call is not faster than the chain it "
+                             f"replaced and the yardstick")
+    return t
+
+
 def host_us(fn, reps):
     """The host's microseconds a call: the enqueue, no synchronisation
     inside the loop."""
@@ -851,8 +1040,12 @@ def reset_counts(svf_cuda, lookup, fm):
 
 
 def expect_counts(**n):
+    """The launch counts a path should show: those given, 0 for the rest;
+    sampler_play (the fused entry's share of table_lookup's) defaults to
+    table_lookup's, as on every tiled path."""
+    n.setdefault("sampler_play", n.get("table_lookup", 0))
     return {k: n.get(k, 0) for k in ("svf_table", "svf_dense", "svf_onepass",
-                                     "table_lookup", "fm_feedback")}
+                                     "table_lookup", "sampler_play", "fm_feedback")}
 
 
 def check_golden(gold_windows, offsets, chunk_rms_gold, audio, label, chunk=CHUNK):
@@ -928,14 +1121,54 @@ def plain_routers(filters, fm, lookup):
     """Every kernel router patched to its plain version by name."""
     from contextlib import ExitStack
 
+    from zang_tpu_torch.ops import sampler as sampler_ops
+
     stack = ExitStack()
     for mod, attr, ref in ((filters, "svf_filter", filters.svf_filter_ref),
                            (filters, "svf_filter_table", filters.svf_filter_table_ref),
                            (fm, "fm_feedback", fm.fm_feedback_ref),
                            (lookup, "table_lookup", lookup.table_lookup_ref),
-                           (lookup, "sampler_taps", lookup.sampler_taps_ref)):
+                           (lookup, "sampler_taps", lookup.sampler_taps_ref),
+                           (sampler_ops, "sampler_play", sampler_ops.sampler_play_ref)):
         stack.enter_context(mock.patch.object(mod, attr, ref))
     return stack
+
+
+def old_sampler_chain():
+    """SamplerInstrument.render's chunk as it ran before the fused entry:
+    eval_chunk, then eval_sampler with its taps through the two-tap entry
+    (sampler_taps, a K4 launch that sampler_play's count does not see)."""
+    from zang_tpu_torch.ops import sampler as sampler_ops
+    from zang_tpu_torch.ops.segprog import eval_chunk
+
+    def chain(prog, t_idx, table, num_samples, ratio, loop):
+        return sampler_ops.eval_sampler(eval_chunk(prog, t_idx), t_idx, table, num_samples,
+                                        ratio, loop)
+
+    return mock.patch.object(sampler_ops, "sampler_play", chain)
+
+
+def check_old_chain(audio_np, render, label, chunks):
+    """audio_np: a render through the fused entry (f32 numpy); render() the
+    same render, returning a tensor: through the old chain it must give the
+    same bits, with `chunks` two-tap launches and no fused one."""
+    import numpy as np
+
+    from zang_tpu_torch.parallel.mesh import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    with old_sampler_chain():
+        chain = render().cpu().numpy()
+    got = launch_counts()
+    same = chain.shape == audio_np.shape and np.array_equal(chain.view(np.int32),
+                                                           audio_np.view(np.int32))
+    print(f"  {label} through the chain the fused entry replaced (eval_chunk, then "
+          f"eval_sampler with sampler_taps; launches {got}): "
+          f"{'bit for bit' if same else 'DIFFERS'}")
+    if got != expect_counts(table_lookup=chunks, sampler_play=0):
+        raise AssertionError(f"{label}: the old chain's launches {got}")
+    if not same:
+        raise AssertionError(f"{label}: the fused entry's render is not the old chain's")
 
 
 def check_detuned(examples, filters, fm, lookup, svf_cuda, gold, p, free_np, launches):
@@ -1068,6 +1301,9 @@ def run_examples(examples, filters, fm, lookup, svf_cuda, card, launches):
         check_plain(ours, plain, f"{name} ({plain_s:g} s)")
         if name == "fmsynth" and not np.array_equal(ours, plain):
             raise AssertionError("fmsynth: the render is not the plain path's bits")
+        if name == "sampler":
+            check_old_chain(audio_np, lambda: fn(device="cuda")[0], name,
+                            -(-total // chunk))
     return renders
 
 
@@ -1144,7 +1380,8 @@ def run_flat_midi_stream(card, filters, fm, lookup, svf_cuda, launches, song_mix
     """Phases 7 (song_flat, midi_toccata, midi_mixed, the zang-midi CLI),
     7b (the song streamed) and 8 (their golden windows and first chunks on
     the plain path). song_mix: phase 7's render of the song, f32 numpy
-    [1, total]. Adds each run's launch counts to `launches`."""
+    [1, total]. Adds each run's launch counts to `launches`. Returns the
+    song_flat render, f32 numpy [1, total] (74 MB), for phase 15 (c1)."""
     import hashlib
     import tempfile
 
@@ -1199,7 +1436,7 @@ def run_flat_midi_stream(card, filters, fm, lookup, svf_cuda, launches, song_mix
     check_plain(flat_np[:, :SONG_FLAT_CHUNK],
                 first_chunk_plain(perf, total, SONG_FLAT_CHUNK, filters, fm, lookup,
                                   svf_cuda), "song_flat (first chunk)")
-    del perf, flat_np
+    del perf
 
     # the Toccata as an SMF through render_midi: all nice, then three instruments
     with open(MIDI_FILE, "rb") as f:
@@ -1358,6 +1595,7 @@ def run_flat_midi_stream(card, filters, fm, lookup, svf_cuda, launches, song_mix
         raise AssertionError(f"song stream: launches {launches['song_stream']}")
     if not same:
         raise AssertionError("the streamed song is not the song's render")
+    return flat_np
 
 
 # ---------------------------------------------------------------------------
@@ -2339,7 +2577,8 @@ def bench_launches():
     pass; the fleet's warm block and 8 timed)."""
     chunks = lambda seconds, sr: -(-int(seconds * sr) // CHUNK)
     return {
-        "bench_sampler": {"table_lookup": 4 * chunks(BENCH_SAMPLER_SECONDS, 44100.0)},
+        "bench_sampler": {"table_lookup": 4 * chunks(BENCH_SAMPLER_SECONDS, 44100.0),
+                          "sampler_play": 4 * chunks(BENCH_SAMPLER_SECONDS, 44100.0)},
         "bench_poly": {"svf_onepass": 4 * chunks(BENCH_POLY_SECONDS, 44100.0)},
         "bench_serve": {"svf_table": chunks(8.0, 48000.0)
                         + BENCH_SERVE_SONGS * chunks(BENCH_SERVE_SECONDS, 48000.0)},
@@ -2452,13 +2691,15 @@ def check_oracle(audio, ref, label):
 
 
 def run_oracle(card, svf_cuda, lookup, fm, launches, song_mix, song_window_db,
-               sampler_mix, example_renders):
+               sampler_mix, example_renders, flat_mix, poly_cuts):
     """Phase 15: the card's renders against the port's reference oracle on
     the host. song_mix: phase 7's song, f32 numpy [1, total];
     song_window_db: its worst reading on the JAX golden windows;
     sampler_mix: phase 7's 10 s sampler config [1, total]; example_renders:
-    phase 9's renders by name. Returns the phase's readings and the
-    oracle's host seconds."""
+    phase 9's renders by name; flat_mix: phase 7's song_flat [1, total];
+    poly_cuts: phase 7's poly_echo renders' first frames by name
+    (POLY_ORACLE_CUTS). Returns the phase's readings and the oracle's host
+    seconds."""
     import hashlib
     import inspect
     import tempfile
@@ -2471,7 +2712,7 @@ def run_oracle(card, svf_cuda, lookup, fm, launches, song_mix, song_window_db,
     from zang_tpu_torch.core.timeline import compile_timelines
     from zang_tpu_torch.core.wav import read_wav
     from zang_tpu_torch.graph.render import Performance, render_performance
-    from zang_tpu_torch.host import examples, song
+    from zang_tpu_torch.host import configs, examples, song
     from zang_tpu_torch.oracle import examples as oex
     from zang_tpu_torch.oracle.script import render_script_oracle
     from zang_tpu_torch.script import compile_script
@@ -2490,6 +2731,11 @@ def run_oracle(card, svf_cuda, lookup, fm, launches, song_mix, song_window_db,
     out["song_window_db"] = song_window_db
     print(f"  song: {out['song_db']:.1f} dBFS over all {ref.size} frames against the "
           f"oracle, {song_window_db:.1f} on the JAX golden's windows [{card}]")
+    # (c1) the flat chunk format: the same reference, since the oracle has no chunks
+    out["song_flat_db"] = check_oracle(
+        flat_mix, ref, f"song_flat, chunk {SONG_FLAT_CHUNK} (launches {launches['song_flat']})")
+    print(f"phase 15 (c1): song_flat {out['song_flat_db']:.1f} dBFS over all {ref.size} "
+          f"frames against render_song_oracle({song.NUM_SECONDS}) [{card}]")
     del ref
 
     # (b) the twenty examples at their defaults, against their twins
@@ -2514,6 +2760,21 @@ def run_oracle(card, svf_cuda, lookup, fm, launches, song_mix, song_window_db,
     host_s["sampler"] = time.perf_counter() - t
     out["sampler_db"] = check_oracle(sampler_mix, chain,
                                      f"sampler config 10 s (launches {launches['sampler']})")
+
+    # (c2) poly_echo at 1024 and 4096 voices against the oracle twin, over a cut
+    out["poly_echo_db"], host_s["poly_echo"] = {}, {}
+    for name, (voices, seconds, frames) in POLY_ORACLE_CUTS.items():
+        t = time.perf_counter()
+        twin = configs.render_poly_echo_oracle(voices, seconds, frames=frames)
+        host_s["poly_echo"][name] = time.perf_counter() - t
+        out["poly_echo_db"][name] = check_oracle(
+            poly_cuts[name], twin, f"{name} ({voices} voices, {seconds:g} s piece; launches "
+            f"{launches[name]})")
+        print(f"phase 15 (c2): {name}: the twin's first {frames} frames "
+              f"({frames / configs.SAMPLE_RATE:g} s, {voices * frames} voice-samples) in "
+              f"{host_s['poly_echo'][name]:.2f}s of host CPU "
+              f"({voices * frames / host_s['poly_echo'][name] / 1e6:.2f} M a second); "
+              f"{out['poly_echo_db'][name]:.1f} dBFS [{card}]")
 
     # (d) F2 on the card
     sr = 44100.0
@@ -2599,6 +2860,7 @@ def main() -> int:
     from zang_tpu_torch.graph.render import render_performance
     from zang_tpu_torch.host import configs, examples, midi, song
     from zang_tpu_torch.ops import _build, filters, fm, lookup, svf_cuda
+    from zang_tpu_torch.ops import sampler as sampler_ops
     from zang_tpu_torch.oracle import native as oracle_native
 
     # 1. the card
@@ -2739,14 +3001,24 @@ def main() -> int:
         svf_t[label.replace(" shape", "")] = k1_dev[label]
     del poly_case
 
-    # 4. K4 vs plain on the card: the two-tap entry, then the generic one
+    # 4. K4 vs plain on the card: the fused entry, the two-tap entry, the generic one
+    print("K4 sampler_play vs sampler_play_ref (bit for bit, every chunk):")
+    lk_err = {"sampler": max(
+        check_play(sampler_ops, lookup, play_programs(configs, case, chunk), chunk, dev,
+                   f"{case} at chunk {chunk}")
+        for case, chunk in (("config", CHUNK), ("config", ex_chunk),
+                            *((c, CHUNK) for c in PLAY_CASES), ("long table, looped", CHUNK),
+                            ("long table, one shot", CHUNK)))}
+    lk_t = {}
+    for key, chunk in (("sampler", CHUNK), ("sampler example", ex_chunk)):
+        lk_t[key] = play_timing(card, sampler_ops, lookup, key, chunk, dev)
     print("K4 sampler_taps vs sampler_taps_ref and table_lookup vs table_lookup_ref "
           "(bit for bit):")
     n_drum = configs.SamplerInstrument().table.num_samples
     big = 128 * 2048
     sam_taps = taps_case(rng, n_drum, CHUNK, dev, -n_drum, 2 * n_drum)
-    lk_err = {
-        "sampler": max(
+    lk_err.update({
+        "taps": max(
             check_taps(lookup, sam_taps, True, "sampler shape"),
             check_taps(lookup, taps_case(rng, n_drum, ex_chunk, dev, -n_drum, 2 * n_drum),
                        True, "sampler example shape"),
@@ -2765,7 +3037,7 @@ def main() -> int:
                          "generic, largest table"),
             check_lookup(lookup, lookup_case(rng, n_drum, CHUNK // 512, dev, p_sel=0.5,
                                              out_of_range=True),
-                         "generic, one-shot edges"))}
+                         "generic, one-shot edges"))})
     ia, ib, table = sam_taps
     taps = {loop: (lambda loop=loop: lookup.sampler_taps(ia, ib, table, n_drum, loop))
             for loop in (True, False)}
@@ -2796,8 +3068,7 @@ def main() -> int:
         if not (torch.equal(taps[loop](), library[loop][1]())
                 and torch.equal(taps[loop](), yardstick[loop]())):
             raise AssertionError("sampler_taps differs from torch.take")
-    lk_t = {}
-    for loop, key in ((True, "sampler"), (False, "one shot")):
+    for loop, key in ((True, "taps looped"), (False, "taps one shot")):
         # both taps' indices read and outputs written, the table read; the
         # wrap and the product a sample
         lk_t[key] = timing(card, f"sampler taps, {'looped' if loop else 'one shot'}",
@@ -2825,7 +3096,7 @@ def main() -> int:
                   f"{lk_t[key]['library_ms'] * 1e3:.1f} us")
     p = [time_ms(per_tap, 500) for _ in range(2)]
     ph = [host_us(per_tap, 500) for _ in range(2)]
-    lk_t["sampler"].update(per_tap_ms=sum(p) / 2, per_tap_host_us=sum(ph) / 2)
+    lk_t["taps looped"].update(per_tap_ms=sum(p) / 2, per_tap_host_us=sum(ph) / 2)
     print(f"  the two-launch path it replaced (a tap at a time: wrap, sel, table_lookup) "
           f"[{card}]: {p[0]:.4f} / {p[1]:.4f} ms, host {ph[0]:.1f} / {ph[1]:.1f} us a chunk")
     idx, sel1 = wrapped[0].to(torch.int32), ones
@@ -2988,7 +3259,7 @@ def main() -> int:
     params = json.loads(str(cgold["params"]))
     if params["chunk_size"] != CHUNK:
         raise AssertionError("the configs' golden file is for another chunk size")
-    plain_paths = {"sampler": (lookup, "sampler_taps", lookup.sampler_taps_ref),
+    plain_paths = {"sampler": (sampler_ops, "sampler_play", sampler_ops.sampler_play_ref),
                    "poly_echo": (filters, "svf_filter_table", filters.svf_filter_table_ref)}
     runs = [("sampler", "sampler", 10.0, None, "table_lookup", 1, "all"),
             ("poly_echo", "poly_echo", 30.0, 1024, "svf_table", 1, "all"),
@@ -2998,6 +3269,7 @@ def main() -> int:
             ("poly_echo_16384", "poly_echo", 8.0, 16384, "svf_onepass", 1, None)]
     config_pcm = {}  # phase 11 holds the batch fleet's WAVs to these
     poly16_mix = None  # phase 12 holds the sharded renders to it
+    poly_cuts = {}  # phase 15 (c2) holds these first frames to the oracle twin
     for name, config, seconds, voices, kname, per_chunk, plain_frames in runs:
         p = params[name]
         want = dict(seconds=seconds, sample_rate=44100.0)
@@ -3059,6 +3331,11 @@ def main() -> int:
             poly16_mix = audio_np
         if name == "sampler":
             sampler_mix = audio_np  # phase 15 holds it to the oracle
+            check_old_chain(audio_np, lambda: render_performance(perf, total, CHUNK,
+                                                                 device="cuda"),
+                            name, -(-total // CHUNK))
+        if name in POLY_ORACLE_CUTS:
+            poly_cuts[name] = np.ascontiguousarray(audio_np[:, :POLY_ORACLE_CUTS[name][2]])
         check_golden(cgold[f"{name}_windows"], cgold[f"{name}_offsets"],
                      cgold[f"{name}_chunk_rms"], audio_np, name)
         if plain_frames is not None:
@@ -3074,7 +3351,7 @@ def main() -> int:
         del perf
 
     # 7, 7b, 8. the flat song, the Toccata as an SMF, the zang-midi CLI, streaming
-    run_flat_midi_stream(card, filters, fm, lookup, svf_cuda, launches, song_mix)
+    flat_mix = run_flat_midi_stream(card, filters, fm, lookup, svf_cuda, launches, song_mix)
 
     # 9. the examples
     example_renders = run_examples(examples, filters, fm, lookup, svf_cuda, card, launches)
@@ -3082,8 +3359,8 @@ def main() -> int:
     # 15. the reference oracle on the card's host: the song, the examples, the
     # sampler and F2 against it, over every frame
     oracle = run_oracle(card, svf_cuda, lookup, fm, launches, song_mix, song_window_db,
-                        sampler_mix, example_renders)
-    del example_renders, sampler_mix
+                        sampler_mix, example_renders, flat_mix, poly_cuts)
+    del example_renders, sampler_mix, flat_mix, poly_cuts
 
     # 9b. live sessions, fleets and the TCP server
     live = run_live(card, dev, rng, fm, filters, svf_cuda, lookup, k2, k2_emulated, k2_device,

@@ -13,8 +13,10 @@ K1 and K2 (the table-cut and dense-cut SVF) against svf_filter_table_ref /
 svf_filter_ref at rms < -120 dBFS with end states within 1e-5 and against
 their seams composed in torch; K3 (the one-pass SVF) and K5 (FM feedback)
 bit for bit with their loops (K5 within -100 dBFS of fm_feedback through
-its router, waveform 3 up to a sign flip of sin 2p); K4 (the table lookup
-and its two-tap entry) bit for bit. Their input helpers are copies of
+its router, waveform 3 up to a sign flip of sin 2p); K4 (the table lookup,
+its two-tap entry and its fused entry, the sampler's whole chunk) bit for
+bit, and the sampler config's render through the fused entry bit for bit
+with its render through the chain it replaced. Their input helpers are copies of
 tests/test_torch_{svf,fm,onepass,sampler}.py's, the FM phase angles made
 with the port's u32 ops (bit for bit with the JAX package's,
 tests/test_torch_ops.py).
@@ -33,6 +35,7 @@ from zang_tpu_torch.ops import fm as tfm
 from zang_tpu_torch.ops import lookup, svf_cuda
 from zang_tpu_torch.ops import sampler as tsam
 from zang_tpu_torch.ops import scan as tscan
+from zang_tpu_torch.ops import segprog as tseg
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
@@ -363,7 +366,8 @@ def test_fm_kernel_waveform_a_voice_is_the_plain_bits_on_card(cuda_device, shape
 
 
 # ---------------------------------------------------------------------------
-# K4, the table lookup and its two-tap entry (from tests/test_torch_sampler.py)
+# K4, the table lookup, its two-tap entry and its fused entry (from
+# tests/test_torch_sampler.py)
 
 TILE = 512  # the lookup's index tile (zang_tpu/ops/pallas_lookup.py:35)
 SAMPLER_SR = 44100.0
@@ -471,3 +475,98 @@ def test_eval_sampler_on_card_matches_cpu(cuda_device):
                                       torch.from_numpy(tinst.table.data_f32).to(dev),
                                       tinst.table.num_samples, tinst.ratio, True).cpu())
     assert torch.equal(outs[0], outs[1])
+
+
+# tests/test_torch_sampler.py PLAY_CASES: the drum loop is at 22,050 Hz, so
+# the playback ratio is speed / 2 (speed 2.0 is the copy fast path)
+PLAY_CASES = {
+    "looped_ratio_1.0": dict(loop=True, speed=2.0),
+    "looped_ratio_0.5": dict(loop=True, speed=1.0),
+    "looped_ratio_0.7": dict(loop=True, speed=1.4),
+    "looped_ratio_1.3": dict(loop=True, speed=2.6),
+    "looped_reverse": dict(loop=True, speed=-2.0),
+    "looped_reverse_0.7": dict(loop=True, speed=-1.4),
+    "one_shot_ratio_1.0": dict(loop=False, speed=2.0, seconds=2.5),
+    "one_shot_ratio_1.3": dict(loop=False, speed=2.6, seconds=2.5),
+    "one_shot_reverse": dict(loop=False, speed=-2.0),
+    "one_note_ratio_1.3": dict(loop=True, speed=2.6, note_gap=10.0),
+    "one_note_ratio_1.0": dict(loop=True, speed=2.0, note_gap=10.0),
+    "dense_retriggers": dict(loop=True, speed=1.8, note_gap=0.005),
+}
+PLAY_CHUNK = 8192
+
+
+def _play_programs(name):
+    """tests/test_torch_sampler.py's _play_programs: (chunked tiled program,
+    table f32, num_samples, ratio, loop) of a PLAY_CASES entry or of the
+    300,000-sample table at ratio 1.3."""
+    if name.startswith("long_table"):
+        loop = name.endswith("looped")
+        N = 300_000
+        data = np.random.default_rng(9).standard_normal(N).astype(np.float32)
+        total = int(8.0 * SAMPLER_SR)
+        tls = compile_timelines([SongEvent({"note_on": True}, t=0.0, note_id=1)], 1,
+                                SAMPLER_SR, total)
+        sp = tsam.plan_sampler(tls[0], tsam.SampleTable(data, N, 2 * N, 1.3 * SAMPLER_SR),
+                               SAMPLER_SR, loop)
+        ratio = float(np.float32(np.float32(1.3 * SAMPLER_SR) / np.float32(SAMPLER_SR)))
+        return tseg.chunkify_tiled(sp, PLAY_CHUNK, -(-total // PLAY_CHUNK), total), data, \
+            N, ratio, loop
+    tls, tinst = _sampler_case(**PLAY_CASES[name])
+    sp = tinst.plan(tls, SAMPLER_SR)["sampler"]
+    total = tls[0].total
+    return (tseg.chunkify_tiled(sp, PLAY_CHUNK, -(-total // PLAY_CHUNK), total),
+            tinst.table.data_f32, tinst.table.num_samples, tinst.ratio, tinst.loop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [*PLAY_CASES, "long_table_looped", "long_table_one_shot"])
+def test_sampler_play_kernel_matches_plain_on_card(cuda_device, name):
+    """The fused entry on every chunk of a real tiled program against
+    sampler_play_ref on the card, bit for bit (signs of zero included), one
+    launch a chunk on both counters."""
+    xs, data, N, ratio, loop = _play_programs(name)
+    table = torch.from_numpy(data).to(cuda_device)
+    for c in range(xs["tb"].shape[0]):
+        prog = {k: torch.from_numpy(v[c]).to(cuda_device) for k, v in xs.items()}
+        t_idx = torch.arange(c * PLAY_CHUNK, (c + 1) * PLAY_CHUNK, dtype=torch.int32,
+                             device=cuda_device)
+        before = (lookup.table_lookup_launches, lookup.sampler_play_launches)
+        got = tsam.sampler_play(prog, t_idx, table, N, ratio, loop)
+        want = tsam.sampler_play_ref(prog, t_idx, table, N, ratio, loop)
+        torch.cuda.synchronize()
+        assert (lookup.table_lookup_launches, lookup.sampler_play_launches) == \
+            (before[0] + 1, before[1] + 1)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), c
+    with pytest.raises(ValueError, match="num_samples"):
+        tsam.sampler_play(prog, t_idx, table, N - 1, ratio, loop)
+
+
+@pytest.mark.cuda
+def test_sampler_config_render_is_the_chain_s_on_card(cuda_device):
+    """The sampler config (3 s at chunk 16,384, the tiled format) through the
+    fused entry, one launch a chunk, bit for bit with its render through the
+    chain the entry replaced (eval_tiled_chunk, then eval_sampler with the
+    two-tap entry)."""
+    from unittest import mock
+
+    from zang_tpu_torch.graph.render import render_performance
+    from zang_tpu_torch.ops.segprog import eval_chunk
+
+    perf, total = tconfigs.build_sampler_performance(seconds=3.0)
+    chunks = -(-total // 16384)
+    before = (lookup.table_lookup_launches, lookup.sampler_play_launches)
+    got = render_performance(perf, total, 16384, device=cuda_device)
+    torch.cuda.synchronize()
+    assert (lookup.table_lookup_launches - before[0],
+            lookup.sampler_play_launches - before[1]) == (chunks, chunks)
+
+    def chain(prog, t_idx, table, num_samples, ratio, loop):
+        return tsam.eval_sampler(eval_chunk(prog, t_idx), t_idx, table, num_samples,
+                                 ratio, loop)
+
+    with mock.patch.object(tsam, "sampler_play", chain):
+        want = render_performance(perf, total, 16384, device=cuda_device)
+    torch.cuda.synchronize()
+    assert lookup.sampler_play_launches - before[1] == chunks
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

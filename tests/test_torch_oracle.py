@@ -25,7 +25,15 @@ with the same g++ flags, so on one machine every comparison here is exact:
   feedback is low-passed, as chip_smoke.py phase 15 renders it) at chunks
   8,192 and 16,384: the port within -90 dBFS of the oracle, where the JAX
   renderer (which evaluates the chunk's tiled painter program at a
-  sub-chunk's frames) is printed to document the port's departure.
+  sub-chunk's frames) is printed to document the port's departure;
+- the two paths that were held only to JAX renders, each within -90 dBFS
+  of the oracle over every frame (chip_smoke.py phase 15 holds them at
+  full size on the card): the song in the flat chunk format (a chunk that
+  is not a whole number of 512-frame tiles) over its first 3 s against
+  render_song_oracle(3), and poly_echo at 4 voices x 3 s against its
+  oracle twin (host/configs.render_poly_echo_oracle: a NiceInstrument a
+  voice and StereoEchoes, the JAX package's tests/test_configs.py
+  TestPolyEchoConfig through the port's oracle).
 """
 
 import ctypes
@@ -598,3 +606,49 @@ def test_f2_delay_body_painter_matches_the_oracle(chunk):
           f"renderer {jdb:.1f} dBFS")
     assert float(np.sqrt(np.mean(oracle.astype(np.float64) ** 2))) > 0.05
     assert db < PARITY_DB
+
+
+# ---------------------------------------------------------------------------
+# paths held to JAX renders until now: the flat chunk format and poly_echo
+
+
+def test_song_flat_matches_the_oracle():
+    """The song at a chunk of 10,000 frames (not a whole number of 512-frame
+    tiles: every chunk in the flat format) over its first 3 s against the
+    chunk-free oracle's render of the same 3 s, every frame."""
+    seconds, chunk = 3.0, 10_000
+    perf = tsong.build_performance(int(seconds * tsong.SAMPLE_RATE))
+    xs, _ = perf.chunk_xs(int(seconds * tsong.SAMPLE_RATE), chunk)
+    assert "starts" in xs[1]["phase"] and "tb" not in xs[1]["phase"]
+    got = tsong.render_song(seconds, chunk_size=chunk, device="cpu").numpy()
+    ref = tsong.render_song_oracle(seconds)
+    assert got.shape == ref.shape == (int(seconds * tsong.SAMPLE_RATE),)
+    db, _ = deviation_dbfs(got, ref)
+    print(f"song_flat (chunk {chunk}) {seconds:g} s: {db:.1f} dBFS from the oracle")
+    assert float(np.sqrt(np.mean(ref.astype(np.float64) ** 2))) > 0.01
+    assert db < PARITY_DB
+
+
+def test_poly_echo_matches_its_oracle_twin():
+    """poly_echo at 4 voices x 3 s (main delay 3,000, seed 7, chunk 16,384)
+    against its oracle twin, both channels, every frame, as the JAX package
+    holds its own (tests/test_configs.py TestPolyEchoConfig); a twin cut to
+    its first frames is the whole twin's prefix."""
+    from zang_tpu_torch.graph.render import render_performance
+    from zang_tpu_torch.host import configs as tconfigs
+
+    nv, seconds = 4, 3.0
+    perf, total = tconfigs.build_poly_echo_performance(num_voices=nv, seconds=seconds,
+                                                      main_delay=3000, seed=7)
+    got = render_performance(perf, total, 16384, device="cpu").numpy()
+    ref = tconfigs.render_poly_echo_oracle(nv, seconds, main_delay=3000, seed=7)
+    assert got.shape == ref.shape == (2, total)
+    for ch in range(2):
+        db, _ = deviation_dbfs(got[ch], ref[ch])
+        print(f"poly_echo {nv} voices x {seconds:g} s, channel {ch}: {db:.1f} dBFS from "
+              f"its oracle twin")
+        assert db < PARITY_DB
+    assert float(np.abs(ref).max()) > 0.01
+    cut = tconfigs.render_poly_echo_oracle(nv, seconds, frames=40_000, main_delay=3000,
+                                           seed=7)
+    assert cut.tobytes() == np.ascontiguousarray(ref[:, :40_000]).tobytes()

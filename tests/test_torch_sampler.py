@@ -1,12 +1,14 @@
-"""The port's sampler path against zang_tpu's: the table lookup (K4) and
-its two-tap entry, the sampler's plans and taps, distortion and the
-decimator, and the sampler config end to end.
+"""The port's sampler path against zang_tpu's: the table lookup (K4), its
+two-tap entry and its fused entry (the sampler's whole chunk), the
+sampler's plans and taps, distortion and the decimator, and the sampler
+config end to end.
 
 JAX runs on the CPU as its own tests run it: the Pallas lookup kernel in
 interpret mode (tests/test_ops_effects.py TestPallasTableLookup), and
 eval_sampler's kernel route under ZANG_LOOKUP_INTERPRET=1. Tolerances:
-the lookup, plans, taps, decimator and the chain without distortion are
-bit-exact; distortion is within 1e-6 absolute (atan and exp2 differ by
+the lookup, plans, taps, the fused entry's plain version (sampler_play_ref
+against the JAX package's eval_tiled_chunk and eval_sampler), decimator
+and the chain without distortion are bit-exact; distortion is within 1e-6 absolute (atan and exp2 differ by
 ulps between XLA:CPU and torch); the whole chain with distortion is held
 below -110 dBFS RMS (tests/test_configs.py:52). The CUDA kernel is held to
 its plain version on the card in tests/test_torch_cuda_kernels.py (marker
@@ -29,6 +31,7 @@ from zang_tpu.ops import effects as jfx
 from zang_tpu.ops import sampler as jsam
 from zang_tpu.ops import scan as jscan
 from zang_tpu.ops.pallas_lookup import TILE, pack_table, table_lookup_pallas
+from zang_tpu.ops import segprog as jseg
 from zang_tpu.ops.segprog import eval_chunk
 from zang_tpu_torch import convert
 from zang_tpu_torch.core.wav import read_wav
@@ -40,6 +43,7 @@ from zang_tpu_torch.ops import effects as tfx
 from zang_tpu_torch.ops import lookup
 from zang_tpu_torch.ops import sampler as tsam
 from zang_tpu_torch.ops import scan as tscan
+from zang_tpu_torch.ops import segprog as tseg
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
@@ -275,6 +279,156 @@ def test_eval_sampler_long_table(loop):
                             torch.from_numpy(data), N, ratio, loop)
     np.testing.assert_array_equal(got.numpy(), want)
     assert np.abs(want).max() > 0 and (want == 0).any() != loop
+
+
+# ---------------------------------------------------------------------------
+# K4's fused entry: the sampler's whole chunk from its tiled program
+
+# name -> _sampler_case's arguments. The drum loop is at 22,050 Hz, so the
+# playback ratio is speed / 2 at 44,100 Hz: speed 2.0 is ratio 1.0, the copy
+# fast path (mode 2), and the sampler config's speed 1.0 is ratio 0.5. A
+# note_gap past the piece's length is one note at frame 0, the sampler
+# config's program (S = 1 slot a tile)
+PLAY_CASES = {
+    "looped_ratio_1.0": dict(loop=True, speed=2.0),              # mode 2
+    "looped_ratio_0.5": dict(loop=True, speed=1.0),              # mode 1
+    "looped_ratio_0.7": dict(loop=True, speed=1.4),
+    "looped_ratio_1.3": dict(loop=True, speed=2.6),
+    "looped_reverse": dict(loop=True, speed=-2.0),               # through the remainder
+    "looped_reverse_0.7": dict(loop=True, speed=-1.4),
+    "one_shot_ratio_1.0": dict(loop=False, speed=2.0, seconds=2.5),
+    "one_shot_ratio_1.3": dict(loop=False, speed=2.6, seconds=2.5),  # past the end
+    "one_shot_reverse": dict(loop=False, speed=-2.0),            # mode 0 throughout
+    "one_note_ratio_1.3": dict(loop=True, speed=2.6, note_gap=10.0),  # S = 1
+    "one_note_ratio_1.0": dict(loop=True, speed=2.0, note_gap=10.0),
+    "dense_retriggers": dict(loop=True, speed=1.8, note_gap=0.005),  # S > 2
+}
+PLAY_CHUNK = 8192
+
+
+def _play_programs(name):
+    """(chunked tiled program [nc, V, nt, S] arrays, table f32, num_samples,
+    ratio, loop) of a PLAY_CASES entry or of the long table ("long_table_
+    looped", "long_table_one_shot": 300,000 samples at ratio 1.3, the
+    window crossing the table's end)."""
+    if name.startswith("long_table"):
+        loop = name.endswith("looped")
+        N = 300_000
+        data = np.random.default_rng(9).standard_normal(N).astype(np.float32)
+        total = int(8.0 * SR)
+        tls = compile_timelines([SongEvent({"note_on": True}, t=0.0, note_id=1)], 1, SR,
+                                total)
+        sp = tsam.plan_sampler(tls[0], tsam.SampleTable(data, N, 2 * N, 1.3 * SR), SR, loop)
+        ratio = float(np.float32(np.float32(1.3 * SR) / np.float32(SR)))
+        return tseg.chunkify_tiled(sp, PLAY_CHUNK, -(-total // PLAY_CHUNK), total), data, \
+            N, ratio, loop
+    tls, _, tinst = _sampler_case(**PLAY_CASES[name])
+    sp = tinst.plan(tls, SR)["sampler"]
+    total = tls[0].total
+    return (tseg.chunkify_tiled(sp, PLAY_CHUNK, -(-total // PLAY_CHUNK), total),
+            tinst.table.data_f32, tinst.table.num_samples, tinst.ratio, tinst.loop)
+
+
+@pytest.mark.parametrize("name", [*PLAY_CASES, "long_table_looped", "long_table_one_shot"])
+def test_sampler_play_ref_matches_jax(name):
+    """sampler_play_ref on every chunk of a real tiled program (plan_sampler,
+    chunkify_tiled) against the JAX package's eval_tiled_chunk and
+    eval_sampler (its gather path), bit for bit; the router takes the plain
+    version for CPU tensors and launches nothing."""
+    xs, data, N, ratio, loop = _play_programs(name)
+    n_chunks, V, nt, S = xs["tb"].shape
+    assert (S == 1) == name.startswith(("one_note", "long_table"))
+    if name == "dense_retriggers":
+        assert S > 2
+    modes = set()
+    table = torch.from_numpy(data)
+    for c in range(n_chunks):
+        t_idx = np.arange(c * PLAY_CHUNK, (c + 1) * PLAY_CHUNK, dtype=np.int32)
+        prog = {k: v[c] for k, v in xs.items()}
+        vals = jseg.eval_tiled_chunk({k: jnp.asarray(v) for k, v in prog.items()},
+                                     jnp.asarray(t_idx))
+        want = np.asarray(jsam.eval_sampler(vals, jnp.asarray(t_idx), jnp.asarray(data), N,
+                                            ratio, loop, windowed=False))
+        tprog = {k: torch.from_numpy(v) for k, v in prog.items()}
+        got = tsam.sampler_play_ref(tprog, torch.from_numpy(t_idx), table, N, ratio, loop)
+        assert got.shape == (V, PLAY_CHUNK) and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+        before = (lookup.table_lookup_launches, lookup.sampler_play_launches)
+        routed = tsam.sampler_play(tprog, torch.from_numpy(t_idx), table, N, ratio, loop)
+        assert torch.equal(routed.view(torch.int32), got.view(torch.int32))
+        assert (lookup.table_lookup_launches, lookup.sampler_play_launches) == before
+        modes |= set(np.unique(prog["mode"]).tolist())
+    assert modes == ({0} if name == "one_shot_reverse" else
+                     {2} if name.endswith("ratio_1.0") else {1})
+
+
+def test_sampler_play_cuda_raises_on_cpu_tensor():
+    xs, data, N, ratio, loop = _play_programs("looped_ratio_1.3")
+    prog = {k: torch.from_numpy(v[0]) for k, v in xs.items()}
+    t_idx = torch.arange(PLAY_CHUNK, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        lookup.sampler_play_cuda(prog, t_idx, torch.from_numpy(data), N, ratio, loop)
+
+
+# the eager ops of the chain sampler_play replaces that do no work on a
+# device: views, and the taps' output (the stand-in below allocates it)
+_NO_WORK = {"aten.view.default", "aten.alias.default", "aten.expand.default",
+            "aten._unsafe_view.default", "aten.unsqueeze.default", "aten.unbind.int",
+            "aten.empty.memory_format", "aten.slice.Tensor", "aten.select.int"}
+
+
+def test_fused_entry_replaces_the_chain_s_device_ops():
+    """Counts, by dispatch on the CPU, the device ops a chunk of the chain
+    that SamplerInstrument.render ran before the fused entry
+    (eval_tiled_chunk, then eval_sampler with its one taps launch) at the
+    sampler config's program (S = 1 slot a tile) and at three slots: every
+    op that is not a view is a launch on the card, the host ratio
+    (as_f32, aten.lift_fresh here) a copy to it. The fused entry is one
+    launch, so the sampler's launches a chunk fall by the count less one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    def taps_stand_in(idx_a, idx_b, table, num_samples, loop):
+        return torch.empty((2, *idx_a.shape))  # one launch on the card
+
+    counts = {}
+    for name, chunk in (("config", 65536), ("config", 16384), ("dense_retriggers", 8192)):
+        if name == "config":
+            perf, total = tconfigs.build_sampler_performance()
+            xs, _ = perf.chunk_xs(total, chunk)
+            prog = {k: torch.from_numpy(v[1]) for k, v in xs[0]["sampler"].items()}
+            inst = perf.parts[0][0]
+            data, N, ratio, loop = inst.table.data_f32, inst.table.num_samples, \
+                inst.ratio, inst.loop
+        else:
+            xs, data, N, ratio, loop = _play_programs(name)
+            prog = {k: torch.from_numpy(v[1]) for k, v in xs.items()}
+        t_idx = torch.arange(chunk, dtype=torch.int32) + chunk
+        table = torch.from_numpy(data)
+        with Ops() as ops:
+            chain = tsam.eval_sampler(tseg.eval_tiled_chunk(prog, t_idx), t_idx, table, N,
+                                      ratio, loop, taps=taps_stand_in)
+        work = [o for o in ops.names if o not in _NO_WORK]
+        S = prog["tb"].shape[2]
+        counts[(name, chunk)] = (S, len(work) + 1)  # the taps' one launch
+        print(f"{name} at chunk {chunk}, S = {S}: {len(work) + 1} device ops in the chain; "
+              f"the fused entry 1")
+        assert chain.shape == (1, chunk)
+    # S = 1: three reshape copies of the expanded slot values, 25 ops of
+    # eval_sampler, the ratio's upload and the taps; each further slot a
+    # compare and three selects, and no reshape copies
+    assert counts[("config", 65536)] == (1, 29)
+    assert counts[("config", 16384)] == (1, 29)
+    S = counts[("dense_retriggers", 8192)][0]
+    assert counts[("dense_retriggers", 8192)] == (S, 26 + 4 * (S - 1))
 
 
 # ---------------------------------------------------------------------------

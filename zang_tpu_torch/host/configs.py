@@ -2,7 +2,8 @@
 
 - sampler: drum-loop playback * 2.5 -> overdrive -> decimator
   (example_sampler.zig plus the Decimator of example_polyphony.zig).
-  The taps go through the sample-table lookup kernel (ops/lookup.py).
+  A tiled chunk is one launch of the sampler kernel (ops/sampler.py
+  sampler_play); a flat one's taps go through the two-tap lookup.
 - poly_echo: N NiceInstrument voices -> mono mix / N -> StereoEchoes
   (example_polyphony2.zig and example_delay.zig's StereoEchoes(15000)).
   The voices' lowpass is the table-cut SVF kernel (ops/svf_cuda.py).
@@ -107,10 +108,14 @@ class SamplerInstrument:
         return self._device_tables[device]
 
     def render(self, state, prog, ctx):
-        vals = eval_chunk(prog["sampler"], ctx.t_idx)
-        out = sampler_ops.eval_sampler(
-            vals, ctx.t_idx, self._device_table(ctx.t_idx.device),
-            self.table.num_samples, self.ratio, self.loop)
+        table = self._device_table(ctx.t_idx.device)
+        p = prog["sampler"]
+        if "tb" in p:  # the tiled chunk format: the whole chunk in one launch
+            out = sampler_ops.sampler_play(p, ctx.t_idx, table, self.table.num_samples,
+                                           self.ratio, self.loop)
+        else:
+            out = sampler_ops.eval_sampler(eval_chunk(p, ctx.t_idx), ctx.t_idx, table,
+                                           self.table.num_samples, self.ratio, self.loop)
         out = out * 2.5  # example_sampler.zig:106
         if self.distort:
             out = effects.distortion(out, "overdrive", 0.9, 0.5, 0.0)
@@ -157,6 +162,39 @@ def make_texture_song(num_voices: int, seconds: float, seed: int = 0):
             t += gap
         songs.append(song)
     return songs
+
+
+def render_poly_echo_oracle(num_voices: int = 1024, seconds: float = 30.0,
+                            frames: Optional[int] = None,
+                            sample_rate: float = SAMPLE_RATE, main_delay: int = 15000,
+                            seed: int = 0) -> np.ndarray:
+    """poly_echo's oracle twin on the host (the JAX package's
+    tests/test_configs.py TestPolyEchoConfig): a NiceInstrument(0.3) a voice
+    through the oracle's voice stack, the mix scaled by 1/num_voices into
+    StereoEchoes(main_delay), in parity mode. The piece is the one of
+    `seconds` (make_texture_song); its first `frames` are rendered (default
+    all of it). Returns f32 [2, frames]."""
+    from ..oracle import engine as oe
+    from ..oracle import instruments as oi
+
+    total = int(seconds * sample_rate) if frames is None else frames
+    voices = [oe.Voice(song, 1, lambda: oi.NiceInstrument(0.3, mode="parity"),
+                       lambda sr, p: {"sample_rate": sr, "freq": p["freq"],
+                                      "note_on": p["note_on"]})
+              for song in make_texture_song(num_voices, seconds, seed)]
+    echo = oi.StereoEchoes(main_delay, mode="parity")
+    scale = F32(1.0 / max(num_voices, 1))
+    mixbuf = np.zeros(1024, dtype=np.float32)
+
+    def paint(span, outputs, temps):
+        mixbuf[span.start:span.end] = 0.0
+        for v in voices:
+            v.paint(span, sample_rate, [mixbuf], temps[:2])
+        mixbuf[span.start:span.end] *= scale
+        echo.paint(span, outputs, temps, False, {
+            "input": mixbuf, "feedback_volume": 0.6, "cutoff": 0.7})
+
+    return oe.render_blocks(paint, total, num_outputs=2, num_temps=4)
 
 
 def poly_echo_post(num_voices: int, main_delay: int):

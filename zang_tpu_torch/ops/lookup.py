@@ -7,13 +7,18 @@ wrap around it in zang_tpu/ops/sampler.py _pallas_taps).
                                   the sampler's two taps of a chunk, each
                                   index wrapped (loop) or clipped (one shot)
                                   as _pallas_taps does it, in one launch
+  sampler_play_cuda(prog, t_idx, table, num_samples, ratio, loop)
+                                  the sampler's whole chunk from its tiled
+                                  program in one launch (its plain version
+                                  and router are ops/sampler.py's
+                                  sampler_play_ref and sampler_play)
 
 Each has a plain version (table_lookup_ref, sampler_taps_ref) that runs on
 any device and that the router takes for CPU tensors; for CUDA tensors it
-launches the hand-written kernel csrc/table_lookup.cu (both entries are
-instances of one kernel body, built at first use by ops/_build.py), with
-no fallback. table_lookup_launches counts that kernel's launches from
-either entry.
+launches the hand-written kernel csrc/table_lookup.cu (built at first use
+by ops/_build.py), with no fallback. table_lookup_launches counts that
+kernel's launches from every entry; sampler_play_launches those of
+sampler_play_cuda alone.
 """
 
 import ctypes
@@ -25,11 +30,18 @@ from . import _build
 
 _count_lock = threading.Lock()  # the counts below are read across threads
 table_lookup_launches = 0
+sampler_play_launches = 0
+# the slots of a tile sampler_play_cuda takes: 16 bytes each in a block's 48 KB
+# of shared memory (a tile of 512 frames has at most 514)
+PLAY_MAX_SLOTS = 3072
 
 _C = ctypes.c_void_p
 _ARGTYPES = {
     "zt_table_lookup": [_C] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [_C],
     "zt_sampler_taps": [_C] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_C],
+    "zt_sampler_play": [_C] * 7 + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                                        ctypes.c_float] + [ctypes.c_int] * 2
+                       + [_C],
 }
 _fns = {}  # C entry name -> ctypes function, typed on first use
 _I32, _F32 = torch.int32, torch.float32
@@ -79,11 +91,12 @@ def _launch(name, device, *args):
         raise RuntimeError(f"table_lookup kernel launch failed ({name}): cudaError_t {err}")
 
 
-def _refuse(entry, tensors, same_shape, table, num_samples=None):
+def _refuse(entry, tensors, same_shape, table, num_samples=None, more=()):
     """Raise the ValueError that says why `entry` refused its arguments:
     tensors are (name, tensor, dtype), each to be contiguous on the first
-    one's CUDA device; same_shape two of the names whose shapes must agree;
-    table f32 [N], 0 < N < 2^31, N == num_samples when that is given."""
+    one's CUDA device; same_shape names whose shapes must agree; table f32
+    [N], 0 < N < 2^31, N == num_samples when that is given; more: further
+    (holds, what it asks) pairs."""
     dev = tensors[0][1].device
     if dev.type != "cuda":
         raise ValueError(f"{entry} needs CUDA tensors, got {tensors[0][0]} on {dev}")
@@ -95,13 +108,17 @@ def _refuse(entry, tensors, same_shape, table, num_samples=None):
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
     shapes = {name: tuple(t.shape) for name, t, _ in tensors}
-    a, b = same_shape
-    if shapes[a] != shapes[b]:
-        raise ValueError(f"{b} has shape {shapes[b]}, {a} {shapes[a]}")
+    a = same_shape[0]
+    for b in same_shape[1:]:
+        if shapes[a] != shapes[b]:
+            raise ValueError(f"{b} has shape {shapes[b]}, {a} {shapes[a]}")
     if table.dim() != 1 or not 0 < table.shape[0] < 2 ** 31:
         raise ValueError(f"table must be [N] with 0 < N < 2^31, got {tuple(table.shape)}")
     if num_samples is not None and table.shape[0] != num_samples:
         raise ValueError(f"table has {table.shape[0]} samples, num_samples is {num_samples}")
+    for holds, what in more:
+        if not holds:
+            raise ValueError(f"{entry}: {what}")
     raise ValueError(f"{entry} refused its arguments")
 
 
@@ -151,6 +168,51 @@ def sampler_taps_cuda(idx_a: torch.Tensor, idx_b: torch.Tensor, table: torch.Ten
             out.data_ptr(), idx_a.numel(), num_samples, 1 if loop else 0)
     with _count_lock:  # worker threads launch too
         table_lookup_launches += 1
+    return out
+
+
+def sampler_play_cuda(prog: dict, t_idx: torch.Tensor, table: torch.Tensor,
+                      num_samples: int, ratio: float, loop: bool) -> torch.Tensor:
+    """The kernel, the sampler's chunk in one launch: prog the chunk's tiled
+    program (tb, mode, seg_start int32 and t0 f32, each [V, nt, S] with
+    S <= PLAY_MAX_SLOTS), t_idx int32 [n] with n a multiple of nt, table
+    f32 [num_samples], all contiguous on one CUDA device; ratio the playback
+    ratio as an f32 (passed as one). Returns f32 [V, n]: ops/sampler.py
+    sampler_play_ref's bits. num_samples == 0 gives zeros, no launch."""
+    global table_lookup_launches, sampler_play_launches
+    tb, t0, mode, ss = prog["tb"], prog["t0"], prog["mode"], prog["seg_start"]
+    d = t_idx.get_device()
+    if num_samples == 0 and d >= 0:
+        return t_idx.new_zeros((tb.shape[0], t_idx.shape[0]), dtype=_F32)
+    if not (d >= 0 and tb.get_device() == t0.get_device() == mode.get_device()
+            == ss.get_device() == table.get_device() == d
+            and tb.dtype is _I32 and t0.dtype is _F32 and mode.dtype is _I32
+            and ss.dtype is _I32 and t_idx.dtype is _I32 and table.dtype is _F32
+            and tb.is_contiguous() and t0.is_contiguous() and mode.is_contiguous()
+            and ss.is_contiguous() and t_idx.is_contiguous() and table.is_contiguous()
+            and tb.dim() == 3 and tb.shape == t0.shape == mode.shape == ss.shape
+            and t_idx.dim() == 1 and 0 < tb.shape[1] and 0 < tb.shape[2] <= PLAY_MAX_SLOTS
+            and t_idx.shape[0] % tb.shape[1] == 0 and table.shape == (num_samples,)
+            and 0 < num_samples < 2 ** 31):
+        dims = tb.dim() == 3 and t_idx.dim() == 1
+        _refuse("sampler_play_cuda", (("t_idx", t_idx, _I32), ("tb", tb, _I32),
+                                      ("t0", t0, _F32), ("mode", mode, _I32),
+                                      ("seg_start", ss, _I32), ("table", table, _F32)),
+                ("tb", "t0", "mode", "seg_start"), table, num_samples,
+                more=((dims, "tb must be [V, nt, S] and t_idx [n]"),
+                      (dims and tb.shape[1] > 0 and t_idx.shape[0] % tb.shape[1] == 0,
+                       "n must be a multiple of nt > 0"),
+                      (dims and 0 < tb.shape[2] <= PLAY_MAX_SLOTS,
+                       f"it takes 1 to {PLAY_MAX_SLOTS} slots a tile")))
+    V, nt, S = tb.shape
+    n = t_idx.shape[0]
+    out = t_idx.new_empty((V, n), dtype=_F32)
+    _launch("zt_sampler_play", d, tb.data_ptr(), t0.data_ptr(), mode.data_ptr(),
+            ss.data_ptr(), t_idx.data_ptr(), table.data_ptr(), out.data_ptr(), V, nt, S, n,
+            num_samples, ratio, 1 if loop else 0)
+    with _count_lock:  # worker threads launch too
+        table_lookup_launches += 1
+        sampler_play_launches += 1
     return out
 
 

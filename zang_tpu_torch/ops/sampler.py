@@ -9,6 +9,14 @@ reference's quirk, Sampler.zig:132-134). decode_wav_channel and
 plan_sampler are copies of the JAX package's numpy code, bit for bit. The
 device evaluates t_i = t0_span + i*ratio and reads two taps with the
 reference's inverted interpolation weights (Sampler.zig:119-125).
+
+A chunk is rendered one of two ways. The tiled chunk format goes through
+sampler_play: the whole chunk (its program's slots, the position, the
+wrap, both taps and the lerp) in one launch of the CUDA kernel
+ops/lookup.sampler_play_cuda for CUDA tensors, its plain version
+sampler_play_ref (eval_tiled_chunk, then eval_sampler) for CPU ones. The
+flat format evaluates its program with segprog.eval_chunk and calls
+eval_sampler, whose taps are one launch of ops/lookup.sampler_taps.
 """
 
 from dataclasses import dataclass
@@ -21,7 +29,7 @@ from ..core.timeline import SubvoiceTimeline
 from ..core.wav import WavData
 from . import lookup
 from .scan import as_f32
-from .segprog import SegProgram
+from .segprog import SegProgram, eval_tiled_chunk
 
 F32 = np.float32
 
@@ -138,13 +146,14 @@ def eval_sampler(
     num_samples: int,
     ratio: float,
     loop: bool,
+    taps=None,
 ) -> torch.Tensor:
     """Device: per-sample playback from evaluated program values (t0, mode,
     seg_start, each [V, n]). table: f32 [num_samples] on t_idx's device.
 
-    The two taps are read through ops.lookup.sampler_taps, which wraps or
-    clips their indices: one launch of the CUDA kernel for CUDA tensors, its
-    plain version for CPU tensors."""
+    The two taps are read through `taps` (default ops.lookup.sampler_taps,
+    which wraps or clips their indices: one launch of the CUDA kernel for
+    CUDA tensors, its plain version for CPU tensors)."""
     dt = (t_idx[None, :] - vals["seg_start"]).to(torch.float32)
     mode = vals["mode"]
     if num_samples == 0:
@@ -159,8 +168,28 @@ def eval_sampler(
     # one lookup serves the first tap of the resample and the copy (fast)
     # modes (their indices are program-span disjoint); the second only
     # matters in resample mode (Sampler.zig:105-130)
-    tap_a, tap_b = lookup.sampler_taps(torch.where(mode == 2, ifast, it0), it0 + 1,
-                                       table, num_samples, loop)
+    tap_a, tap_b = (taps or lookup.sampler_taps)(torch.where(mode == 2, ifast, it0),
+                                                 it0 + 1, table, num_samples, loop)
     s_re = tap_a * (1.0 - tfrac) + tap_b * tfrac
     zero = torch.zeros((), dtype=torch.float32, device=dt.device)
     return torch.where(mode == 1, s_re, torch.where(mode == 2, tap_a, zero))
+
+
+def sampler_play_ref(prog: dict, t_idx: torch.Tensor, table: torch.Tensor,
+                     num_samples: int, ratio: float, loop: bool) -> torch.Tensor:
+    """Plain version of sampler_play on any device: the chunk's tiled
+    program ({"tb", "t0", "mode", "seg_start"}, each [V, nt, S]) evaluated
+    at t_idx [n] by eval_tiled_chunk, then eval_sampler with the plain taps.
+    Returns f32 [V, n]."""
+    return eval_sampler(eval_tiled_chunk(prog, t_idx), t_idx, table, num_samples, ratio,
+                        loop, taps=lookup.sampler_taps_ref)
+
+
+def sampler_play(prog: dict, t_idx: torch.Tensor, table: torch.Tensor,
+                 num_samples: int, ratio: float, loop: bool) -> torch.Tensor:
+    """The sampler's chunk from its tiled program, f32 [V, n]: the plain
+    version for CPU tensors, one launch of the CUDA kernel for CUDA tensors
+    (ops/lookup.sampler_play_cuda), which raises for anything else."""
+    if not t_idx.is_cuda and t_idx.device.type == "cpu":
+        return sampler_play_ref(prog, t_idx, table, num_samples, ratio, loop)
+    return lookup.sampler_play_cuda(prog, t_idx, table, num_samples, ratio, loop)

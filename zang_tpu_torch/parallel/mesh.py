@@ -302,23 +302,25 @@ class RenderJob:
 
 
 def launch_counts() -> dict:
-    """The five kernels' launch counts in this process."""
+    """The five kernels' launch counts in this process, and under
+    "sampler_play" how many of table_lookup's came from its fused entry."""
     from ..ops import fm, lookup, svf_cuda
 
     return {"svf_table": svf_cuda.svf_table_launches,
             "svf_dense": svf_cuda.svf_dense_launches,
             "svf_onepass": svf_cuda.svf_onepass_launches,
             "table_lookup": lookup.table_lookup_launches,
+            "sampler_play": lookup.sampler_play_launches,
             "fm_feedback": fm.fm_feedback_launches}
 
 
 def reset_launch_counts() -> None:
-    """Set the five kernels' launch counts in this process to 0."""
+    """Set the launch counts of launch_counts() in this process to 0."""
     from ..ops import fm, lookup, svf_cuda
 
     svf_cuda.svf_table_launches = svf_cuda.svf_dense_launches = 0
     svf_cuda.svf_onepass_launches = 0
-    lookup.table_lookup_launches = 0
+    lookup.table_lookup_launches = lookup.sampler_play_launches = 0
     fm.fm_feedback_launches = 0
 
 

@@ -22,8 +22,12 @@ with the card's nvidia-smi name and power limit:
                   S = 2) and V = 1024 x 65,536
                K3 svf_onepass_cuda: V = 4096 x 65,536, S = 2
                K4 sampler_taps: the sampler's two taps of a 65,536 chunk
-  host_us    the host's microseconds a call of K5 at fmsynth's shape and K2
-             at play's, enqueue only (chip_smoke.host_us)
+               K4 sampler_play: the fused entry, the sampler config's
+                  second chunk of 65,536 from its tiled program (skipped in
+                  a checkout without it)
+  host_us    the host's microseconds a call of K5 at fmsynth's shape, K2
+             at play's and K4 sampler_play's, enqueue only
+             (chip_smoke.host_us)
   render_s   end to end, three times each: render_song_s16 (the 385 s
              song), the 10 s sampler config, and the fmsynth, play, stereo
              and detuned examples
@@ -62,6 +66,7 @@ def main() -> int:
     from zang_tpu_torch.core import native
     from zang_tpu_torch.host import configs, examples, song
     from zang_tpu_torch.ops import _build, filters, fm, lookup, svf_cuda
+    from zang_tpu_torch.ops import sampler as sampler_ops
 
     out = {"root": root, "card": cs.smi()}
     stems = ("svf_table", "svf_dense", "svf_onepass", "table_lookup", "fm_feedback")
@@ -103,13 +108,21 @@ def main() -> int:
                      cs.svf_case(rng, 4096, cs.CHUNK, 128, 2, 3 * cs.CHUNK, dev)),
         "K4 sampler": ("lookup_kernel", lookup.sampler_taps, (ia, ib, table, n_drum, True)),
     }
+    if hasattr(sampler_ops, "sampler_play"):
+        xs, data, N, ratio, loop = cs.play_programs(configs, "config", cs.CHUNK)
+        prog = {k: torch.from_numpy(v[1]).to(dev) for k, v in xs.items()}
+        t_idx = torch.arange(cs.CHUNK, 2 * cs.CHUNK, dtype=torch.int32, device=dev)
+        cases["K4 sampler_play"] = ("sampler_play_kernel", sampler_ops.sampler_play,
+                                    (prog, t_idx, torch.from_numpy(data).to(dev), N, ratio,
+                                     loop))
     out["device_ms"] = {}
     for label, (kname, fn, args) in cases.items():
         reps = 20 if "v1024" in label or "v4096" in label else 100
         out["device_ms"][label] = cs.device_ms(lambda fn=fn, a=args: fn(*a), kname, reps)
     out["host_us"] = {label: cs.host_us(lambda fn=cases[label][1], a=cases[label][2]: fn(*a),
                                         reps)
-                      for label, reps in (("K5 fmsynth", 50), ("K2 play", 500))}
+                      for label, reps in (("K5 fmsynth", 50), ("K2 play", 500),
+                                          ("K4 sampler_play", 500)) if label in cases}
     del cases
 
     renders = {"song": lambda: song.render_song_s16(device="cuda"),
