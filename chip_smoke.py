@@ -85,13 +85,20 @@ each of which raises on failure:
      through the router at V=4096, n=2048 with active_from inside the
      chunk, a ragged V=5000 x 1000 with time tiles of 125 frames and four
      slots written over its input, a state chain across two calls, and the
-     main path's V=16384 x 65536 written over its input; the router sends
+     main path's V=16384 x 65536 written over its input, and the cases
+     where the kernel's batch paths part (tests/test_torch_cuda_kernels.py
+     ONEPASS_EDGES: active_from and slot boundaries inside a 32-sample
+     batch and on its first sample, unsorted slots, a time tile that ends
+     inside a batch, 1-4 slots, V not a multiple of 32, n = 4 (mod 128)),
+     each written over its input, and two chained calls into outputs of
+     their own; the router sends
      five slots a tile to K1 instead (V=4096, held to
      svf_filter_table_ref; one K1 launch, no K3), and at V=16384 x 65536
      with donate_x the peak device memory of that call is read;
      against K1 and K1's plain version at V=4096 (rms < -120 dBFS, end
      states within 1e-5); timed beside K1 called by name at 1024, 4096 and
-     16384 voices x 65536 frames
+     16384 voices x 65536 frames, each K3 time beside its chain floor
+     (onepass_chain_floor_ms, printed only) and its bytes-bound share
   7. the main paths, each with every kernel's launch count set to 0 just
      before it and read just after:
        song       the full 385 s Bach Toccata, render_song_s16(device="cuda"):
@@ -626,15 +633,32 @@ def dense_bytes_ops(args):
     return n_bytes, SVF_OPS_PER_SAMPLE * active
 
 
-def run_onepass(card, dev, rng, filters, svf_cuda):
+def onepass_chain_floor_ms(n, mhz):
+    """K3's latency floor in ms at `mhz`, an estimate: n steps of the SVF's
+    dependent chain (SVF_STEP_CHAIN operations from the state in to the
+    state out, at CYCLES_PER_DEPENDENT_OP each), as a batch in which every
+    lane is active steps them (no select). zang_tpu_torch/tools/chain_floor.py
+    onepass counts the same from the built code."""
+    return n * SVF_STEP_CHAIN * CYCLES_PER_DEPENDENT_OP / (mhz * 1e3)
+
+
+def run_onepass(card, dev, rng, filters, svf_cuda, mhz):
     """K3, the one-pass table-cut SVF kernel: against its plain loop
     (svf_onepass_table_ref; bit for bit), against K1 and K1's plain version
     (TOL_DB, TOL_STATE), and timed beside K1 called by name at 1024, 4096
-    and 16384 voices x 65536 frames; and the router's K1 branch for five
-    slots a tile. Returns (errs, times, k1_times)
-    by shape, errs["router S=5"] that K1 launch's; the V=16384 entry
-    carries the plain loop's one timed run."""
+    and 16384 voices x 65536 frames, each time beside K3's chain floor and
+    its bytes bound; the cases at the edges of K3's batches
+    (tests/test_torch_cuda_kernels.py ONEPASS_EDGES) and two chained calls
+    into outputs of their own, bit for bit; and the router's K1 branch for
+    five slots a tile. Returns (errs, times, k1_times) by shape,
+    errs["router S=5"] that K1 launch's; the V=16384 entry carries the
+    plain loop's one timed run."""
     import torch
+
+    threads = torch.get_num_threads()  # the test module sets one thread
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_cuda_kernels import ONEPASS_EDGES, onepass_edge_args, onepass_edge_case
+    torch.set_num_threads(threads)
 
     k3, k1 = svf_cuda.svf_onepass_cuda, svf_cuda.svf_table_cuda
     ref = filters.svf_onepass_table_ref
@@ -701,6 +725,24 @@ def run_onepass(card, dev, rng, filters, svf_cuda):
                                      chain[4][:, k * nt:(k + 1) * nt].contiguous(),
                                      chain[5][:, k * nt:(k + 1) * nt].contiguous(), 0.7,
                                      t0 + k * n, chain[8]), exact=True)
+    # where the kernel's batch paths part (active_from and slot boundaries
+    # inside and on its 32-sample batches, unsorted slots, a time tile that
+    # ends inside a batch, 1-4 slots, ragged V and n), written over x
+    for name in ONEPASS_EDGES:
+        a = onepass_edge_args(onepass_edge_case(name), dev)
+        x_in = a[2].clone()
+        errs[name] = check_svf(svf_label(f"edges, {name}, out=x", a), in_place,
+                               lambda *args: ref(args[0], args[1], x_in, *args[3:]), a,
+                               exact=True)
+    # two calls into outputs of their own, the second from the first's end
+    a = onepass_edge_args(onepass_edge_case("V 97"), dev, "all_pass")
+    V, n2 = a[2].shape
+    n, nt = n2 // 2, a[4].shape[1] // 2
+    check_svf_chain(f"chained 2 x {n} at V={V}, all_pass, out apart", k3, ref, a,
+                    lambda k, l, b: (l, b, a[2][:, k * n:(k + 1) * n].contiguous(), "all_pass",
+                                     a[4][:, k * nt:(k + 1) * nt].contiguous(),
+                                     a[5][:, k * nt:(k + 1) * nt].contiguous(), a[6],
+                                     a[7] + k * n, a[8]), exact=True)
     # against the two-phase kernel and its plain version (block seams there)
     a = svf_case(rng, 4096, 16384, 32, 3, 3 * 16384, dev)
     errs["vs K1"] = check_svf(svf_label("vs K1 (svf_table_cuda)", a), k3, k1, a)
@@ -716,9 +758,23 @@ def run_onepass(card, dev, rng, filters, svf_cuda):
         reps = 20 if V < 16384 else 10
         times[key] = timing(card, f"K3 V={V}", lambda a=a: k3(*a), None,
                             "svf_onepass_kernel", n_bytes, n_ops, reps, 1)
+        floor_ms = onepass_chain_floor_ms(CHUNK, mhz)
+        dev_ms = times[key]["device_ms"]
+        print(f"  K3 V={V}: device {dev_ms:.4f} ms, {floor_ms / dev_ms:.1%} of the way to its "
+              f"chain floor of {floor_ms:.4f} ms ({SVF_STEP_CHAIN} dependent operations a step "
+              f"at {CYCLES_PER_DEPENDENT_OP} cycles, {mhz:.0f} MHz) and "
+              f"{times[key]['bound_ms'] / dev_ms:.1%} of its bytes bound "
+              f"({times[key]['bound_ms'] * 1e3:.1f} us)")
         k1_times[key] = timing(card, f"K1 by name, V={V}", lambda a=a: k1(*a), None,
                                "svf_table_kernel", n_bytes, n_ops, reps, 1)
         if V == 16384:
+            # what moving the same bytes takes without the filter: one copy
+            # of x into a buffer of its own (printed only)
+            out = torch.empty_like(a[2])
+            copy_ms = time_ms(lambda: out.copy_(a[2]), reps)
+            del out
+            print(f"  a plain copy of x (out.copy_(x), {8 * V * CHUNK} B moved): "
+                  f"{copy_ms:.4f} ms; K3's device time is {dev_ms / copy_ms:.3f}x it [{card}]")
             # the main path's shape and call (written over its input with the
             # 16-byte copies): the plain loop once, timed on the host clock,
             # and K3 held to it bit for bit
@@ -3203,7 +3259,7 @@ def main() -> int:
     del fm_cases
 
     # 6b. K3 vs its plain loop, K1 and K1's plain version on the card
-    onepass_err, onepass_t, k1_by_name = run_onepass(card, dev, rng, filters, svf_cuda)
+    onepass_err, onepass_t, k1_by_name = run_onepass(card, dev, rng, filters, svf_cuda, mhz)
     svf_err["router S=5"] = onepass_err.pop("router S=5")  # a K1 launch
     svf_t.update({k: v for k, v in k1_by_name.items() if k != "v1024"})
 

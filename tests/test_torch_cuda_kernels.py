@@ -19,7 +19,9 @@ bit, and the sampler config's render through the fused entry bit for bit
 with its render through the chain it replaced. Their input helpers are copies of
 tests/test_torch_{svf,fm,onepass,sampler}.py's, the FM phase angles made
 with the port's u32 ops (bit for bit with the JAX package's,
-tests/test_torch_ops.py).
+tests/test_torch_ops.py). K3's batch-edge cases (ONEPASS_EDGES,
+onepass_edge_case) are defined here; tests/test_torch_onepass.py holds the
+loop to the JAX package at the same inputs.
 """
 
 import numpy as np
@@ -250,6 +252,112 @@ def test_kernel_is_the_loop_on_card(cuda_device, shape):
     torch.cuda.synchronize()
     assert svf_cuda.svf_onepass_launches == before + 1 and got[2] is x
     assert all(torch.equal(g, w) for g, w in zip(got, ref))
+
+
+# K3's batches (csrc/svf_onepass.cu): a chain lane steps K3_BATCH samples
+# at a time, a warp of 32 voices together, and takes one of three paths a
+# batch (every lane active from its first sample: no select, and one
+# cutoff when no lane's boundary falls after that sample; no lane active:
+# zeros; else the plain loop's selects), or a sample at a time where a time
+# tile ends inside a batch or an x tile is ragged. These cases put
+# active_from and the slot boundaries where the paths part. name -> (V, n,
+# nt, S, active from, boundaries):
+#   active from  "random" t0 .. t0 + n/2; "warps" by warp of 32 voices:
+#                inside a batch, on a batch's first sample, before the chunk,
+#                after it; "none" (always active)
+#   boundaries   "random" sorted in the tile; "batches" even warps inside a
+#                batch, odd ones on a batch's first sample; "unsorted"
+#                random, in no order (the last slot in order whose
+#                boundary has passed wins)
+K3_BATCH = 32  # csrc/svf_onepass.cu kBatch
+ONEPASS_EDGES = {
+    "af in batches": (128, 1024, 8, 2, "warps", "random"),
+    "boundaries in and on batches": (64, 1024, 4, 3, "none", "batches"),
+    "unsorted boundaries": (64, 512, 2, 4, "none", "unsorted"),
+    "tile ends in a batch": (40, 640, 16, 2, "random", "random"),
+    "tiles of 48": (33, 768, 16, 2, "warps", "batches"),  # batches that cross a tile end
+    "a tile of 64 batches and more": (40, 4096, 1, 3, "warps", "batches"),
+    "S1": (70, 512, 4, 1, "warps", "random"),
+    "S2": (70, 512, 4, 2, "warps", "batches"),
+    "S3": (70, 512, 4, 3, "warps", "batches"),
+    "S4": (70, 512, 4, 4, "warps", "batches"),
+    "V 97": (97, 1024, 8, 3, "warps", "batches"),
+    "n 644": (33, 644, 7, 3, "random", "random"),  # n = 4 (mod 128): a ragged x tile
+}
+
+
+def onepass_edge_case(name, seed=21, t0=7 * 65536):
+    """The inputs of ONEPASS_EDGES[name] as numpy arrays (af None when
+    always active), in _onepass_case's format."""
+    V, n, nt, S, af_mode, tb_mode = ONEPASS_EDGES[name]
+    rng = np.random.default_rng(seed)
+    T, batch = n // nt, K3_BATCH
+    pos = rng.integers(0, T, (V, nt, S - 1))
+    if tb_mode == "batches":
+        odd = (np.arange(V) // 32 % 2 == 1)[:, None, None]
+        pos = np.minimum(pos // batch * batch + np.where(odd, 0, rng.integers(1, batch, pos.shape)),
+                         T - 1)
+    if tb_mode != "unsorted":
+        pos = np.sort(pos, axis=-1)
+    tb = np.empty((V, nt, S), np.int32)
+    tb[:, :, 0] = -(2 ** 31)
+    tb[:, :, 1:] = pos + t0 + np.arange(nt)[None, :, None] * T
+    if af_mode == "random":
+        af = rng.integers(t0, t0 + n // 2, V)
+    elif af_mode == "warps":
+        warp = np.arange(V) // 32 % 4
+        at = t0 + rng.integers(0, n // batch, V) * batch
+        af = np.select([warp == 0, warp == 1, warp == 2],
+                       [at + rng.integers(1, batch, V), at, np.full(V, t0 - 3)], t0 + n + 5)
+    return dict(
+        tb=tb, cutv=rng.uniform(0.05, 0.9, (V, nt, S)).astype(np.float32),
+        af=None if af_mode == "none" else af.astype(np.int32),
+        x=(rng.standard_normal((V, n)) * 0.3).astype(np.float32),
+        l0=(rng.standard_normal(V) * 0.1).astype(np.float32),
+        b0=(rng.standard_normal(V) * 0.1).astype(np.float32), t0=t0)
+
+
+def onepass_edge_args(c, device, ftype="low_pass"):
+    to = lambda a: None if a is None else torch.from_numpy(a).to(device)
+    return (to(c["l0"]), to(c["b0"]), to(c["x"]), ftype, to(c["tb"]), to(c["cutv"]), 0.3,
+            c["t0"], to(c["af"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ONEPASS_EDGES))
+def test_kernel_is_the_loop_at_its_batch_edges_on_card(cuda_device, name):
+    """Written over x, bit for bit with the loop."""
+    args = onepass_edge_args(onepass_edge_case(name), cuda_device)
+    x = args[2].clone()
+    got = svf_cuda.svf_onepass_cuda(*args[:2], x, *args[3:], out=x)
+    ref = tfilt.svf_onepass_table_ref(*args)
+    torch.cuda.synchronize()
+    assert got[2] is x and all(torch.equal(g, w) for g, w in zip(got, ref))
+    assert float(ref[2].abs().max()) > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ftype", ["band_pass", "all_pass"])
+def test_kernel_chained_into_its_own_output_on_card(cuda_device, ftype):
+    """Two calls over the halves of a chunk, each into an output of its own
+    (out=None), the second from the first's end state: the loop's bits over
+    the whole chunk, for output mixes other than low_pass."""
+    c = onepass_edge_case("V 97")
+    args = onepass_edge_args(c, cuda_device, ftype)
+    l_full, b_full, full = tfilt.svf_onepass_table_ref(*args)
+    x, tb, cutv = args[2], args[4], args[5]
+    n, nt = x.shape[1] // 2, tb.shape[1] // 2
+    l, b, halves = args[0], args[1], []
+    for k in range(2):
+        l, b, out = svf_cuda.svf_onepass_cuda(
+            l, b, x[:, k * n:(k + 1) * n].contiguous(), ftype,
+            tb[:, k * nt:(k + 1) * nt].contiguous(), cutv[:, k * nt:(k + 1) * nt].contiguous(),
+            0.3, c["t0"] + k * n, args[8])
+        halves.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(halves, dim=1), full)
+    assert torch.equal(l, l_full) and torch.equal(b, b_full)
+    assert torch.equal(x, onepass_edge_args(c, cuda_device)[2])  # x untouched
 
 
 # ---------------------------------------------------------------------------

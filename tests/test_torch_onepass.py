@@ -21,6 +21,8 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_cuda_kernels import ONEPASS_EDGES, onepass_edge_args, onepass_edge_case
+from zang_tpu.ops import filters as jfilt
 from zang_tpu.ops.pallas_svf import ONEPASS_V_MIN, svf_onepass_table
 from zang_tpu_torch.graph.render import render_performance
 from zang_tpu_torch.host import configs as tconfigs
@@ -126,6 +128,29 @@ def test_loop_without_active_from_and_chained():
         halves.append(out)
     assert torch.equal(torch.cat(halves, dim=1), full)
     assert torch.equal(l, l_full) and torch.equal(b, b_full)
+
+
+@pytest.mark.parametrize("name", list(ONEPASS_EDGES))
+def test_loop_matches_jax_table_filter_at_kernel_batch_edges(name):
+    """The cases that the card tests hold K3 to the loop with
+    (tests/test_torch_cuda_kernels.py ONEPASS_EDGES: active_from and slot
+    boundaries inside and on K3's 32-sample batches, unsorted slots, time
+    tiles that end inside a batch, 1-4 slots, ragged V and n): the loop
+    against the JAX package's svf_filter_table on the CPU (the table
+    evaluated, then its affine scan), within the affine-scan bounds above;
+    inactive samples are zeros in both."""
+    c = onepass_edge_case(name)
+    lt, bt, ot = tfilt.svf_onepass_table_ref(*onepass_edge_args(c, "cpu"))
+    jx = lambda a: None if a is None else jnp.asarray(a)
+    lj, bj, oj = jfilt.svf_filter_table(jx(c["l0"]), jx(c["b0"]), jx(c["x"]), "low_pass",
+                                        jx(c["tb"]), jx(c["cutv"]), 0.3, c["t0"], jx(c["af"]))
+    assert _rms_db(ot.numpy(), oj) < -110.0
+    assert np.abs(lt.numpy() - np.asarray(lj)).max() < 1e-5
+    assert np.abs(bt.numpy() - np.asarray(bj)).max() < 1e-5
+    if c["af"] is not None:
+        act = (c["t0"] + np.arange(c["x"].shape[1]))[None, :] >= c["af"][:, None]
+        assert (ot.numpy()[~act] == 0.0).all() and (np.asarray(oj)[~act] == 0.0).all()
+    assert np.abs(ot.numpy()).max() > 0.05
 
 
 def test_router_takes_plain_on_cpu_at_large_v(monkeypatch, big):

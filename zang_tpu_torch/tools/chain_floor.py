@@ -11,17 +11,24 @@ instructions, however wide the card. This script:
   1. builds the kernel library (zang_tpu_torch/ops/_build.py) and dumps its
      SASS with cuobjdump beside it, as lib<...>.sass in zang_tpu_torch/build/
      (or reads a dump given with --sass);
-  2. finds the code of one batch of kBatch = 16 samples, the largest
-     branch-free block of the function that steps it:
+  2. finds the code of one batch of kBatch samples (16 for fm, 32 for
+     onepass), a branch-free block of the function that steps it:
        fm       fm_chain<0> (waveform 0, the fmsynth example's), the first
-                of the four functions that fm_feedback_kernel calls: a
-                batch on fast_sin, sinf's fast path without its branch
-       onepass  svf_onepass_kernel<2> (poly_echo's slot count): a batch's
-                16 steps, whose activity and slot choices are selects
+                of the four functions that fm_feedback_kernel calls: its
+                largest block, a batch on fast_sin, sinf's fast path
+                without its branch
+       onepass  svf_onepass_kernel<2> (poly_echo's slot count), its chain
+                warp's batches: each block with at least 16 f32 adds and
+                multiplies a step is one of the batch's paths, told apart by
+                their selects (FSEL): the fewest, every lane active and one
+                cutoff for the batch, is the floor of a chunk in which
+                every voice sounds; the others (a cutoff a sample; the
+                plain loop's selects where a lane's af falls in the batch)
+                are printed beside it
   3. finds the longest chain of register dependences through the block
      (from any register at its start to any at its end), both with each
      predicated instruction on that chain skipped (the floor) and executed,
-     and divides it by the batch's 16 steps;
+     and divides it by the batch's steps;
   4. prices each dependent instruction at LATENCY_CYCLES, the
      register-dependency latency that the CUDA C++ Programming Guide
      ("Maximize Instruction Throughput", multiprocessor level) gives for
@@ -33,6 +40,12 @@ instructions, however wide the card. This script:
 Run from the repo root on a machine with CUDA and nvcc:
 
     python3 zang_tpu_torch/tools/chain_floor.py fm|onepass [--n N] [--sass FILE]
+    python3 zang_tpu_torch/tools/chain_floor.py latency
+
+`latency` checks LATENCY_CYCLES on the card: one warp steps a chain of
+dependent f32 multiplies and adds (LATENCY_SOURCE), alone and with
+independent adds beside each link, and prints the cycles a link takes
+(clock64 around the loop).
 
 (--n: samples a voice; default 16384, fmsynth's chunk, for fm and 65536,
 poly_echo's, for onepass.) With --sass FILE nothing is built and no card is
@@ -53,11 +66,41 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.insert(0, ROOT)
 
 LATENCY_CYCLES = 4
+# one warp: a chain of dependent multiplies and adds, 64 links unrolled, with
+# K independent adds beside each link; clock64 around n passes
+LATENCY_SOURCE = r"""
+#include <cuda_runtime.h>
+template <int K>
+__global__ void chain(float* out, long long* cycles, float a, float c, int n) {
+  float x = a, y[K + 1];
+  for (int k = 0; k <= K; ++k) y[k] = a * (k + 2);
+  const long long t0 = clock64();
+  for (int i = 0; i < n; ++i) {
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      x = x * c;
+#pragma unroll
+      for (int k = 0; k < K; ++k) y[k] = y[k] + c;
+      x = x + a;
+    }
+  }
+  const long long t1 = clock64();
+  for (int k = 0; k < K; ++k) x += y[k];
+  out[threadIdx.x] = x;
+  if (threadIdx.x == 0) *cycles = t1 - t0;
+}
+extern "C" int zt_chain_latency(float* out, long long* cycles, int n, int k) {
+  if (k == 0) chain<0><<<1, 32>>>(out, cycles, 0.999f, 0.5f, n);
+  else if (k == 2) chain<2><<<1, 32>>>(out, cycles, 0.999f, 0.5f, n);
+  else return -1;
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
 SLOW_PATH_GUARD = "105615"  # sinf's switch to its slow range reduction
-BATCH = 16  # samples a batch in both kernels (kBatch)
-# kernel -> (library stem, the function's mangled-name fragment, samples a voice)
-KERNELS = {"fm": ("fm_feedback", "fm_feedback_kernel", 16384),
-           "onepass": ("svf_onepass", "svf_onepass_kernelILi2E", 65536)}
+# kernel -> (library stem, the function's mangled-name fragment, samples a
+# voice, samples a batch: the kernel's kBatch)
+KERNELS = {"fm": ("fm_feedback", "fm_feedback_kernel", 16384, 16),
+           "onepass": ("svf_onepass", "svf_onepass_kernelILi2E", 65536, 32)}
 
 _LINE = re.compile(r"/\*([0-9a-f]{4,5})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 _REG = re.compile(r"\bR(\d+)(\.64)?\b")
@@ -88,6 +131,29 @@ def parse(sass_text, fragment):
     if not out:
         raise SystemExit(f"no SASS of a function named *{fragment}* in the dump; "
                          f"it has {functions(sass_text)}")
+    return out
+
+
+def stall_counts(sass_text, fragment):
+    """address -> the stall count that the compiler wrote into the control
+    bits of each instruction of the function (bits 41-44 of an
+    instruction's second 64-bit word): the cycles the warp waits before it
+    issues its next instruction, waits on memory not counted."""
+    out, inside, addr = {}, False, None
+    for line in sass_text.splitlines():
+        if "Function :" in line:
+            inside = fragment in line
+            continue
+        if not inside:
+            continue
+        m = _LINE.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            continue
+        m = re.fullmatch(r"\s*/\* (0x[0-9a-f]{16}) \*/\s*", line)
+        if m and addr is not None:
+            out.setdefault(addr, (int(m.group(1), 16) >> 41) & 0xF)  # the first such function's
+            addr = None
     return out
 
 
@@ -169,20 +235,40 @@ def chain_functions(instrs):
     return funcs
 
 
-def largest_block(instrs):
-    """The longest run of instructions with no branch, barrier or branch
-    target inside it."""
+def blocks(instrs):
+    """The runs of instructions with no branch, barrier or branch target
+    inside them."""
     targets = {int(ops[0], 16) for a, g, op, ops in instrs
                if op == "BRA" and ops and re.fullmatch(r"0x[0-9a-f]+", ops[0])}
-    best, cur = [], []
+    out, cur = [], []
     for ins in instrs:
         a, guard, op, ops = ins
         if a in targets or op.startswith(_BRANCHES):
-            best = max(best, cur, key=len)
+            out.append(cur)
             cur = [] if op.startswith(_BRANCHES) else [ins]
             continue
         cur.append(ins)
-    return max(best, cur, key=len)
+    return [b for b in out + [cur] if b]
+
+
+def largest_block(instrs):
+    """The longest run of instructions with no branch, barrier or branch
+    target inside it."""
+    return max(blocks(instrs), key=len)
+
+
+def count_ops(path, *prefixes):
+    return sum(1 for _, _, op, _ in path if op.startswith(prefixes))
+
+
+def batch_paths(instrs, batch):
+    """The onepass kernel's batch paths: the branch-free blocks that step a
+    whole batch (at least 16 f32 adds and multiplies a sample: a step has
+    16, its output mix 5), fewest selects first."""
+    found = [b for b in blocks(instrs) if count_ops(b, "FADD", "FMUL", "FFMA") >= 16 * batch]
+    if not found:
+        raise SystemExit("no block of the onepass kernel steps a whole batch")
+    return sorted(found, key=lambda b: (count_ops(b, "FSEL"), len(b)))
 
 
 def longest_chain(path, skip_predicated):
@@ -224,14 +310,57 @@ def fmt(ins):
     return f"{a:05x}  {(guard or ''):5s} {op} {', '.join(ops)}"
 
 
+def measure_latency() -> int:
+    """Build LATENCY_SOURCE into zang_tpu_torch/build/ and print the cycles
+    a dependent link takes on the card."""
+    import ctypes
+
+    import torch
+
+    from zang_tpu_torch.ops import _build
+
+    src = os.path.join(_build.BUILD_DIR, "chain_latency.cu")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with open(src, "w") as f:
+        f.write(LATENCY_SOURCE)
+    lib = ctypes.CDLL(_build.build_shared(src, _build.nvcc_path, _build.NVCC_FLAGS,
+                                          "chain_latency"))
+    fn = lib.zt_chain_latency
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    out = torch.empty(32, device="cuda")
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    n = 2048
+    readings = {}
+    for k in (0, 2):
+        for _ in range(2):  # the first call loads the code
+            if fn(out.data_ptr(), cycles.data_ptr(), n, k) != 0:
+                raise SystemExit("the latency kernel failed")
+        readings[k] = cycles.item() / (n * 64)
+        print(f"a dependent f32 multiply or add, {k} independent adds beside each: "
+              f"{readings[k]:.3f} cycles")
+    print(json.dumps({"latency_cycles_measured": readings[0],
+                      "with_2_independent": readings[2], "assumed": LATENCY_CYCLES,
+                      "card": subprocess.run(
+                          ["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]}))
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["latency"]:
+        return measure_latency()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernel", choices=sorted(KERNELS))
     ap.add_argument("--n", type=int, help="samples a voice")
     ap.add_argument("--sass", help="read this cuobjdump -sass dump instead of building")
     ap.add_argument("--mhz", type=float, help="SM clock (default: nvidia-smi's maximum)")
+    ap.add_argument("--batch", type=int, help="samples a batch (default: the kernel's kBatch; "
+                    "16 for a dump of the earlier, 16-sample onepass kernel)")
     args = ap.parse_args()
-    stem, fragment, n_default = KERNELS[args.kernel]
+    stem, fragment, n_default, batch = KERNELS[args.kernel]
+    batch = args.batch or batch
     n = args.n or n_default
 
     card = None
@@ -264,30 +393,54 @@ def main() -> int:
     if args.kernel == "fm":
         instrs = chain_functions(instrs)[0]
         fragment = "fm_chain<0>"
-    path = largest_block(instrs)
-    print(f"the largest branch-free block of {fragment}, {path[0][0]:#06x} to "
-          f"{path[-1][0]:#06x}, a batch of {BATCH} steps: {len(path)} instructions issued")
+        paths = [largest_block(instrs)]
+    else:
+        paths = batch_paths(instrs, batch)
+    stalls = stall_counts(text, KERNELS[args.kernel][1])
+    readings = [floor(args.kernel, fragment, path, batch, n, args.mhz, card, show=k == 0,
+                      stalls=stalls) for k, path in enumerate(paths)]
+    if len(readings) > 1:
+        print("the other batch paths, by their selects: " + "; ".join(
+            f"{r['fsel']} FSEL, {r['issued']} issued, chain {r['chain_floor']}, "
+            f"{r['scheduled_cycles_a_step']:.2f} scheduled cycles a step: {r['floor_ms']:.4f} ms"
+            for r in readings[1:]))
+    print(json.dumps({**readings[0], "other_paths": readings[1:]}))
+    return 0
+
+
+def floor(kernel, fragment, path, batch, n, mhz, card, show, stalls):
+    """The chain floor of one batch's block: a reading (printed when show),
+    with the stall cycles that the compiled schedule gives the block."""
     result = {}
     for label, skip in (("floor", True), ("all predicated executed", False)):
         reg, chain = longest_chain(path, skip)
-        print(f"longest dependent chain, {label}: {len(chain)} instructions from {reg}:")
-        for ins in chain:
-            print("   ", fmt(ins))
+        if show:
+            print(f"longest dependent chain, {label}: {len(chain)} instructions from {reg}:")
+            for ins in chain:
+                print("   ", fmt(ins))
         result[label] = len(chain)
-    chain_step = result["floor"] / BATCH
-    issued_step = len(path) / BATCH
+    chain_step = result["floor"] / batch
+    issued_step = len(path) / batch
     cycles = max(chain_step * LATENCY_CYCLES, issued_step)
-    floor_ms = n * cycles / (args.mhz * 1e3)
-    print(f"serial-chain floor (estimate): the larger of {chain_step:.2f} dependent "
-          f"instructions x {LATENCY_CYCLES} cycles and {issued_step:.2f} issued = "
-          f"{cycles:.2f} cycles a step; x {n} steps at {args.mhz:g} MHz = {floor_ms:.4f} ms"
-          + (f" [{card}]" if card else ""))
-    print(json.dumps({"kernel": args.kernel, "function": fragment, "steps": BATCH,
-                      "issued": len(path), "chain_floor": result["floor"],
-                      "chain_executed": result["all predicated executed"],
-                      "latency_cycles": LATENCY_CYCLES, "cycles_a_step": cycles,
-                      "n": n, "mhz": args.mhz, "floor_ms": floor_ms, "card": card}))
-    return 0
+    floor_ms = n * cycles / (mhz * 1e3)
+    scheduled = sum(stalls.get(a, 0) for a, _, _, _ in path) / batch
+    if show:
+        print(f"the branch-free block of {fragment}, {path[0][0]:#06x} to {path[-1][0]:#06x}, "
+              f"a batch of {batch} steps: {len(path)} instructions issued, "
+              f"{count_ops(path, 'FSEL')} FSEL")
+        print(f"serial-chain floor (estimate): the larger of {chain_step:.2f} dependent "
+              f"instructions x {LATENCY_CYCLES} cycles and {issued_step:.2f} issued = "
+              f"{cycles:.2f} cycles a step; x {n} steps at {mhz:g} MHz = {floor_ms:.4f} ms"
+              + (f" [{card}]" if card else ""))
+        print(f"the compiled schedule: {scheduled:.2f} stall cycles a step (the control "
+              f"bits' stall counts over the block; what the loop around it costs, and "
+              f"waits on memory, come on top)")
+    return {"kernel": kernel, "function": fragment, "steps": batch, "issued": len(path),
+            "fsel": count_ops(path, "FSEL"), "chain_floor": result["floor"],
+            "chain_executed": result["all predicated executed"],
+            "latency_cycles": LATENCY_CYCLES, "cycles_a_step": cycles,
+            "scheduled_cycles_a_step": scheduled, "n": n, "mhz": mhz, "floor_ms": floor_ms,
+            "card": card}
 
 
 if __name__ == "__main__":

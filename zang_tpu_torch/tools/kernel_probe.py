@@ -3,10 +3,13 @@
 one NVIDIA GPU, so that two checkouts (a change and its parent) can be read
 in turns in one call on one card.
 
-    python3 zang_tpu_torch/tools/kernel_probe.py [--root DIR]
+    python3 zang_tpu_torch/tools/kernel_probe.py [--root DIR] [--only TEXT ...]
+                                                 [--no-renders]
 
 DIR is the root of the checkout whose zang_tpu_torch is imported (default:
-the one holding this script); the inputs and timing helpers are
+the one holding this script); --only keeps the kernel rows whose label
+holds one of the TEXTs (and the host rows among them), --no-renders skips
+the renders. The inputs and timing helpers are
 chip_smoke.py's, from the checkout holding this script, and every kernel is
 called through the entry that both checkouts have. Prints one JSON line,
 with the card's nvidia-smi name and power limit:
@@ -20,7 +23,11 @@ with the card's nvidia-smi name and power limit:
                   calls, and V = 1024 x 65,536 with a dense cutoff and mask
                K1 svf_filter_table: the song's shape (V = 14 x 65,536,
                   S = 2) and V = 1024 x 65,536
-               K3 svf_onepass_cuda: V = 4096 x 65,536, S = 2
+               K3 svf_onepass_cuda: V = 2048, 3072, 4096, 8192 and 16384 x
+                  65,536, S = 2 (16384 written over its input, as the
+                  render calls it), and beside it at 2048-8192 K1 called by
+                  name (svf_table_cuda) on the same inputs: where the two
+                  cross
                K4 sampler_taps: the sampler's two taps of a 65,536 chunk
                K4 sampler_play: the fused entry, the sampler config's
                   second chunk of 65,536 from its tiled program (skipped in
@@ -46,7 +53,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=HERE)
-    root = os.path.abspath(p.parse_args().root)
+    p.add_argument("--only", nargs="+", help="kernel rows whose label holds one of these")
+    p.add_argument("--no-renders", action="store_true")
+    args = p.parse_args()
+    root = os.path.abspath(args.root)
     import numpy as np
     import torch
 
@@ -104,10 +114,14 @@ def main() -> int:
                     cs.svf_case(rng, 14, cs.CHUNK, 128, 2, 7 * cs.CHUNK, dev)),
         "K1 v1024": ("svf_table_kernel", filters.svf_filter_table,
                      cs.svf_case(rng, 1024, cs.CHUNK, 128, 2, 5 * cs.CHUNK, dev)),
-        "K3 v4096": ("svf_onepass_kernel", svf_cuda.svf_onepass_cuda,
-                     cs.svf_case(rng, 4096, cs.CHUNK, 128, 2, 3 * cs.CHUNK, dev)),
+        "K3 v16384": ("svf_onepass_kernel", lambda *a: svf_cuda.svf_onepass_cuda(*a, out=a[2]),
+                      cs.svf_case(rng, 16384, cs.CHUNK, 128, 2, 3 * cs.CHUNK, dev)),
         "K4 sampler": ("lookup_kernel", lookup.sampler_taps, (ia, ib, table, n_drum, True)),
     }
+    for V in (2048, 3072, 4096, 8192):  # K3 and K1 by name on the same inputs
+        a = cs.svf_case(rng, V, cs.CHUNK, 128, 2, 3 * cs.CHUNK, dev)
+        cases[f"K3 v{V}"] = ("svf_onepass_kernel", svf_cuda.svf_onepass_cuda, a)
+        cases[f"K1 by name v{V}"] = ("svf_table_kernel", svf_cuda.svf_table_cuda, a)
     if hasattr(sampler_ops, "sampler_play"):
         xs, data, N, ratio, loop = cs.play_programs(configs, "config", cs.CHUNK)
         prog = {k: torch.from_numpy(v[1]).to(dev) for k, v in xs.items()}
@@ -115,20 +129,24 @@ def main() -> int:
         cases["K4 sampler_play"] = ("sampler_play_kernel", sampler_ops.sampler_play,
                                     (prog, t_idx, torch.from_numpy(data).to(dev), N, ratio,
                                      loop))
+    if args.only:
+        cases = {k: v for k, v in cases.items() if any(t in k for t in args.only)}
     out["device_ms"] = {}
-    for label, (kname, fn, args) in cases.items():
-        reps = 20 if "v1024" in label or "v4096" in label else 100
-        out["device_ms"][label] = cs.device_ms(lambda fn=fn, a=args: fn(*a), kname, reps)
+    for label, (kname, fn, args_) in cases.items():
+        size = label.split()[-1]  # "v<V>" for the large shapes
+        reps = 10 if size == "v16384" else 20 if size.startswith("v") else 100
+        out["device_ms"][label] = cs.device_ms(lambda fn=fn, a=args_: fn(*a), kname, reps)
     out["host_us"] = {label: cs.host_us(lambda fn=cases[label][1], a=cases[label][2]: fn(*a),
                                         reps)
                       for label, reps in (("K5 fmsynth", 50), ("K2 play", 500),
                                           ("K4 sampler_play", 500)) if label in cases}
     del cases
 
-    renders = {"song": lambda: song.render_song_s16(device="cuda"),
-               "sampler": lambda: configs.render_config_s16("sampler", 10.0, device="cuda"),
-               **{f"ex_{name}": (lambda name=name: examples.EXAMPLES[name](device="cuda"))
-                  for name in ("fmsynth", "play", "stereo", "detuned")}}
+    renders = {} if args.no_renders else {
+        "song": lambda: song.render_song_s16(device="cuda"),
+        "sampler": lambda: configs.render_config_s16("sampler", 10.0, device="cuda"),
+        **{f"ex_{name}": (lambda name=name: examples.EXAMPLES[name](device="cuda"))
+           for name in ("fmsynth", "play", "stereo", "detuned")}}
     out["render_s"] = {}
     for name, fn in renders.items():
         secs = []
