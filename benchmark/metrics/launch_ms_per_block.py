@@ -1,0 +1,11 @@
+"""launch_ms_per_block: the port's span "block.launch" (host/live.
+render_lanes: the launches, the per-lane post chain and the s16 mixdown)
+summed over a block, over the blocks that hold port spans
+(benchmark/program_spans.py), in ms."""
+
+from benchmark.program_spans import per_unit_s
+
+
+def read(res):
+    s = per_unit_s(res, "enqueue", "block.launch", "block")
+    return None if s is None else s * 1e3

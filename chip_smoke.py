@@ -666,11 +666,11 @@ def run_onepass(card, dev, rng, filters, svf_cuda, mhz):
           f"svf_filter_table_ref (rms < {TOL_DB} dBFS, end state |diff| < {TOL_STATE}):")
     errs = {}
     # through the router: V >= ONEPASS_V_MIN, active_from inside the chunk
-    before = svf_cuda.svf_onepass_launches
+    before, = launched("svf_onepass")
     a = svf_case(rng, 4096, 2048, 128, 3, 512, dev)
     errs["v4096 n2048"] = check_svf(svf_label("router", a), filters.svf_filter_table, ref,
                                     a, exact=True)
-    if svf_cuda.svf_onepass_launches != before + 1:
+    if launched("svf_onepass") != (before + 1,):
         raise AssertionError("svf_filter_table did not launch K3 at V=4096")
     # a ragged V and time tiles of 125 frames (batches that end inside a
     # tile: the kernel's sample-at-a-time steps), four slots, written over x
@@ -690,25 +690,24 @@ def run_onepass(card, dev, rng, filters, svf_cuda, mhz):
     # its own tensor even with donate_x
     a = svf_case(rng, 4096, 2048, 128, 5, 1024, dev)
     x_in = a[2].clone()
-    before = svf_cuda.svf_onepass_launches, svf_cuda.svf_table_launches
+    before = launched("svf_onepass", "svf_table")
     errs["router S=5"] = check_svf(svf_label("router, 5 slots", a),
                                    lambda *args: filters.svf_filter_table(*args,
                                                                           donate_x=True),
                                    filters.svf_filter_table_ref, a)
-    if (svf_cuda.svf_onepass_launches, svf_cuda.svf_table_launches) != \
-            (before[0], before[1] + 1) or not torch.equal(a[2], x_in):
+    if launched("svf_onepass", "svf_table") != (before[0], before[1] + 1) or \
+            not torch.equal(a[2], x_in):
         raise AssertionError("svf_filter_table did not take K1 alone at V=4096, S=5, or "
                              "wrote over x")
     a = svf_case(rng, 16384, CHUNK, 128, 5, 3 * CHUNK, dev)
     torch.cuda.synchronize()
     base_gib = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
-    before = svf_cuda.svf_onepass_launches, svf_cuda.svf_table_launches
+    before = launched("svf_onepass", "svf_table")
     got = filters.svf_filter_table(*a, donate_x=True)
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    if (svf_cuda.svf_onepass_launches, svf_cuda.svf_table_launches) != \
-            (before[0], before[1] + 1):
+    if launched("svf_onepass", "svf_table") != (before[0], before[1] + 1):
         raise AssertionError("svf_filter_table did not take K1 alone at V=16384, S=5")
     print(f"  router, 5 slots, V=16384 x {CHUNK} with donate_x: K1 (no K3 launch), "
           f"{'finite' if bool(torch.isfinite(got[2]).all()) else 'NOT finite'}; peak device "
@@ -931,9 +930,9 @@ def check_play(sampler_ops, lookup, programs, chunk, device, label):
     for c in range(n_chunks):
         prog = {k: torch.from_numpy(v[c]).to(device) for k, v in xs.items()}
         t_idx = torch.arange(c * chunk, (c + 1) * chunk, dtype=torch.int32, device=device)
-        before = (lookup.table_lookup_launches, lookup.sampler_play_launches)
+        before = launched("table_lookup", "sampler_play")
         got = sampler_ops.sampler_play(prog, t_idx, table, N, ratio, loop)
-        after = (lookup.table_lookup_launches, lookup.sampler_play_launches)
+        after = launched("table_lookup", "sampler_play")
         want = sampler_ops.sampler_play_ref(prog, t_idx, table, N, ratio, loop)
         torch.cuda.synchronize()
         if after != (before[0] + 1, before[1] + 1):
@@ -1081,12 +1080,20 @@ def fm_bytes_ops(V, n):
 
 
 def counts(svf_cuda, lookup, fm):
-    """The five kernels' launch counts in this process (each wrapper's own
-    counter, read through zang_tpu_torch/parallel/mesh.py, which a rank
-    reads too)."""
+    """The five kernels' launch counts in this process (the port's
+    "launch.<kernel>" counters, read through zang_tpu_torch/parallel/mesh.py,
+    which a rank reads too)."""
     from zang_tpu_torch.parallel.mesh import launch_counts
 
     return launch_counts()
+
+
+def launched(*kernels) -> tuple:
+    """counts()' values of `kernels`, in order."""
+    from zang_tpu_torch.parallel.mesh import launch_counts
+
+    c = launch_counts()
+    return tuple(c[k] for k in kernels)
 
 
 def reset_counts(svf_cuda, lookup, fm):

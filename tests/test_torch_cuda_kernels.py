@@ -38,6 +38,7 @@ from zang_tpu_torch.ops import lookup, svf_cuda
 from zang_tpu_torch.ops import sampler as tsam
 from zang_tpu_torch.ops import scan as tscan
 from zang_tpu_torch.ops import segprog as tseg
+from zang_tpu_torch.parallel.mesh import launch_counts
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
@@ -92,11 +93,11 @@ def test_kernel_matches_plain_on_card(cuda_device, shape):
     V, nt, T, S = shape
     c = _case(5, V=V, nt=nt, T=T, S=S, t0=7 * 65536)
     args = _torch_args(c, "low_pass", cuda_device)
-    before = svf_cuda.svf_table_launches
+    before = launch_counts()["svf_table"]
     got = tfilt.svf_filter_table(*args)
     ref = tfilt.svf_filter_table_ref(*args)
     torch.cuda.synchronize()
-    assert svf_cuda.svf_table_launches == before + 1
+    assert launch_counts()["svf_table"] == before + 1
     _assert_close(tuple(v.cpu() for v in got), tuple(v.cpu() for v in ref))
 
 
@@ -118,10 +119,10 @@ def test_kernel_raises_on_refused_shape(cuda_device):
     """A chunk that runs of 16 frames do not tile raises; nothing falls
     back to the plain version."""
     c = _case(7, V=2, nt=8, T=125, S=3)
-    before = svf_cuda.svf_table_launches
+    before = launch_counts()["svf_table"]
     with pytest.raises(ValueError, match="multiple of 16"):
         tfilt.svf_filter_table(*_torch_args(c, "low_pass", cuda_device))
-    assert svf_cuda.svf_table_launches == before
+    assert launch_counts()["svf_table"] == before
 
 
 # ---------------------------------------------------------------------------
@@ -190,11 +191,11 @@ def test_dense_kernel_matches_plain_on_card(cuda_device, shape):
     args = list(_dense_torch(c, "low_pass", cuda_device))
     if form == "scalar":
         args[4] = 0.2
-    before = svf_cuda.svf_dense_launches
+    before = launch_counts()["svf_dense"]
     got = tfilt.svf_filter(*args)
     ref = tfilt.svf_filter_ref(*args)
     torch.cuda.synchronize()
-    assert svf_cuda.svf_dense_launches == before + 1
+    assert launch_counts()["svf_dense"] == before + 1
     _assert_close(tuple(v.cpu() for v in got), tuple(v.cpu() for v in ref))
 
 
@@ -245,12 +246,12 @@ def test_kernel_is_the_loop_on_card(cuda_device, shape):
     if S == 1:
         c["tb"], c["cutv"] = c["tb"][:, :, :1].copy(), c["cutv"][:, :, :1].copy()
     args = _args(c, "low_pass", lambda a: torch.from_numpy(a).to(cuda_device))
-    before = svf_cuda.svf_onepass_launches
+    before = launch_counts()["svf_onepass"]
     x = args[2].clone()
     got = svf_cuda.svf_onepass_cuda(*args[:2], x, *args[3:], out=x)
     ref = tfilt.svf_onepass_table_ref(*args)
     torch.cuda.synchronize()
-    assert svf_cuda.svf_onepass_launches == before + 1 and got[2] is x
+    assert launch_counts()["svf_onepass"] == before + 1 and got[2] is x
     assert all(torch.equal(g, w) for g, w in zip(got, ref))
 
 
@@ -424,11 +425,11 @@ def test_fm_kernel_matches_plain_on_card(cuda_device, waveform, shape):
     fb1 = rng.uniform(-0.5, 0.5, V).astype(np.float32)
     fb2 = rng.uniform(-0.5, 0.5, V).astype(np.float32)
     args = [torch.from_numpy(a).to(cuda_device) for a in (base, fb1, fb2)]
-    before = tfm.fm_feedback_launches
+    before = launch_counts()["fm_feedback"]
     got = tfm.fm_feedback(args[0], float(FB), waveform, args[1], args[2])
     ref = tfm.fm_feedback_ref(args[0], float(FB), waveform, args[1], args[2])
     torch.cuda.synchronize()
-    assert tfm.fm_feedback_launches == before + 1
+    assert launch_counts()["fm_feedback"] == before + 1
     out, ro = got[0].cpu().numpy(), ref[0].cpu().numpy()
     if not _hold(out, ro, waveform, _angles(base, ro, fb1, fb2, FB)):
         assert (got[1] - ref[1]).abs().max() < 1e-4 and (got[2] - ref[2]).abs().max() < 1e-4
@@ -540,11 +541,11 @@ def _sampler_case(loop, speed, seconds=1.5, note_gap=0.8):
 ])
 def test_lookup_kernel_matches_plain_on_card(cuda_device, case):
     idx, sel, table = (torch.from_numpy(a).to(cuda_device) for a in _lookup_case(**case))
-    before = lookup.table_lookup_launches
+    before = launch_counts()["table_lookup"]
     got = lookup.table_lookup(idx, sel, table)
     want = lookup.table_lookup_ref(idx, sel, table)
     torch.cuda.synchronize()
-    assert lookup.table_lookup_launches == before + 1
+    assert launch_counts()["table_lookup"] == before + 1
     assert torch.equal(got, want)
 
 
@@ -555,11 +556,11 @@ def test_sampler_taps_kernel_matches_plain_on_card(cuda_device, name):
     kw = dict(TAPS_CASES[name])
     loop = kw.pop("loop")
     ia, ib, table = (torch.from_numpy(a).to(cuda_device) for a in _taps_case(**kw))
-    before = lookup.table_lookup_launches
+    before = launch_counts()["table_lookup"]
     got = lookup.sampler_taps(ia, ib, table, table.shape[0], loop)
     want = lookup.sampler_taps_ref(ia, ib, table, table.shape[0], loop)
     torch.cuda.synchronize()
-    assert lookup.table_lookup_launches == before + 1
+    assert launch_counts()["table_lookup"] == before + 1
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="num_samples"):
         lookup.sampler_taps(ia, ib, table, table.shape[0] - 1, loop)
@@ -639,11 +640,11 @@ def test_sampler_play_kernel_matches_plain_on_card(cuda_device, name):
         prog = {k: torch.from_numpy(v[c]).to(cuda_device) for k, v in xs.items()}
         t_idx = torch.arange(c * PLAY_CHUNK, (c + 1) * PLAY_CHUNK, dtype=torch.int32,
                              device=cuda_device)
-        before = (lookup.table_lookup_launches, lookup.sampler_play_launches)
+        before = (launch_counts()["table_lookup"], launch_counts()["sampler_play"])
         got = tsam.sampler_play(prog, t_idx, table, N, ratio, loop)
         want = tsam.sampler_play_ref(prog, t_idx, table, N, ratio, loop)
         torch.cuda.synchronize()
-        assert (lookup.table_lookup_launches, lookup.sampler_play_launches) == \
+        assert (launch_counts()["table_lookup"], launch_counts()["sampler_play"]) == \
             (before[0] + 1, before[1] + 1)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), c
     with pytest.raises(ValueError, match="num_samples"):
@@ -663,11 +664,11 @@ def test_sampler_config_render_is_the_chain_s_on_card(cuda_device):
 
     perf, total = tconfigs.build_sampler_performance(seconds=3.0)
     chunks = -(-total // 16384)
-    before = (lookup.table_lookup_launches, lookup.sampler_play_launches)
+    before = (launch_counts()["table_lookup"], launch_counts()["sampler_play"])
     got = render_performance(perf, total, 16384, device=cuda_device)
     torch.cuda.synchronize()
-    assert (lookup.table_lookup_launches - before[0],
-            lookup.sampler_play_launches - before[1]) == (chunks, chunks)
+    assert (launch_counts()["table_lookup"] - before[0],
+            launch_counts()["sampler_play"] - before[1]) == (chunks, chunks)
 
     def chain(prog, t_idx, table, num_samples, ratio, loop):
         return tsam.eval_sampler(eval_chunk(prog, t_idx), t_idx, table, num_samples,
@@ -676,5 +677,5 @@ def test_sampler_config_render_is_the_chain_s_on_card(cuda_device):
     with mock.patch.object(tsam, "sampler_play", chain):
         want = render_performance(perf, total, 16384, device=cuda_device)
     torch.cuda.synchronize()
-    assert lookup.sampler_play_launches - before[1] == chunks
+    assert launch_counts()["sampler_play"] - before[1] == chunks
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))

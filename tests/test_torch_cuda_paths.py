@@ -76,20 +76,19 @@ def _song(notes, seconds, color=0.3):
 @pytest.mark.cuda
 def test_batch_launches_k1_once_a_real_chunk(cuda_device, monkeypatch):
     from zang_tpu_torch.ops import filters as tfilt
-    from zang_tpu_torch.ops import svf_cuda
 
     def refuse(*a, **k):
         raise AssertionError("the plain SVF on a CUDA tensor")
 
     monkeypatch.setattr(tfilt, "svf_filter_table_ref", refuse)
-    before = svf_cuda.svf_table_launches
+    before = pm.launch_counts()["svf_table"]
     br = BatchRenderer(chunk_size=CHUNK, segment_chunks=2, devices=[cuda_device])
     results = br.run([RenderJob("a", lambda: _song(SONG_A, 1.0)),
                       RenderJob("c", lambda: _song(SONG_C, 1.3))])
     torch.cuda.synchronize()
     assert all(r.status == "ok" for r in results) and br.cache.traces == 1
     chunks = sum(-(-int(s * SR) // CHUNK) for s in (1.0, 1.3))
-    assert svf_cuda.svf_table_launches - before == chunks
+    assert pm.launch_counts()["svf_table"] - before == chunks
 
 
 # ---------------------------------------------------------------------------
@@ -102,12 +101,10 @@ def test_script_example_counts_k2_launches(cuda_device):
     11,025 halves each chunk to two sub-chunks of 8,192, and the feedback
     Filter (scalar res, low-pass) launches K2 once a sub-chunk: 17 chunks,
     34 launches."""
-    from zang_tpu_torch.ops import svf_cuda
-
-    before = svf_cuda.svf_dense_launches
+    before = pm.launch_counts()["svf_dense"]
     audio, sr = tex.ex_script(device="cuda")
     torch.cuda.synchronize()
-    assert svf_cuda.svf_dense_launches - before == 34
+    assert pm.launch_counts()["svf_dense"] - before == 34
     assert audio.shape == (1, int(6.0 * sr)) and bool(torch.isfinite(audio).all())
 
 
@@ -137,20 +134,18 @@ INSTRUMENTS = {
 
 @pytest.mark.cuda
 def test_flat_nice_launches_k2_on_the_card(cuda_device, monkeypatch):
-    from zang_tpu_torch.ops import svf_cuda
-
     def refuse(*a, **k):
         raise AssertionError("the plain SVF on a CUDA tensor")
 
     monkeypatch.setattr(tfilt, "svf_filter_ref", refuse)
     total = FLAT * N_CHUNKS
     tls = ttl.compile_timelines(_flat_song(TSongEvent), 4, SR, total)
-    before = svf_cuda.svf_dense_launches
+    before = pm.launch_counts()["svf_dense"]
     got = trender.render_performance(
         trender.Performance([(INSTRUMENTS["nice"](tti), tls)], SR), total, FLAT,
         device=cuda_device)
     torch.cuda.synchronize()
-    assert svf_cuda.svf_dense_launches == before + N_CHUNKS
+    assert pm.launch_counts()["svf_dense"] == before + N_CHUNKS
     assert bool(torch.isfinite(got).all())
 
 

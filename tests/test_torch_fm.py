@@ -25,6 +25,7 @@ from zang_tpu.ops.scan import exclusive_cumsum_u32 as j_cumsum
 from zang_tpu.ops.scan import freq_to_ifreq as j_ifreq
 from zang_tpu.ops.scan import utof23 as j_utof23
 from zang_tpu_torch.ops import fm as tfm
+from zang_tpu_torch.parallel.mesh import launch_counts
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
@@ -230,7 +231,7 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
         raise AssertionError("the CUDA wrapper was reached from a CPU tensor")
 
     monkeypatch.setattr(tfm, "fm_feedback_cuda", no_kernel)
-    before = tfm.fm_feedback_launches
+    before = launch_counts()["fm_feedback"]
     base = torch.from_numpy(_base(_freqs(np.random.default_rng(60), 2, 64)))
     z = torch.zeros(2)
     got = tfm.fm_feedback(base, float(FB), 0, z, z)
@@ -238,7 +239,7 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     tfm.fm_osc(torch.zeros(2, dtype=torch.int64), torch.full((2, 64), 220.0), 0.0, 0,
                float(FB), (z, z), SR)
-    assert tfm.fm_feedback_launches == before
+    assert launch_counts()["fm_feedback"] == before
 
 
 def test_zero_feedback_reaches_no_recurrence(monkeypatch):

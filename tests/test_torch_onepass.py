@@ -30,6 +30,7 @@ from zang_tpu_torch.host import examples as tex
 from zang_tpu_torch.host import instruments as tti
 from zang_tpu_torch.ops import filters as tfilt
 from zang_tpu_torch.ops import svf_cuda
+from zang_tpu_torch.parallel.mesh import launch_counts
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
@@ -161,7 +162,7 @@ def test_router_takes_plain_on_cpu_at_large_v(monkeypatch, big):
 
     monkeypatch.setattr(svf_cuda, "svf_onepass_cuda", no_kernel)
     monkeypatch.setattr(svf_cuda, "svf_table_cuda", no_kernel)
-    before = svf_cuda.svf_onepass_launches
+    before = launch_counts()["svf_onepass"]
     small = {k: (v[:, :256] if k == "x" else v[:, :16] if k in ("tb", "cutv") else v)
              for k, v in big.items()}
     small = {k: np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v
@@ -170,7 +171,7 @@ def test_router_takes_plain_on_cpu_at_large_v(monkeypatch, big):
     assert args[2].shape[0] >= tfilt.ONEPASS_V_MIN
     got, want = tfilt.svf_filter_table(*args), tfilt.svf_filter_table_ref(*args)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert svf_cuda.svf_onepass_launches == before
+    assert launch_counts()["svf_onepass"] == before
 
 
 def test_router_donated_x_gives_the_same_result():

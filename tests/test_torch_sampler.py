@@ -43,6 +43,7 @@ from zang_tpu_torch.ops import effects as tfx
 from zang_tpu_torch.ops import lookup
 from zang_tpu_torch.ops import sampler as tsam
 from zang_tpu_torch.ops import scan as tscan
+from zang_tpu_torch.parallel.mesh import launch_counts
 from zang_tpu_torch.ops import segprog as tseg
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
@@ -84,11 +85,11 @@ def test_lookup_ref_matches_pallas_interpret(case):
     np.testing.assert_array_equal(got.numpy(), want)
     assert (got.numpy() == 0).sum() >= (sel == 0).sum()
     # the wrapper takes the plain version for CPU tensors
-    before = lookup.table_lookup_launches
+    before = launch_counts()["table_lookup"]
     np.testing.assert_array_equal(
         lookup.table_lookup(torch.from_numpy(idx), torch.from_numpy(sel),
                             torch.from_numpy(table)).numpy(), want)
-    assert lookup.table_lookup_launches == before
+    assert launch_counts()["table_lookup"] == before
 
 
 def test_lookup_kernel_raises_on_cpu_tensor():
@@ -167,9 +168,9 @@ def test_sampler_taps_ref_matches_per_tap_and_pallas(name):
         assert (got[0].numpy()[outside] == 0).all()
         assert outside.any() != (name == "one_shot")
     # the router takes the plain version for CPU tensors and launches nothing
-    before = lookup.table_lookup_launches
+    before = launch_counts()["table_lookup"]
     assert torch.equal(lookup.sampler_taps(ta, tb_, tt, N, loop), got)
-    assert lookup.table_lookup_launches == before
+    assert launch_counts()["table_lookup"] == before
 
 
 def test_sampler_taps_kernel_raises_on_cpu_tensor():
@@ -353,10 +354,10 @@ def test_sampler_play_ref_matches_jax(name):
         got = tsam.sampler_play_ref(tprog, torch.from_numpy(t_idx), table, N, ratio, loop)
         assert got.shape == (V, PLAY_CHUNK) and got.dtype == torch.float32
         np.testing.assert_array_equal(got.numpy(), want)
-        before = (lookup.table_lookup_launches, lookup.sampler_play_launches)
+        before = (launch_counts()["table_lookup"], launch_counts()["sampler_play"])
         routed = tsam.sampler_play(tprog, torch.from_numpy(t_idx), table, N, ratio, loop)
         assert torch.equal(routed.view(torch.int32), got.view(torch.int32))
-        assert (lookup.table_lookup_launches, lookup.sampler_play_launches) == before
+        assert (launch_counts()["table_lookup"], launch_counts()["sampler_play"]) == before
         modes |= set(np.unique(prog["mode"]).tolist())
     assert modes == ({0} if name == "one_shot_reverse" else
                      {2} if name.endswith("ratio_1.0") else {1})

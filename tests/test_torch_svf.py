@@ -22,6 +22,7 @@ from zang_tpu.ops.pallas_svf import GATE_V_MIN, svf_filter_pallas, svf_filter_pa
 from zang_tpu_torch.core import twelve_tet
 from zang_tpu_torch.ops import _build, svf_cuda
 from zang_tpu_torch.ops import filters as tfilt
+from zang_tpu_torch.parallel.mesh import launch_counts
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
@@ -370,11 +371,11 @@ def test_router_takes_plain_on_cpu(monkeypatch):
         raise AssertionError("the CUDA wrapper was reached from a CPU tensor")
 
     monkeypatch.setattr(svf_cuda, "svf_dense_cuda", no_kernel)
-    before = svf_cuda.svf_dense_launches
+    before = launch_counts()["svf_dense"]
     args = _dense_torch(_dense_case(10, 3, 512), "band_pass")
     got, want = tfilt.svf_filter(*args), tfilt.svf_filter_ref(*args)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert svf_cuda.svf_dense_launches == before
+    assert launch_counts()["svf_dense"] == before
 
 
 def test_table_ref_never_reaches_the_router(monkeypatch):

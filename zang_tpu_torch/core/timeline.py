@@ -17,6 +17,7 @@ from typing import List
 
 import numpy as np
 
+from ..trace import span
 from . import native
 from .notes import SongEvent
 
@@ -61,8 +62,9 @@ def compile_timelines(
     be hashable dicts (the compiler groups equal ones); the compiler's
     failures raise.
     """
-    return native.compile_timelines_native(song, polyphony, sample_rate,
-                                           total_frames, block_size)
+    with span("plan.timelines"):
+        return native.compile_timelines_native(song, polyphony, sample_rate,
+                                               total_frames, block_size)
 
 
 def active_from(timelines: List[SubvoiceTimeline]) -> np.ndarray:

@@ -29,6 +29,7 @@ import torch
 
 from ..device import require_device
 from ..ops.segprog import SegProgram, chunkify, chunkify_tiled
+from ..trace import count, span
 
 TILE = 512
 
@@ -44,6 +45,7 @@ class RenderCtx:
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
     if a.dtype == np.uint32:  # u32 rides int64 (ops/scan.py)
         a = a.astype(np.int64)
+    count("h2d.copies")
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
@@ -70,9 +72,10 @@ class Performance:
         self.num_channels = num_channels
         self.post_fn = post_fn
         self.post_init_state = post_init_state
-        self.programs = programs if programs is not None else [
-            inst.plan(tls, self.sample_rate) for inst, tls in self.parts
-        ]
+        if programs is None:
+            with span("plan.programs"):
+                programs = [inst.plan(tls, self.sample_rate) for inst, tls in self.parts]
+        self.programs = programs
 
     def init_state(self, device):
         """((per-part states), post state) on `device`."""
@@ -101,7 +104,8 @@ class Performance:
                 return type(prog)(walk(v) for v in prog)
             return ()
 
-        return [walk(p) for p in self.programs], n_chunks
+        with span("slice"):
+            return [walk(p) for p in self.programs], n_chunks
 
     def merge_chunk(self, prog, xs_chunk):
         """Merge chunk-local seg slices into the static program structure."""
@@ -122,32 +126,34 @@ class Performance:
         Both sums are linear in the voices, so ranks that each hold a slice
         of every part's voices add theirs up before finish_chunk
         (parallel/mesh.py)."""
-        dev = ctx.t_idx.device
-        mix = torch.zeros((ctx.n,), dtype=torch.float32, device=dev)
-        multi = torch.zeros((self.num_channels, ctx.n), dtype=torch.float32, device=dev)
-        new_states = []
-        for (inst, _), static_prog, xs_chunk, st in zip(
-            self.parts, programs if programs is not None else self.programs,
-            chunk_progs, states
-        ):
-            st2, audio = inst.render(st, self.merge_chunk(static_prog, xs_chunk), ctx)
-            if getattr(inst, "output_channels", None) is not None:
-                multi = multi + audio
-            elif audio.dim() == 2:  # [V, n] -> sum voices
-                mix = mix + audio.sum(dim=0)
-            else:
-                mix = mix + audio
-            new_states.append(st2)
-        return new_states, mix, multi
+        with span("chunk.parts"):
+            dev = ctx.t_idx.device
+            mix = torch.zeros((ctx.n,), dtype=torch.float32, device=dev)
+            multi = torch.zeros((self.num_channels, ctx.n), dtype=torch.float32, device=dev)
+            new_states = []
+            for (inst, _), static_prog, xs_chunk, st in zip(
+                self.parts, programs if programs is not None else self.programs,
+                chunk_progs, states
+            ):
+                st2, audio = inst.render(st, self.merge_chunk(static_prog, xs_chunk), ctx)
+                if getattr(inst, "output_channels", None) is not None:
+                    multi = multi + audio
+                elif audio.dim() == 2:  # [V, n] -> sum voices
+                    mix = mix + audio.sum(dim=0)
+                else:
+                    mix = mix + audio
+                new_states.append(st2)
+            return new_states, mix, multi
 
     def finish_chunk(self, post_state, mix, multi, ctx: RenderCtx):
         """The rest of the chunk: post_fn on the mix (not linear in it: the
         echoes feed back through a filter), or the mix on every channel.
         Returns (post_state', [C, n])."""
-        if self.post_fn is not None:
-            post_state, out = self.post_fn(post_state, mix, ctx)
-            return post_state, out + multi if out.shape == multi.shape else out
-        return post_state, multi + mix[None, :]  # mono goes to every channel (centre)
+        with span("chunk.post"):
+            if self.post_fn is not None:
+                post_state, out = self.post_fn(post_state, mix, ctx)
+                return post_state, out + multi if out.shape == multi.shape else out
+            return post_state, multi + mix[None, :]  # mono goes to every channel (centre)
 
     def render_chunk(self, state, chunk_progs, ctx: RenderCtx, programs=None):
         """One chunk (zang_tpu/graph/render.py render_chunk): render_parts,
@@ -187,12 +193,15 @@ def make_stream_step(perf: Performance, chunk_size: int = 65536, *, device="cuda
     base = torch.arange(chunk_size, dtype=torch.int32, device=dev)
 
     def step(state, c0: int, xs_chunk, programs=None):
-        if state is None:
-            state = perf.init_state(dev)
-        ctx = RenderCtx(perf.sample_rate, base + c0, c0, chunk_size)
-        chunk_progs = _map_arrays(xs_chunk, lambda a: _to_device(a, dev))
-        return perf.render_chunk(state, chunk_progs, ctx,
-                                 static if programs is None else programs)
+        count("chunks")
+        with span("chunk"):
+            if state is None:
+                state = perf.init_state(dev)
+            ctx = RenderCtx(perf.sample_rate, base + c0, c0, chunk_size)
+            with span("chunk.upload"):
+                chunk_progs = _map_arrays(xs_chunk, lambda a: _to_device(a, dev))
+            return perf.render_chunk(state, chunk_progs, ctx,
+                                     static if programs is None else programs)
 
     return step
 

@@ -29,6 +29,7 @@ from ..ops import effects
 from ..ops import sampler as sampler_ops
 from ..ops.segprog import SegProgram, eval_chunk
 from ..parallel.mesh import pad_timelines
+from ..trace import span
 from . import instruments as ti
 
 F32 = np.float32
@@ -243,8 +244,9 @@ def build_poly_echo_performance(
 ):
     """Host: (Performance, total frames) of num_voices NiceInstrument
     voices -> mono mix -> StereoEchoes, stereo."""
-    parts, sr, kw = poly_echo_build(num_voices, seconds, sample_rate, main_delay, seed)
-    return Performance(parts, sr, **kw), int(seconds * sample_rate)
+    with span("plan"):
+        parts, sr, kw = poly_echo_build(num_voices, seconds, sample_rate, main_delay, seed)
+        return Performance(parts, sr, **kw), int(seconds * sample_rate)
 
 
 def build_config(name: str, seconds: Optional[float] = None, voices: int = 1024):

@@ -47,6 +47,7 @@ from ..device import require_device
 from ..graph.render import RenderCtx, _map_arrays, _to_device
 from ..ops.scan import U32
 from ..ops.segprog import SegProgram
+from ..trace import count, span
 from . import keyboard, liveplan
 
 PARAMS = "__params__"  # a part window's live-parameter vector [P]
@@ -170,6 +171,7 @@ class BlockPack:
                                      f"{a.shape}, the pack's layout {dtype} {shape}")
                 host[lane, off:off + size] = np.ascontiguousarray(a).reshape(-1).view(
                     np.int32)
+        count("h2d.copies")
         if self.device.type == "cuda":
             dev = buf.to(self.device, non_blocking=True)
             ev = torch.cuda.Event()
@@ -740,22 +742,25 @@ class LiveSession:
     def render_block_async(self) -> torch.Tensor:
         """Render the next block and return it on the device, [num_channels,
         block_size] f32, without waiting for it."""
-        f0, f1 = self._host_block()
-        windows = self._grown_window_progs(f0, f1)
-        self._ensure_states()
-        pack = self.pack_for([windows], 1)
-        dev = pack.upload([f0], [windows])
-        with card_context(self.device):
-            states, posts, out = render_lanes(
-                [p.instrument for p in self.parts], [p.polyphony for p in self.parts],
-                [p.dev_state for p in self.parts], [self.post_state], dev, [f0],
-                windows, sample_rate=self.sample_rate, block_size=self.block_size,
-                num_channels=self.num_channels, post_fn=self.post_fn, device=self.device)
-        for p, st in zip(self.parts, states):
-            p.dev_state = st
-        self.post_state = posts[0]
-        self.frame = f1
-        return out[0]
+        with span("block"):
+            with span("block.windows"):
+                f0, f1 = self._host_block()
+                windows = self._grown_window_progs(f0, f1)
+            self._ensure_states()
+            with span("block.pack"):
+                dev = self.pack_for([windows], 1).upload([f0], [windows])
+            with span("block.launch"), card_context(self.device):
+                states, posts, out = render_lanes(
+                    [p.instrument for p in self.parts], [p.polyphony for p in self.parts],
+                    [p.dev_state for p in self.parts], [self.post_state], dev, [f0],
+                    windows, sample_rate=self.sample_rate, block_size=self.block_size,
+                    num_channels=self.num_channels, post_fn=self.post_fn,
+                    device=self.device)
+            for p, st in zip(self.parts, states):
+                p.dev_state = st
+            self.post_state = posts[0]
+            self.frame = f1
+            return out[0]
 
     def render_block(self) -> np.ndarray:
         """Render the next block; returns f32 [num_channels, block_size]."""

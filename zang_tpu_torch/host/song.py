@@ -25,6 +25,7 @@ from ..graph.render import Performance, render_performance
 from ..oracle import engine as oe
 from ..oracle import instruments as oi
 from ..parallel.mesh import pad_timelines
+from ..trace import span
 from . import instruments as ti
 
 F32 = np.float32
@@ -100,7 +101,8 @@ def song_parts(total_frames: int, song=None, multiple: int = 1,
 
 def build_performance(total_frames: int, song=None) -> Performance:
     """Host: timelines and plans of the song over [0, total_frames)."""
-    return Performance(song_parts(total_frames, song), SAMPLE_RATE)
+    with span("plan"):
+        return Performance(song_parts(total_frames, song), SAMPLE_RATE)
 
 
 def song_build(total_frames: int, multiple: int = 1, three_part: bool = False):

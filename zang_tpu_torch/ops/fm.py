@@ -13,9 +13,9 @@ a nonlinear per-sample recurrence, so no scan applies.
   launches the hand-written kernel csrc/fm_feedback.cu (a chain lane a voice walking
   time in order, fed from shared memory by a copy warp; the counterpart of
   zang_tpu/ops/pallas_fm.py), built at first use (ops/_build.py), with no
-  fallback; fm_feedback_launches counts the launches. For a CPU tensor, or
-  a base of any other rank, it is fm_feedback_ref, the plain sequential
-  loop of zang_tpu/ops/fm.py:99-107.
+  fallback; the counter "launch.fm_feedback" (trace.counters()) counts the
+  launches. For a CPU tensor, or a base of any other rank, it is
+  fm_feedback_ref, the plain sequential loop of zang_tpu/ops/fm.py:99-107.
 
 feedback is a number or an f32 tensor broadcastable to the voices, and
 waveform an int or an int32 tensor broadcastable to the voices, as the TPU
@@ -26,21 +26,18 @@ each lane with its own waveform, runs in one launch.
 """
 
 import ctypes
-import threading
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..trace import count
 from . import _build
 from .oscillators import _advance
 from .scan import F32, as_f32, freq_to_ifreq, utof23
 
 Tensor = torch.Tensor
 PI = 3.14159265358979323846  # rounded to f32 where used
-
-_count_lock = threading.Lock()  # the counts below are read across threads
-fm_feedback_launches = 0
 
 _C = ctypes.c_void_p
 
@@ -113,7 +110,6 @@ def fm_feedback_cuda(base: Tensor, feedback: Union[Number, Tensor],
     element is read for all); fb1/fb2 f32 [V]. Any V and any n >= 1.
     Nothing is copied between host and card. Returns (out [V, n], fb1',
     fb2')."""
-    global fm_feedback_launches
     dev = base.device
     if dev.type != "cuda":
         raise ValueError(f"fm_feedback_cuda needs CUDA tensors, got base on {dev}")
@@ -161,8 +157,7 @@ def fm_feedback_cuda(base: Tensor, feedback: Union[Number, Tensor],
                                     stream)
     if err != 0:
         raise RuntimeError(f"fm_feedback kernel launch failed: cudaError_t {err}")
-    with _count_lock:  # worker threads launch too
-        fm_feedback_launches += 1
+    count("launch.fm_feedback")
     return out, f1, f2
 
 

@@ -16,21 +16,18 @@ wrap around it in zang_tpu/ops/sampler.py _pallas_taps).
 Each has a plain version (table_lookup_ref, sampler_taps_ref) that runs on
 any device and that the router takes for CPU tensors; for CUDA tensors it
 launches the hand-written kernel csrc/table_lookup.cu (built at first use
-by ops/_build.py), with no fallback. table_lookup_launches counts that
-kernel's launches from every entry; sampler_play_launches those of
-sampler_play_cuda alone.
+by ops/_build.py), with no fallback. The counter "launch.table_lookup"
+(trace.counters()) counts that kernel's launches from every entry;
+"launch.sampler_play" those of sampler_play_cuda alone.
 """
 
 import ctypes
-import threading
 
 import torch
 
+from ..trace import count
 from . import _build
 
-_count_lock = threading.Lock()  # the counts below are read across threads
-table_lookup_launches = 0
-sampler_play_launches = 0
 # the slots of a tile sampler_play_cuda takes: 16 bytes each in a block's 48 KB
 # of shared memory (a tile of 512 frames has at most 514)
 PLAY_MAX_SLOTS = 3072
@@ -131,7 +128,6 @@ def table_lookup_cuda(idx: torch.Tensor, sel: torch.Tensor,
                       table: torch.Tensor) -> torch.Tensor:
     """The kernel: idx int32 and sel f32 of one shape, table f32 [N], all
     contiguous on one CUDA device. Returns f32 of idx's shape."""
-    global table_lookup_launches
     d = idx.get_device()
     if not (d >= 0 and sel.get_device() == d == table.get_device()
             and idx.dtype is _I32 and sel.dtype is _F32 and table.dtype is _F32
@@ -143,8 +139,7 @@ def table_lookup_cuda(idx: torch.Tensor, sel: torch.Tensor,
     out = idx.new_empty(idx.shape, dtype=_F32)
     _launch("zt_table_lookup", d, idx.data_ptr(), sel.data_ptr(), table.data_ptr(),
             out.data_ptr(), idx.numel(), table.shape[0])
-    with _count_lock:  # worker threads launch too
-        table_lookup_launches += 1
+    count("launch.table_lookup")
     return out
 
 
@@ -153,7 +148,6 @@ def sampler_taps_cuda(idx_a: torch.Tensor, idx_b: torch.Tensor, table: torch.Ten
     """The kernel, one launch for both taps: idx_a and idx_b int32 of one
     shape, table f32 [num_samples], all contiguous on one CUDA device.
     Returns f32 [2, *idx_a.shape]."""
-    global table_lookup_launches
     d = idx_a.get_device()
     if not (d >= 0 and idx_b.get_device() == d == table.get_device()
             and idx_a.dtype is _I32 and idx_b.dtype is _I32 and table.dtype is _F32
@@ -166,8 +160,7 @@ def sampler_taps_cuda(idx_a: torch.Tensor, idx_b: torch.Tensor, table: torch.Ten
     out = idx_a.new_empty((2, *idx_a.shape), dtype=_F32)
     _launch("zt_sampler_taps", d, idx_a.data_ptr(), idx_b.data_ptr(), table.data_ptr(),
             out.data_ptr(), idx_a.numel(), num_samples, 1 if loop else 0)
-    with _count_lock:  # worker threads launch too
-        table_lookup_launches += 1
+    count("launch.table_lookup")
     return out
 
 
@@ -179,7 +172,6 @@ def sampler_play_cuda(prog: dict, t_idx: torch.Tensor, table: torch.Tensor,
     f32 [num_samples], all contiguous on one CUDA device; ratio the playback
     ratio as an f32 (passed as one). Returns f32 [V, n]: ops/sampler.py
     sampler_play_ref's bits. num_samples == 0 gives zeros, no launch."""
-    global table_lookup_launches, sampler_play_launches
     tb, t0, mode, ss = prog["tb"], prog["t0"], prog["mode"], prog["seg_start"]
     d = t_idx.get_device()
     if num_samples == 0 and d >= 0:
@@ -210,9 +202,8 @@ def sampler_play_cuda(prog: dict, t_idx: torch.Tensor, table: torch.Tensor,
     _launch("zt_sampler_play", d, tb.data_ptr(), t0.data_ptr(), mode.data_ptr(),
             ss.data_ptr(), t_idx.data_ptr(), table.data_ptr(), out.data_ptr(), V, nt, S, n,
             num_samples, ratio, 1 if loop else 0)
-    with _count_lock:  # worker threads launch too
-        table_lookup_launches += 1
-        sampler_play_launches += 1
+    count("launch.table_lookup")
+    count("launch.sampler_play")
     return out
 
 

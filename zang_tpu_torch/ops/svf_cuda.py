@@ -15,24 +15,19 @@ of its seams (_windows_emulated).
 
 Each checks device, dtype, shape and contiguity, allocates the outputs with
 torch.empty, launches on torch.cuda.current_stream() and raises if the
-launch is refused. svf_table_launches, svf_dense_launches and
-svf_onepass_launches count the launches.
+launch is refused. Each launch adds one to the counter "launch.svf_table",
+"launch.svf_dense" or "launch.svf_onepass" (trace.counters()).
 """
 
 import ctypes
 import functools
-import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..trace import count
 from . import _build
-
-_count_lock = threading.Lock()  # the counts below are read across threads
-svf_table_launches = 0
-svf_dense_launches = 0
-svf_onepass_launches = 0
 
 _C = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -192,15 +187,13 @@ def svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
     clipped here to [0, 1]); active_from: [V] i32 or None (always active);
     l0/b0: [V] f32. The shape must suit svf_table_geometry, which raises
     otherwise. Returns (l_end [V], b_end [V], out [V, n])."""
-    global svf_table_launches
     if x.device.type == "cuda" and x.data_ptr() % 16:
         raise ValueError("svf_table_cuda copies x 16 bytes at a time: x must start "
                          "on 16 bytes")
     ret = _launch_table_cut(
         "svf_table", l0, b0, x, filter_type, tb, cutv, res, t0, active_from, None,
         extra=_svf_table_launch)
-    with _count_lock:  # worker threads launch too
-        svf_table_launches += 1
+    count("launch.svf_table")
     return ret
 
 
@@ -324,7 +317,6 @@ def svf_onepass_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None
     no byte with x. n must be a multiple of 4 (render chunks are multiples
     of 512) and a time tile may have at most 4 slots; svf_table_cuda takes
     the other shapes."""
-    global svf_onepass_launches
     from .filters import ONEPASS_MAX_SLOTS
 
     if x.dim() == 2 and x.shape[1] % ONEPASS_N_MULTIPLE:
@@ -340,8 +332,7 @@ def svf_onepass_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None
                              "finished tiles over rows it has yet to read")
     ret = _launch_table_cut("svf_onepass", l0, b0, x, filter_type, tb, cutv, res, t0,
                             active_from, out)
-    with _count_lock:  # worker threads launch too
-        svf_onepass_launches += 1
+    count("launch.svf_onepass")
     return ret
 
 
@@ -418,7 +409,6 @@ def svf_dense_cuda(l0, b0, x, filter_type, cutoff, res, active=None):
     tensor broadcastable to [V, n], or None (always active). l0/b0: [V] f32.
     Any V, n >= 1 (svf_dense_geometry). Returns (l_end [V], b_end [V],
     out [V, n])."""
-    global svf_dense_launches
     from .filters import FILTER_MULS
 
     if x.device.type != "cuda":
@@ -452,8 +442,7 @@ def svf_dense_cuda(l0, b0, x, filter_type, cutoff, res, active=None):
             g.threads, shared, stream)
     if err != 0:
         raise RuntimeError(f"svf_dense kernel launch failed: cudaError_t {err}")
-    with _count_lock:  # worker threads launch too
-        svf_dense_launches += 1
+    count("launch.svf_dense")
     return l_end, b_end, out
 
 

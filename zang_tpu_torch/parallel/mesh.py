@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from .. import trace
 from ..core.timeline import SubvoiceTimeline
 from ..device import require_device
 from ..graph.render import Performance, RenderCtx, _map_arrays, _to_device
@@ -301,27 +302,21 @@ class RenderJob:
     out_path: str
 
 
-def launch_counts() -> dict:
-    """The five kernels' launch counts in this process, and under
-    "sampler_play" how many of table_lookup's came from its fused entry."""
-    from ..ops import fm, lookup, svf_cuda
+_KERNELS = ("svf_table", "svf_dense", "svf_onepass", "table_lookup", "sampler_play",
+            "fm_feedback")
 
-    return {"svf_table": svf_cuda.svf_table_launches,
-            "svf_dense": svf_cuda.svf_dense_launches,
-            "svf_onepass": svf_cuda.svf_onepass_launches,
-            "table_lookup": lookup.table_lookup_launches,
-            "sampler_play": lookup.sampler_play_launches,
-            "fm_feedback": fm.fm_feedback_launches}
+
+def launch_counts() -> dict:
+    """The five kernels' launch counts in this process (the counters
+    "launch.<kernel>" of trace.counters()), and under "sampler_play" how
+    many of table_lookup's came from its fused entry."""
+    c = trace.counters()
+    return {k: c.get("launch." + k, 0) for k in _KERNELS}
 
 
 def reset_launch_counts() -> None:
     """Set the launch counts of launch_counts() in this process to 0."""
-    from ..ops import fm, lookup, svf_cuda
-
-    svf_cuda.svf_table_launches = svf_cuda.svf_dense_launches = 0
-    svf_cuda.svf_onepass_launches = 0
-    lookup.table_lookup_launches = lookup.sampler_play_launches = 0
-    fm.fm_feedback_launches = 0
+    trace.reset_counters("launch.")
 
 
 def _render_local(perf: Performance, xs, n_chunks: int, chunk_size: int,

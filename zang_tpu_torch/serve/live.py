@@ -64,6 +64,7 @@ from ..host.live import (
     render_lanes,
     tree_map,
 )
+from ..trace import span
 
 
 def _lane_rows(tree, lane: int, voices: int):
@@ -433,26 +434,29 @@ class LiveFleet:
         """Render every lane's next block and return it on the (first) card,
         [num_lanes, num_channels, block_size], without waiting for it: every
         group is launched before any is gathered."""
-        spans, windows = self._collect_windows()
-        self._init_states()
-        ref = self.lanes[0]
-        f0s = [f0 for f0, _ in spans]
-        outs = []
-        for g, (lo, hi, dev) in enumerate(self._groups(self.num_lanes)):
-            up = self._pack(g, windows[lo:hi], dev).upload(f0s[lo:hi], windows[lo:hi])
-            with card_context(dev):
-                self._states[g], self._post_states[lo:hi], out = render_lanes(
-                    [p.instrument for p in ref.parts], [p.polyphony for p in ref.parts],
-                    self._states[g], self._post_states[lo:hi], up, f0s[lo:hi],
-                    windows[lo], sample_rate=self._sample_rate, block_size=ref.block_size,
-                    num_channels=ref.num_channels, post_fn=ref.post_fn, device=dev,
-                    pcm16_volume=self._pcm16_volume)
-            outs.append(out)
-        for s, (_f0, f1) in zip(self.lanes, spans):
-            s.frame = f1
-        if len(outs) == 1:
-            return outs[0]
-        return torch.cat([o.to(self.device, non_blocking=True) for o in outs])
+        with span("block"):
+            with span("block.windows"):
+                spans, windows = self._collect_windows()
+            self._init_states()
+            ref = self.lanes[0]
+            f0s = [f0 for f0, _ in spans]
+            outs = []
+            for g, (lo, hi, dev) in enumerate(self._groups(self.num_lanes)):
+                with span("block.pack"):
+                    up = self._pack(g, windows[lo:hi], dev).upload(f0s[lo:hi], windows[lo:hi])
+                with span("block.launch"), card_context(dev):
+                    self._states[g], self._post_states[lo:hi], out = render_lanes(
+                        [p.instrument for p in ref.parts], [p.polyphony for p in ref.parts],
+                        self._states[g], self._post_states[lo:hi], up, f0s[lo:hi],
+                        windows[lo], sample_rate=self._sample_rate,
+                        block_size=ref.block_size, num_channels=ref.num_channels,
+                        post_fn=ref.post_fn, device=dev, pcm16_volume=self._pcm16_volume)
+                outs.append(out)
+            for s, (_f0, f1) in zip(self.lanes, spans):
+                s.frame = f1
+            if len(outs) == 1:
+                return outs[0]
+            return torch.cat([o.to(self.device, non_blocking=True) for o in outs])
 
     def render_block(self) -> np.ndarray:
         """Render every lane's next block: [num_lanes, num_channels,
