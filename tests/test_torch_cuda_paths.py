@@ -14,6 +14,15 @@ launches K1 once a real chunk; the script example K2 34 times; a flat
 chunk of NiceInstrument K2 once a chunk; a sharded render at one NCCL rank
 is the one-card render's bits, at two gloo ranks on one card within
 -120 dBFS of it with K1 once a chunk on each rank.
+
+The chunk step as a CUDA graph (graph/render.GraphStep): the graphed
+render is Performance.render_chunk called in a loop, bit for bit (the
+song, the first 3 chunks of poly_echo at 4096 voices, the song at a flat
+chunk); a stream resumed from a held mid-piece state is the straight
+render; what a call returned is never overwritten by later calls; the
+kernels' launch counts are the eager render's (282 K1 for the song, 6 K3
+for poly_echo at 4096 voices x 8 s); and K1 and K3 given the chunk's first
+frame in device memory are their by-value launch bit for bit.
 """
 
 import functools
@@ -190,3 +199,155 @@ def test_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
     n_chunks = -(-SONG_TOTAL // SONG_CHUNK)
     assert [s[0]["launches"]["svf_table"] for s in stats] == [n_chunks, n_chunks]
     assert len({s[0]["digest"] for s in stats}) == 1
+
+
+# ---------------------------------------------------------------------------
+# the chunk step as a CUDA graph (graph/render.GraphStep)
+
+TEXTURE_SR = 44100.0
+
+
+def _graph_perf(name):
+    """(Performance, total frames, chunk) of a graphed render."""
+    from zang_tpu_torch.host import configs
+
+    if name == "song":
+        total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
+        return song.build_performance(total), total, 65536
+    if name == "song_flat":
+        total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
+        return song.build_performance(total), total, 65000
+    if name == "poly_echo_4096_3":  # its first 3 chunks
+        perf, total = configs.build_poly_echo_performance(
+            4096, 3 * 65536 / TEXTURE_SR, TEXTURE_SR, 15000, seed=7)
+        return perf, total, 65536
+    if name == "poly_echo_4096":
+        perf, total = configs.build_poly_echo_performance(4096, 8.0, TEXTURE_SR, 15000)
+        return perf, total, 65536
+    raise ValueError(name)
+
+
+def _eager_loop(perf, total, chunk, dev):
+    """Performance.render_chunk called in a loop: every op enqueued from
+    here, the chunk's first frame an int. Returns [C, total] on dev."""
+    xs, n_chunks = perf.chunk_xs(total, chunk)
+    static = [trender._map_arrays(p, lambda a: trender._to_device(a, dev))
+              for p in perf.programs]
+    base = torch.arange(chunk, dtype=torch.int32, device=dev)
+    state, out = perf.init_state(dev), []
+    for i in range(n_chunks):
+        c0 = i * chunk
+        progs = trender._map_arrays(xs, lambda a, i=i: trender._to_device(a[i], dev))
+        ctx = trender.RenderCtx(perf.sample_rate, base + c0, c0, chunk)
+        state, audio = perf.render_chunk(state, progs, ctx, static)
+        out.append(audio)
+    return torch.cat(out, dim=1)[:, :total]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["song", "poly_echo_4096_3", "song_flat"])
+def test_graphed_render_is_the_eager_loop(cuda_device, name):
+    from zang_tpu_torch import trace
+
+    perf, total, chunk = _graph_perf(name)
+    assert trender.capturable(perf)
+    assert isinstance(trender.make_stream_step(perf, chunk, device=cuda_device),
+                      trender.GraphStep)
+    n_chunks = -(-total // chunk)
+    before = trace.counters()
+    got = render_performance(perf, total, chunk, device=cuda_device).cpu().numpy()
+    after = trace.counters()
+    want = _eager_loop(perf, total, chunk, cuda_device).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.abs(want).max() > 1e-3
+    diff = {k: after.get(k, 0) - before.get(k, 0)
+            for k in ("graph.captures", "graph.replays", "h2d.copies", "chunks")}
+    static = sum(len(trender._leaves(p)) for p in perf.programs)
+    assert diff == {"graph.captures": 1, "graph.replays": n_chunks - 1,
+                    "h2d.copies": n_chunks + static, "chunks": n_chunks}
+
+
+@pytest.mark.cuda
+def test_stream_resumed_from_a_held_state_is_the_straight_render(cuda_device):
+    perf, total, chunk = _graph_perf("song")
+    want = render_performance(perf, total, chunk, device=cuda_device).cpu().numpy()
+    xs, n_chunks = perf.chunk_xs(total, chunk)
+    step = trender.make_stream_step(perf, chunk, device=cuda_device)
+    at = lambda i: trender._map_arrays(xs, lambda a: a[i])  # noqa: E731
+    state, k = None, 5
+    for i in range(k):
+        state, _ = step(state, i * chunk, at(i))
+    held = state
+    for i in range(k, k + 4):  # the graph's own state moves on
+        state, _ = step(state, i * chunk, at(i))
+    for fresh in (False, True):  # the same step, and a new one (a checkpoint)
+        s = trender.make_stream_step(perf, chunk, device=cuda_device) if fresh else step
+        state, got = held, []
+        for i in range(k, n_chunks):
+            state, audio = s(state, i * chunk, at(i))
+            got.append(audio)
+        got = torch.cat(got, dim=1)[:, :total - k * chunk].cpu().numpy()
+        np.testing.assert_array_equal(got, want[:, k * chunk:])
+
+
+@pytest.mark.cuda
+def test_what_a_graphed_step_returned_is_never_overwritten(cuda_device):
+    perf, total, chunk = _graph_perf("poly_echo_4096_3")
+    xs, n_chunks = perf.chunk_xs(total, chunk)
+    step = trender.make_stream_step(perf, chunk, device=cuda_device)
+    at = lambda i: trender._map_arrays(xs, lambda a: a[i])  # noqa: E731
+    state, _ = step(None, 0, at(0))
+    state, audio = step(state, chunk, at(1))  # the capture's chunk
+    leaves = trender._leaves(state, torch.Tensor)
+    kept = [t.clone() for t in leaves] + [audio.clone()]
+    step(state, 2 * chunk, at(2))  # from the state it returned
+    step(state, 2 * chunk, at(2))  # and again, the held state copied in
+    torch.cuda.synchronize()
+    for t, k in zip(leaves + [audio], kept):
+        assert torch.equal(t, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kernel,launches", [("song", "svf_table", 282),
+                                                   ("poly_echo_4096", "svf_onepass", 6)])
+def test_graphed_render_counts_every_launch(cuda_device, name, kernel, launches):
+    perf, total, chunk = _graph_perf(name)
+    before = pm.launch_counts()
+    render_performance(perf, total, chunk, device=cuda_device)
+    torch.cuda.synchronize()
+    after = pm.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: launches if k == kernel else 0 for k in after}
+
+
+def _table_case(V, n, nt, S, t0, seed=3):
+    rng = np.random.default_rng(seed)
+    T = n // nt
+    tb = np.empty((V, nt, S), np.int32)
+    tb[:, :, 0] = -(2 ** 31)
+    tb[:, :, 1:] = (np.sort(rng.integers(0, T, (V, nt, S - 1)), axis=-1)
+                    + t0 + np.arange(nt)[None, :, None] * T)
+    return (rng.standard_normal(V).astype(np.float32) * 0.1,
+            rng.standard_normal(V).astype(np.float32) * 0.1,
+            (rng.standard_normal((V, n)) * 0.3).astype(np.float32), tb,
+            rng.uniform(0.05, 0.9, (V, nt, S)).astype(np.float32),
+            rng.integers(t0, t0 + n // 2, V).astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["svf_table_cuda", "svf_onepass_cuda"])
+@pytest.mark.parametrize("shape", [(14, 65536, 128, 2), (4096, 65536, 128, 3)],
+                         ids=["song", "V4096"])
+def test_table_kernels_read_t0_from_the_card(cuda_device, kernel, shape):
+    from zang_tpu_torch.ops import svf_cuda
+
+    t0 = 37 * 65536
+    l0, b0, x, tb, cv, af = (torch.from_numpy(a).to(cuda_device)
+                             for a in _table_case(*shape, t0))
+    fn = getattr(svf_cuda, kernel)
+    by_value = fn(l0, b0, x, "low_pass", tb, cv, 0.7, t0, af)
+    on_card = torch.tensor([t0], dtype=torch.int32, device=cuda_device)
+    by_pointer = fn(l0, b0, x, "low_pass", tb, cv, 0.7, on_card, af)
+    for a, b in zip(by_value, by_pointer):
+        assert torch.equal(a, b)
+    assert float(by_value[2].abs().max()) > 1e-3

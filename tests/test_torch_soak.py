@@ -113,6 +113,6 @@ def test_cuda_test_files_collect_without_jax():
     out = proc.stdout
     assert proc.returncode == 0, out[-3000:]
     summary = out.strip().splitlines()[-1]
-    assert summary.startswith("94 skipped") and "error" not in summary, summary
+    assert summary.startswith("105 skipped") and "error" not in summary, summary
     reasons = [ln for ln in out.splitlines() if ln.startswith("SKIPPED")]
     assert reasons and all("needs an NVIDIA GPU" in ln for ln in reasons), reasons

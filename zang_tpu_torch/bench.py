@@ -84,7 +84,7 @@ from .core import native
 from .core.mixdown import mixdown_s16
 from .device import require_device
 from .graph.fidelity import deviation_dbfs
-from .graph.render import _map_arrays, _to_device, make_stream_step
+from .graph.render import _leaves, _map_arrays, _to_device, make_stream_step
 from .host import configs
 from .host import instruments as ti
 from .host import song as sm
@@ -159,16 +159,6 @@ def prepare(perf, total: int, chunk: int, dev):
         return out[:, :total]
 
     return run, dict(slice_s=slice_s, upload_s=upload_s, xs_bytes=nbytes)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def steady_rtf(label, build, seconds, chunk, dev, volume=None):

@@ -321,9 +321,11 @@ svf_onepass_kernel(const float* x, const int32_t* __restrict__ tb,
                    const float* __restrict__ cv, const int32_t* __restrict__ af,
                    const float* __restrict__ l0, const float* __restrict__ b0,
                    float* out, float* __restrict__ l_end, float* __restrict__ b_end,
-                   int V, int n, int nt, int t0, float res, float lm, float bm, float hm) {
+                   int V, int n, int nt, int t0, const int32_t* __restrict__ t0p, float res,
+                   float lm, float bm, float hm) {
   if (threadIdx.x < kWarp) {
-    chain_warp<kS>(tb, cv, af, l0, b0, l_end, b_end, V, n, nt, t0, Svf{res, lm, bm, hm});
+    chain_warp<kS>(tb, cv, af, l0, b0, l_end, b_end, V, n, nt,
+                   t0p == nullptr ? t0 : *t0p, Svf{res, lm, bm, hm});
     return;
   }
   const int lane = threadIdx.x % kWarp;
@@ -357,7 +359,7 @@ svf_onepass_kernel(const float* x, const int32_t* __restrict__ tb,
 
 using Kernel = void (*)(const float*, const int32_t*, const float*, const int32_t*,
                         const float*, const float*, float*, float*, float*, int, int, int,
-                        int, float, float, float, float);
+                        int, const int32_t*, float, float, float, float);
 static_assert(kRegSlots == 4, "one instance a slot count");
 const Kernel kKernels[kRegSlots] = {svf_onepass_kernel<1>, svf_onepass_kernel<2>,
                                         svf_onepass_kernel<3>, svf_onepass_kernel<4>};
@@ -387,14 +389,16 @@ cudaError_t set_attributes() {
 // C interface, loaded with ctypes (zang_tpu_torch/ops/svf_cuda.py). All
 // arrays are contiguous device memory on 16 bytes: x, out [V, n] (out is x
 // or apart from it); tb, cv [V, nt, S]; af, l0, b0, l_end, b_end [V].
-// n % nt == 0, n % 4 == 0, 1 <= S <= kRegSlots. Returns the launch's
-// cudaError_t (0 = launched), or that of setting the kernel's shared
-// memory preference; another shape is refused as an invalid value.
+// n % nt == 0, n % 4 == 0, 1 <= S <= kRegSlots. t0p: the chunk's first
+// frame (int32 [1], read once a block, so that a captured CUDA graph
+// launches each replay at that replay's frame), or null for t0. Returns
+// the launch's cudaError_t (0 = launched), or that of setting the kernel's
+// shared memory preference; another shape is refused as an invalid value.
 extern "C" int zt_svf_onepass(const float* x, const int32_t* tb, const float* cv,
                               const int32_t* af, const float* l0, const float* b0,
                               float* out, float* l_end, float* b_end, int V, int n,
-                              int nt, int S, int t0, float res, float lm, float bm,
-                              float hm, void* stream) {
+                              int nt, int S, int t0, const int32_t* t0p, float res,
+                              float lm, float bm, float hm, void* stream) {
   if (n % 4 || S < 1 || S > kRegSlots ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -403,6 +407,6 @@ extern "C" int zt_svf_onepass(const float* x, const int32_t* tb, const float* cv
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (V + kWarp - 1) / kWarp;
   kKernels[S - 1]<<<blocks, kThreads, kShared, static_cast<cudaStream_t>(stream)>>>(
-      x, tb, cv, af, l0, b0, out, l_end, b_end, V, n, nt, t0, res, lm, bm, hm);
+      x, tb, cv, af, l0, b0, out, l_end, b_end, V, n, nt, t0, t0p, res, lm, bm, hm);
   return static_cast<int>(cudaGetLastError());
 }

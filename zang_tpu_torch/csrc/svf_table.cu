@@ -26,6 +26,9 @@
 //     and then only moves forward when t reaches the next boundary or a tile
 //     edge (a run may straddle tiles: any tile n / nt, any S).
 //   - Activity is t >= af[v]: a compare a frame.
+//   - The chunk's first frame t0 comes by value, or from device memory
+//     (t0p, a one-element int32 read once a block), so that a captured CUDA
+//     graph launches each replay at that replay's frame (graph/render.py).
 //
 // The run seams differ from the plain version's scan, so the output is held
 // to it within -120 dBFS and the end state within 1e-5, not to the bit.
@@ -118,13 +121,14 @@ svf_table_kernel(const float* __restrict__ x, const int32_t* __restrict__ tb,
                  const float* __restrict__ l0, const float* __restrict__ b0,
                  float* __restrict__ out, float* __restrict__ l_end,
                  float* __restrict__ b_end, int n, int nt, int S, int rounds, int t0,
-                 float res, float lm, float bm, float hm) {
+                 const int32_t* __restrict__ t0p, float res, float lm, float bm, float hm) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int c = static_cast<int>(cooperative_groups::this_cluster().num_blocks());
   const int v = blockIdx.x / c;
   const int W = n / (c * rounds);
   const size_t row = static_cast<size_t>(v) * nt * S;
-  TableSrc src = {tb + row, cv + row, W, S, n / nt, t0, af[v], 0, 0};
+  const int first_frame = t0p == nullptr ? t0 : *t0p;
+  TableSrc src = {tb + row, cv + row, W, S, n / nt, first_frame, af[v], 0, 0};
   svf_windows(src, x + static_cast<size_t>(v) * n, out + static_cast<size_t>(v) * n,
               l0[v], b0[v], l_end + v, b_end + v, n, W, rounds, true, res, lm, bm, hm,
               smem);
@@ -134,7 +138,8 @@ svf_table_kernel(const float* __restrict__ x, const int32_t* __restrict__ tb,
 
 // C interface, loaded with ctypes (zang_tpu_torch/ops/svf_cuda.py). All
 // arrays are contiguous device memory: x, out [V, n] (on 16 bytes); tb, cv
-// [V, nt, S]; af, l0, b0, l_end, b_end [V]. The launch geometry is
+// [V, nt, S]; af, l0, b0, l_end, b_end [V]; t0p: the chunk's first frame
+// (int32 [1]), or null for t0. The launch geometry is
 // svf_table_geometry's: `cluster` blocks a voice, `rounds` windows a block,
 // `threads` a block and `shared` bytes of dynamic shared memory; it is only
 // checked here (whole runs and warps, the limits, room for the window and
@@ -143,9 +148,9 @@ svf_table_kernel(const float* __restrict__ x, const int32_t* __restrict__ tb,
 extern "C" int zt_svf_table(const float* x, const int32_t* tb, const float* cv,
                             const int32_t* af, const float* l0, const float* b0,
                             float* out, float* l_end, float* b_end, int V, int n,
-                            int nt, int S, int t0, float res, float lm, float bm,
-                            float hm, int cluster, int rounds, int threads, int shared,
-                            void* stream) {
+                            int nt, int S, int t0, const int32_t* t0p, float res,
+                            float lm, float bm, float hm, int cluster, int rounds,
+                            int threads, int shared, void* stream) {
   if (V < 1 || nt < 1 || S < 1 || cluster < 1 || cluster > kMaxCluster || rounds < 1 ||
       n % nt || n % (cluster * rounds * kRun) ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16) {
@@ -164,5 +169,5 @@ extern "C" int zt_svf_table(const float* x, const int32_t* tb, const float* cv,
   return static_cast<int>(launch_windows(svf_table_kernel, V, cluster, threads, shared,
                                          &shared_set, static_cast<cudaStream_t>(stream),
                                          x, tb, cv, af, l0, b0, out, l_end, b_end, n, nt,
-                                         S, rounds, t0, res, lm, bm, hm));
+                                         S, rounds, t0, t0p, res, lm, bm, hm));
 }

@@ -19,17 +19,24 @@ An Instrument provides:
       {"starts": [V, Kc], name: [V, Kc]}. audio is [V, n] (voices summed
       into the mono mix), or [C, n] pre-mixed when the instrument has
       `output_channels`.
+  capturable (class attribute, optional): render() enqueues device work
+      alone (no copy from the host, no wait on the device) and takes ctx.t0
+      as an int32 [1] tensor on the device as well as an int. A post_fn
+      declares it as an attribute of the function. On the card, the step of
+      a Performance whose parts and post chain all capture runs each chunk
+      after its first two as one replay of a CUDA graph (make_stream_step).
 """
 
+import threading
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import require_device
 from ..ops.segprog import SegProgram, chunkify, chunkify_tiled
-from ..trace import count, span
+from ..trace import capture_counts, count, span
 
 TILE = 512
 
@@ -38,7 +45,7 @@ TILE = 512
 class RenderCtx:
     sample_rate: float
     t_idx: torch.Tensor  # int32 [n] absolute frame indices of this chunk
-    t0: int  # t_idx[0]
+    t0: Union[int, torch.Tensor]  # t_idx[0]; int32 [1] on the card in a graph
     n: int  # chunk length
 
 
@@ -164,19 +171,123 @@ class Performance:
         return (new_states, post_state), out
 
 
-def _map_arrays(tree, fn):
-    if isinstance(tree, np.ndarray):
+def _map_arrays(tree, fn, leaf=np.ndarray):
+    """tree with fn applied to each leaf (an instance of `leaf`)."""
+    if isinstance(tree, leaf):
         return fn(tree)
     if isinstance(tree, dict):
-        return {k: _map_arrays(v, fn) for k, v in tree.items()}
+        return {k: _map_arrays(v, fn, leaf) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_arrays(v, fn) for v in tree)
+        return type(tree)(_map_arrays(v, fn, leaf) for v in tree)
     return tree
+
+
+def _leaves(tree, leaf=(np.ndarray, torch.Tensor)) -> list:
+    """The leaves of tree in _map_arrays' order."""
+    out = []
+    _map_arrays(tree, out.append, leaf)
+    return out
+
+
+def _copy_tree(dst, src) -> None:
+    """Copy every tensor of src into the tensor at the same place in dst."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k, v in dst.items():
+            _copy_tree(v, src[k])
+    elif isinstance(dst, (list, tuple)):
+        if len(dst) != len(src):
+            raise ValueError("a state's structure changed from one chunk to the next")
+        for d, x in zip(dst, src):
+            _copy_tree(d, x)
+
+
+def capturable(perf: Performance) -> bool:
+    """Whether every part's instrument and the post chain of perf declare
+    `capturable` (see the module's docstring)."""
+    return (all(getattr(inst, "capturable", False) for inst, _ in perf.parts)
+            and (perf.post_fn is None or getattr(perf.post_fn, "capturable", False)))
+
+
+ALIGN = 16  # bytes: every array of a packed chunk starts on a multiple
+_DTYPES = {np.dtype(np.uint32): torch.int64}  # numpy -> the device's (u32 rides int64)
+
+
+def _device_dtype(a) -> torch.dtype:
+    """The dtype an array of a chunk has on the device."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype
+    d = _DTYPES.get(a.dtype)
+    if d is None:
+        d = _DTYPES[a.dtype] = torch.from_numpy(np.empty(0, a.dtype)).dtype
+    return d
+
+
+class ChunkLayout:
+    """One packed buffer for a chunk's inputs: the chunk's first frame
+    (int32) at byte 0, then each array of its slice of perf.chunk_xs, as
+    the device holds it, at the next multiple of ALIGN bytes. pack() writes
+    a chunk into host views of such a buffer; views() reads a buffer (on
+    any device) back as arrays, tree() puts them in the slice's places. A
+    chunk takes the layout when key_of(its leaves) equals .key."""
+
+    def __init__(self, xs_chunk) -> None:
+        self.places = []  # (byte offset, shape, device dtype) a leaf
+        off = ALIGN
+
+        def place(a):
+            nonlocal off
+            dtype = _device_dtype(a)
+            self.places.append((off, tuple(a.shape), dtype))
+            size = int(np.prod(a.shape, dtype=np.int64)) * dtype.itemsize
+            off += -(-size // ALIGN) * ALIGN
+            return len(self.places) - 1
+
+        self.template = _map_arrays(xs_chunk, place, (np.ndarray, torch.Tensor))
+        self.nbytes = off
+        self.key = tuple((shape, dtype) for _, shape, dtype in self.places)
+
+    @staticmethod
+    def key_of(leaves) -> tuple:
+        return tuple((tuple(a.shape), _device_dtype(a)) for a in leaves)
+
+    def views(self, buf: torch.Tensor):
+        """(the first frame int32 [1], [each leaf]) as views of the byte
+        tensor buf."""
+        return buf[:4].view(torch.int32), [
+            buf[off:off + int(np.prod(shape, dtype=np.int64)) * dtype.itemsize]
+            .view(dtype).view(shape) for off, shape, dtype in self.places]
+
+    def host_views(self, buf: torch.Tensor):
+        """views() of a host buffer, as numpy arrays."""
+        c0, leaves = self.views(buf)
+        return c0.numpy(), [v.numpy() for v in leaves]
+
+    def pack(self, host_views, c0: int, leaves) -> list:
+        """Write c0 and the chunk's arrays into host_views (of host_views());
+        returns [(index, tensor)] of the leaves already on a device, which
+        the caller copies into the device buffer's views itself."""
+        hc0, hv = host_views
+        hc0[0] = c0
+        on_device = []
+        for i, (a, v) in enumerate(zip(leaves, hv)):
+            if isinstance(a, torch.Tensor):
+                if a.device.type != "cpu":
+                    on_device.append((i, a))
+                    continue
+                a = a.numpy()
+            np.copyto(v, a, casting="safe")
+        return on_device
+
+    def tree(self, leaves):
+        """The chunk's slice, `leaves` (of views()) in its arrays' places."""
+        return _map_arrays(self.template, lambda i: leaves[i], int)
 
 
 def make_stream_step(perf: Performance, chunk_size: int = 65536, *, device="cuda"):
     """One chunk's render of `perf` on `device` (the card unless the caller
-    asks for the CPU), as a plain function
+    asks for the CPU), as a callable
 
         step(state, c0, xs_chunk, programs=None) -> (state', audio [C, chunk_size])
 
@@ -187,7 +298,12 @@ def make_stream_step(perf: Performance, chunk_size: int = 65536, *, device="cuda
     streams of the same perf. programs, if given, replaces them: the static
     programs, already on the device, of another Performance with the same
     instruments, voice counts and post chain (serve/batch.py shares one step
-    among such songs)."""
+    among such songs).
+
+    On the card, when every part and the post chain are `capturable`, the
+    step is a GraphStep: the same bits, each chunk after its first two one
+    replay of a CUDA graph fed by one packed upload. Otherwise, and for a
+    call with programs, every op is enqueued from here (eager)."""
     dev = require_device(device)
     static = [_map_arrays(p, lambda a: _to_device(a, dev)) for p in perf.programs]
     base = torch.arange(chunk_size, dtype=torch.int32, device=dev)
@@ -203,7 +319,117 @@ def make_stream_step(perf: Performance, chunk_size: int = 65536, *, device="cuda
             return perf.render_chunk(state, chunk_progs, ctx,
                                      static if programs is None else programs)
 
+    if dev.type == "cuda" and capturable(perf):
+        return GraphStep(perf, chunk_size, dev, static, base, step)
     return step
+
+
+class GraphStep:
+    """make_stream_step's step on the card for a Performance whose parts and
+    post chain capture: the eager step's bits, each chunk's host work one
+    packed upload and one CUDA graph replay.
+
+    Every call packs the chunk's first frame and slices into a pinned host
+    buffer (two, taken in turns, each reused only once its last copy is
+    done) and copies it to the device in one copy_. The first call of a
+    chunk shape renders eagerly from views of that device buffer (it warms
+    the kernels up, and a traced job keeps one real SVF call); the second
+    captures render_chunk on views of it, its state in buffers of the step
+    that the graph writes the new state back into, and replays; every later
+    call replays. Each call returns copies of the audio and the state, so a
+    later call never overwrites what an earlier one returned; a state other
+    than the one the last call returned is copied in first. A call with
+    programs takes the eager step. The step is locked a call, so threads
+    may share it."""
+
+    def __init__(self, perf, chunk_size, dev, static, base, eager) -> None:
+        self.perf, self.n, self.dev = perf, chunk_size, dev
+        self.static, self.base, self.eager = static, base, eager
+        self.layout = None
+        self.lock = threading.Lock()
+        self.stream = None  # the stream of the last call
+
+    def __call__(self, state, c0: int, xs_chunk, programs=None):
+        if programs is not None:
+            return self.eager(state, c0, xs_chunk, programs)
+        with self.lock:
+            count("chunks")
+            with span("chunk"):
+                cur = torch.cuda.current_stream(self.dev)
+                if self.stream is not None and self.stream != cur:
+                    cur.wait_stream(self.stream)
+                self.stream = cur
+                if state is None:
+                    state = self.perf.init_state(self.dev)
+                leaves = _leaves(xs_chunk)
+                if self.layout is None or ChunkLayout.key_of(leaves) != self.layout.key:
+                    self._new_layout(xs_chunk)
+                with span("chunk.upload"):
+                    self._upload(c0, leaves)
+                if self.graph is not None:
+                    return self._replay(state)
+                if self.warm:
+                    self._capture(state)
+                    return self._replay(state)
+                self.warm = True
+                ctx = RenderCtx(self.perf.sample_rate, self.base + c0, c0, self.n)
+                return self.perf.render_chunk(state, self.xs, ctx, self.static)
+
+    def _new_layout(self, xs_chunk) -> None:
+        lay = self.layout = ChunkLayout(xs_chunk)
+        self.buf = torch.empty((lay.nbytes,), dtype=torch.uint8, device=self.dev)
+        self.c0, self.buf_views = lay.views(self.buf)
+        self.xs = lay.tree(self.buf_views)
+        self.staging = [torch.empty((lay.nbytes,), dtype=torch.uint8, pin_memory=True)
+                        for _ in range(2)]
+        self.host = [lay.host_views(b) for b in self.staging]
+        self.copied = [torch.cuda.Event(), torch.cuda.Event()]  # each one's last copy
+        self.turn = 0
+        self.graph = self.out = self.returned = None  # empty_cache may free the old pool
+        self.warm = False
+
+    def _upload(self, c0: int, leaves) -> None:
+        k, self.turn = self.turn, self.turn ^ 1
+        self.copied[k].synchronize()
+        on_device = self.layout.pack(self.host[k], c0, leaves)
+        self.buf.copy_(self.staging[k], non_blocking=True)
+        count("h2d.copies")
+        self.copied[k].record()
+        for i, a in on_device:
+            self.buf_views[i].copy_(a)
+
+    def _capture(self, state) -> None:
+        self.state = _map_arrays(state, torch.empty_like, torch.Tensor)  # _replay fills it
+        # The memory pools of graphs that have died are freed by empty_cache
+        # alone (an allocation that fails while a graph is captured frees no
+        # cached block): free them before this graph takes room of its own.
+        torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(self.stream)
+        with torch.cuda.stream(side), capture_counts() as launches:
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                ctx = RenderCtx(self.perf.sample_rate, self.base + self.c0, self.c0, self.n)
+                new_state, self.out = self.perf.render_chunk(self.state, self.xs, ctx,
+                                                             self.static)
+                _copy_tree(self.state, new_state)
+            finally:
+                graph.capture_end()
+        self.stream.wait_stream(side)
+        self.graph, self.launches = graph, launches
+        count("graph.captures")
+
+    def _replay(self, state):
+        if state is not self.returned:
+            _copy_tree(self.state, state)
+        with span("chunk.replay"):
+            self.graph.replay()
+        count("graph.replays")
+        for name, n in self.launches.items():
+            count(name, n)
+        self.returned = _map_arrays(self.state, torch.Tensor.clone, torch.Tensor)
+        return self.returned, self.out.clone()
 
 
 def _chunks(perf: Performance, total_frames: int, chunk_size: int, step, state):

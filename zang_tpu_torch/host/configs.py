@@ -207,6 +207,8 @@ def poly_echo_post(num_voices: int, main_delay: int):
     def post_fn(state, mix, ctx):
         return d_ops.stereo_echoes(state, mix * scale, 0.6, 0.7)
 
+    post_fn.capturable = True  # device work alone (graph/render.py)
+
     def post_init(device):
         return d_ops.stereo_echoes_init(main_delay, device)
 

@@ -15,6 +15,10 @@ arrive as an f32 tensor on the card, a row a voice [V, P].
 lane_foldable: render() takes ctx.t_idx as [V, n] rows as well as [n]
 (ops/scan.t_rows), so a LiveFleet renders all its lanes of this instrument
 as one [L * V, n] pass (serve/live.py).
+
+capturable: render() enqueues device work alone and takes ctx.t0 as an
+int32 [1] tensor on the card, so a chunk step of such parts is captured as
+a CUDA graph (graph/render.py).
 """
 
 from typing import Dict, List
@@ -139,6 +143,7 @@ class PMOscInstrument:
                               _cubed_adsr(self.release_duration), prog)
 
     lane_foldable = True
+    capturable = True
 
     def live_planner(self, polyphony: int, sample_rate: float):
         return _live_env_kit(polyphony, sample_rate, self.freq_fn,
@@ -197,6 +202,7 @@ class NiceInstrument:
         }
 
     lane_foldable = True
+    capturable = True
 
     def live_planner(self, polyphony: int, sample_rate: float):
         f = F32
@@ -228,9 +234,19 @@ class NiceInstrument:
         act = t_rows(t) >= prog["active_from"][voices, None]
         color = self.color
         if np.ndim(color) == 1:  # per-voice -> broadcast over samples
-            color = torch.as_tensor(np.asarray(color, F32)[voices],
-                                    device=cnt.device)[:, None]
+            color = self._device_color(cnt.device)[voices, None]
         return oscillators.pulse_wave(cnt, ifreq, color, valid & act) * 0.5
+
+    def _device_color(self, device):
+        """The per-voice color [V] f32 on `device`, copied there once a device
+        and kept (a copy a chunk could not be captured: graph/render.py). A
+        copy of the instrument given another color array makes its own."""
+        cache = self.__dict__.setdefault("_colors", {})
+        hit = cache.get(device)
+        if hit is None or hit[0] is not self.color:
+            hit = cache[device] = (self.color, torch.as_tensor(np.asarray(self.color, F32),
+                                                               device=device))
+        return hit[1]
 
     def render(self, state, prog, ctx):
         phase = prog["phase"]

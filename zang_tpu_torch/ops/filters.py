@@ -146,6 +146,14 @@ def svf_filter(
     return svf_filter_ref(l0, b0, x, filter_type, cutoff, res, active, muls)
 
 
+def chunk_frames(t0, n: int, device) -> Tensor:
+    """The frames t0 .. t0 + n - 1 as int32 [n] on device; t0 an int, or an
+    int32 [1] tensor on device (read there, so a CUDA graph may capture
+    this)."""
+    frames = torch.arange(n, dtype=torch.int32, device=device)
+    return frames + (t0 if isinstance(t0, Tensor) else int(t0))
+
+
 def svf_filter_table_ref(
     l0: Tensor,
     b0: Tensor,
@@ -162,8 +170,7 @@ def svf_filter_table_ref(
     evaluate the table into a [V, n] cutoff and run svf_filter_ref (never
     the router, so the plain comparison on the card launches no kernel).
     It returns a tensor of its own and leaves x as it was, donated or not."""
-    n = x.shape[1]
-    t_idx = int(t0) + torch.arange(n, dtype=torch.int32, device=x.device)
+    t_idx = chunk_frames(t0, x.shape[1], x.device)
     cut = eval_tiled_chunk({"tb": tb, "cut": cutv}, t_idx)["cut"]
     act = None
     if active_from is not None:
@@ -189,7 +196,7 @@ def svf_onepass_table_ref(
     a sample."""
     l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
     n = x.shape[1]
-    t_idx = int(t0) + torch.arange(n, dtype=torch.int32, device=x.device)
+    t_idx = chunk_frames(t0, n, x.device)
     cut = eval_tiled_chunk({"tb": tb, "cut": torch.clamp(cutv, 0.0, 1.0)}, t_idx)["cut"]
     r = 1.0 - torch.clamp(as_f32(res, x), 0.0, 1.0)
     xt, cut = x.t().contiguous(), cut.t().contiguous()  # [n, V]: a row a sample
@@ -232,7 +239,8 @@ def svf_filter_table(
     tables instead of a [V, n] array.
 
     x: [V, n] f32; tb/cutv: [V, nt, S] absolute boundary frames (slot 0
-    always active) and raw cutoff per slot; t0: absolute frame of x[:, 0];
+    always active) and raw cutoff per slot; t0: absolute frame of x[:, 0],
+    an int or an int32 [1] tensor on x's device (the kernels read it there);
     active_from: [V] first-active frame. donate_x: the caller has no further
     use for x, so the output may be written over it (the one-pass kernel
     then filters in place; the other paths return a tensor of their own

@@ -18,7 +18,11 @@ F32 = torch.float32
 
 
 def as_f32(x, like: torch.Tensor) -> torch.Tensor:
-    """A Python number or tensor as an f32 tensor on like's device."""
+    """A Python number or tensor as an f32 tensor on like's device. A
+    number is filled in on the device (no copy from the host, so a CUDA
+    graph can capture it), rounded to f32 as a copy would round it."""
+    if isinstance(x, (int, float, np.integer, np.floating)):
+        return torch.full((), float(np.float32(x)), dtype=F32, device=like.device)
     return torch.as_tensor(x, dtype=F32, device=like.device)
 
 

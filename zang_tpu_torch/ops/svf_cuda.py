@@ -35,9 +35,9 @@ _I64 = ctypes.c_longlong
 
 # source stem -> its C function and argument types
 _ARGTYPES = {
-    "svf_table": [_C] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [ctypes.c_int] * 4
-    + [_C],
-    "svf_onepass": [_C] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [_C],
+    "svf_table": [_C] * 9 + [ctypes.c_int] * 5 + [_C] + [ctypes.c_float] * 4
+    + [ctypes.c_int] * 4 + [_C],
+    "svf_onepass": [_C] * 9 + [ctypes.c_int] * 5 + [_C] + [ctypes.c_float] * 4 + [_C],
     "svf_dense": [_C] * 8 + [ctypes.c_int] * 2 + [_I64] * 4 + [ctypes.c_float] * 5
     + [ctypes.c_int] * 5 + [_C],
 }
@@ -87,6 +87,10 @@ def _launch_table_cut(stem, l0, b0, x, filter_type, tb, cutv, res, t0, active_fr
         raise ValueError(f"chunk of {n} frames does not split into {nt} tiles")
     extra_args = extra(V, n, nt, S)
     dev = x.device
+    t0p = None
+    if isinstance(t0, torch.Tensor):  # read on the card (a captured graph's chunk)
+        _check("t0", t0, torch.int32, (1,), dev)
+        t0p, t0 = t0, 0
     cv = torch.clamp(cutv, 0.0, 1.0).contiguous()
     if active_from is None:
         active_from = torch.full((V,), -(2 ** 31), dtype=torch.int32, device=dev)
@@ -112,8 +116,8 @@ def _launch_table_cut(stem, l0, b0, x, filter_type, tb, cutv, res, t0, active_fr
         err = _fn(stem)(
             x.data_ptr(), tb.data_ptr(), cv.data_ptr(), active_from.data_ptr(),
             l0.data_ptr(), b0.data_ptr(), out.data_ptr(), l_end.data_ptr(),
-            b_end.data_ptr(), V, n, nt, S, int(t0), float(r), l_mul, b_mul,
-            h_mul, *extra_args, stream)
+            b_end.data_ptr(), V, n, nt, S, int(t0), None if t0p is None else t0p.data_ptr(),
+            float(r), l_mul, b_mul, h_mul, *extra_args, stream)
     if err != 0:
         raise RuntimeError(f"{stem} kernel launch failed: cudaError_t {err}")
     return l_end, b_end, out
@@ -185,7 +189,9 @@ def svf_table_cuda(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=None):
 
     x: [V, n] f32 on 16 bytes; tb: [V, nt, S] i32; cutv: [V, nt, S] f32 (raw,
     clipped here to [0, 1]); active_from: [V] i32 or None (always active);
-    l0/b0: [V] f32. The shape must suit svf_table_geometry, which raises
+    l0/b0: [V] f32; t0: an int (passed by value) or an int32 [1] tensor on
+    x's device (passed by pointer and read on the card, as a captured CUDA
+    graph needs: graph/render.py). The shape must suit svf_table_geometry, which raises
     otherwise. Returns (l_end [V], b_end [V], out [V, n])."""
     if x.device.type == "cuda" and x.data_ptr() % 16:
         raise ValueError("svf_table_cuda copies x 16 bytes at a time: x must start "
@@ -290,12 +296,13 @@ def svf_table_emulated(l0, b0, x, filter_type, tb, cutv, res, t0, active_from=No
     (_windows_emulated at svf_table_geometry's windows). The cutoff of each
     sample is eval_tiled_chunk's, the rule the kernel's slot pointer
     follows."""
+    from .filters import chunk_frames
     from .segprog import eval_tiled_chunk
 
     V, n = x.shape
     _, nt, S = tb.shape
     g = svf_table_geometry(V, n, nt, S)
-    t_idx = int(t0) + torch.arange(n, dtype=torch.int32, device=x.device)
+    t_idx = chunk_frames(t0, n, x.device)
     cut = eval_tiled_chunk({"tb": tb, "cut": torch.clamp(cutv, 0.0, 1.0)}, t_idx)["cut"]
     act = torch.ones((V, n), dtype=torch.bool, device=x.device) if active_from is None \
         else t_idx[None, :] >= active_from.to(torch.int32)[:, None]

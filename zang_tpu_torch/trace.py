@@ -23,15 +23,20 @@ clears them.
 
 Counters. count(name, n) adds to a plain dict of ints, always on (a dict
 add a call): "h2d.copies" (each host-to-device copy of a chunk's or a
-block's inputs), "chunks" (each chunk step) and "launch.<kernel>" (each
-launch of a hand-written kernel; parallel/mesh.launch_counts reads them).
+block's inputs), "chunks" (each chunk step), "launch.<kernel>" (each
+launch of a hand-written kernel; parallel/mesh.launch_counts reads them),
+"graph.captures" and "graph.replays" (each CUDA graph a chunk step
+captures, and each replay of one: graph/render.py). Inside
+capture_counts(), the counts made on that thread go to the dict it yields
+instead: a captured graph launches nothing until it is replayed, so its
+step counts those once a replay.
 """
 
 import collections
 import itertools
 import threading
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from typing import List, NamedTuple
 
 import torch
@@ -153,8 +158,24 @@ def self_ns(recs) -> dict:
 
 
 def count(name: str, n: int = 1) -> None:
+    sink = getattr(_local, "sink", None)
+    if sink is not None:
+        sink[name] = sink.get(name, 0) + n
+        return
     with _count_lock:
         _counters[name] = _counters.get(name, 0) + n
+
+
+@contextmanager
+def capture_counts():
+    """A context that yields a dict: the counts this thread makes inside go
+    there and not to the counters."""
+    outer = getattr(_local, "sink", None)
+    _local.sink = sink = {}
+    try:
+        yield sink
+    finally:
+        _local.sink = outer
 
 
 def counters() -> dict:
