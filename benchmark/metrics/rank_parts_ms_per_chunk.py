@@ -1,0 +1,11 @@
+"""rank_parts_ms_per_chunk: the slowest rank's port span "chunk.parts"
+(graph/render.Performance.render_parts: its block's enqueue, run eagerly in
+the first chunk and once more in the graph's capture) over its "chunk"
+spans, in ms, mean over the jobs whose spans every rank returned (the
+unprofiled ones if any; benchmark/ranks.py)."""
+
+from benchmark.ranks import slowest_ms_per_chunk
+
+
+def read(res):
+    return slowest_ms_per_chunk(res, "chunk.parts")

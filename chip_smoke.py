@@ -2434,15 +2434,15 @@ def shard_jobs(tmp, tag, multiple):
     import functools
 
     from zang_tpu_torch.host import configs, song
-    from zang_tpu_torch.parallel import RenderJob
+    from zang_tpu_torch.parallel import RenderJob, whole
 
     total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
     return [
-        ("song", RenderJob(functools.partial(song.song_build, total, multiple), total,
+        ("song", RenderJob(whole(functools.partial(song.song_build, total, multiple)), total,
                            CHUNK, os.path.join(tmp, f"{tag}_song.npy"))),
         (f"poly_echo_{SHARD_POLY_VOICES}",
-         RenderJob(functools.partial(configs.poly_echo_build, SHARD_POLY_VOICES,
-                                     SHARD_POLY_SECONDS, multiple=multiple),
+         RenderJob(whole(functools.partial(configs.poly_echo_build, SHARD_POLY_VOICES,
+                                           SHARD_POLY_SECONDS, multiple=multiple)),
                    int(SHARD_POLY_SECONDS * configs.SAMPLE_RATE), CHUNK,
                    os.path.join(tmp, f"{tag}_poly.npy"))),
     ]
@@ -2488,11 +2488,18 @@ def run_sharded(card, tag, mesh, launches, want, gold):
             if r["launches"] != expect_counts(**{kname: n_chunks}):
                 raise AssertionError(f"{tag} {name} rank {r['rank']}: launches "
                                      f"{r['launches']}, expected {n_chunks} {kname}")
+            # NCCL's all-reduce is captured with the chunk (GraphStep: the first
+            # chunk eager, every later one a replay); gloo's keeps the eager step
+            replays = r["counts"].get("graph.replays", 0)
+            want_replays = n_chunks - 1 if mesh.backend == "nccl" else 0
+            if replays != want_replays:
+                raise AssertionError(f"{tag} {name} rank {r['rank']}: {replays} graph "
+                                     f"replays, expected {want_replays}")
             peak = r["peak_gib"]
             print(f"  {name} rank {r['rank']} on {r['device']}: voices {r['voices']}, ran "
-                  f"{kname} x {r['launches'][kname]}; timelines {r['build_s']:.3f}s, plan "
-                  f"{r['plan_s']:.3f}s, slice {r['slice_s']:.3f}s, render {r['render_s']:.3f}s, "
-                  f"peak device memory {peak:.2f} GiB [{card}]")
+                  f"{kname} x {r['launches'][kname]}, {replays} graph replays; timelines "
+                  f"{r['build_s']:.3f}s, plan {r['plan_s']:.3f}s, slice {r['slice_s']:.3f}s, "
+                  f"render {r['render_s']:.3f}s, peak device memory {peak:.2f} GiB [{card}]")
             if not peak < 64.0:
                 raise AssertionError(f"{tag} {name}: peak device memory {peak:.2f} GiB")
             for k, v in r["launches"].items():

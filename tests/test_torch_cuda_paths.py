@@ -13,7 +13,10 @@ The cases and their bounds are those the JAX-side port tests held them to
 launches K1 once a real chunk; the script example K2 34 times; a flat
 chunk of NiceInstrument K2 once a chunk; a sharded render at one NCCL rank
 is the one-card render's bits, at two gloo ranks on one card within
--120 dBFS of it with K1 once a chunk on each rank.
+-120 dBFS of it with K1 once a chunk on each rank; at two and four NCCL
+ranks on as many cards every chunk is within -120 dBFS of it, each rank's
+chunk step a graph that holds the all-reduce, and at two it is the bits of
+two gloo ranks' eager step.
 
 The chunk step as a CUDA graph (graph/render.GraphStep): the graphed
 render is Performance.render_chunk called in a loop, bit for bit (the
@@ -189,7 +192,7 @@ def test_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
     voices, the mix within -120 dBFS of the one-card render."""
     mesh = pm.make_mesh(devices=[cuda_device, cuda_device])
     assert mesh.backend == "gloo"
-    job = pm.RenderJob(functools.partial(song.song_build, SONG_TOTAL, 2), SONG_TOTAL,
+    job = pm.RenderJob(pm.whole(functools.partial(song.song_build, SONG_TOTAL, 2)), SONG_TOTAL,
                        SONG_CHUNK, str(tmp_path / "mix.npy"))
     stats = pm.run_ranks(pm.render_rank, mesh, [job], timeout=TIMEOUT)
     got = np.load(tmp_path / "mix.npy")
@@ -199,6 +202,69 @@ def test_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
     n_chunks = -(-SONG_TOTAL // SONG_CHUNK)
     assert [s[0]["launches"]["svf_table"] for s in stats] == [n_chunks, n_chunks]
     assert len({s[0]["digest"] for s in stats}) == 1
+
+
+@pytest.mark.cuda
+def test_nccl_one_rank_renders_through_the_graph(cuda_device):
+    """The texture of voice streams at 4096 voices x 3 chunks, two jobs
+    through one ShardedRenderer at one NCCL rank on cuda:0: K3 a chunk, the
+    chunks after the first two one replay each of a graph that holds the
+    all-reduce, render_performance's bits."""
+    from zang_tpu_torch.graph.render import Performance
+    from zang_tpu_torch.host import configs
+
+    texture = (4096, 3 * 65536 / 44100.0, 44100.0, 15000, 11)
+    total = int(texture[1] * texture[2])
+    build = functools.partial(configs.texture_block_build, *texture)
+    with pm.ShardedRenderer(pm.make_mesh(1), timeout=TIMEOUT) as r:
+        runs = [r.render(pm.RenderJob(build, total, 65536)) for _ in range(2)]
+    parts, sr, kw = configs.texture_block_build(*texture, 0, 1)
+    want = render_performance(Performance(parts, sr, **kw), total, 65536,
+                              device=cuda_device).cpu().numpy()
+    for got, (rank,) in runs:
+        np.testing.assert_array_equal(got, want)
+        c = rank["counts"]
+        assert c["chunks"] == c["allreduce.calls"] == 3 and c["graph.replays"] == 2
+        assert c["graph.captures"] == 1 and rank["launches"]["svf_onepass"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [2, 4])
+def test_nccl_ranks_render_every_chunk_as_one_card(cuda_device, W):
+    """The texture of voice streams at 4096 voices a rank (K3) x 4 chunks
+    over W NCCL ranks on cuda:0 .. W-1, two jobs through one
+    ShardedRenderer: every chunk within -120 dBFS of the one-card render,
+    and on every rank the chunks after the first one replay each of a
+    graph that holds the all-reduce; at W = 2 the bits of two gloo ranks on
+    the same cards, whose step is eager (a sum of two is the same in any
+    order)."""
+    if torch.cuda.device_count() < W:
+        pytest.skip(f"needs {W} cards")
+    from zang_tpu_torch.graph.render import Performance
+    from zang_tpu_torch.host import configs
+
+    chunk = 16384
+    texture = (4096 * W, 4 * chunk / 44100.0, 44100.0, 15000, 13)
+    total = int(texture[1] * texture[2])
+    build = functools.partial(configs.texture_block_build, *texture)
+    parts, sr, kw = configs.texture_block_build(*texture, 0, 1)
+    want = render_performance(Performance(parts, sr, **kw), total, chunk,
+                              device=cuda_device).cpu().numpy()
+    with pm.ShardedRenderer(pm.make_mesh(W), timeout=TIMEOUT) as r:
+        runs = [r.render(pm.RenderJob(build, total, chunk)) for _ in range(2)]
+    for got, ranks in runs:
+        for c0 in range(0, total, chunk):
+            assert _db(got[:, c0:c0 + chunk], want[:, c0:c0 + chunk]) < TOL_SHARD_DB, c0
+        for rank in ranks:
+            c = rank["counts"]
+            assert c["chunks"] == c["allreduce.calls"] == 4 and c["graph.replays"] == 3
+            assert rank["launches"]["svf_onepass"] == 4
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    if W == 2:
+        with pm.ShardedRenderer(pm.make_mesh(2, backend="gloo"), timeout=TIMEOUT) as r:
+            eager, ranks = r.render(pm.RenderJob(build, total, chunk))
+        assert all("graph.replays" not in rank["counts"] for rank in ranks)
+        np.testing.assert_array_equal(runs[0][0], eager)
 
 
 # ---------------------------------------------------------------------------

@@ -113,6 +113,20 @@ def test_only_declared_parts_qualify(parts, post, want):
     assert trender.capturable(perf) is want
 
 
+@pytest.mark.parametrize("backend, want", [("nccl", True), ("gloo", False)])
+def test_a_reduction_qualifies_only_when_declared(backend, want):
+    """parallel/mesh.py's all-reduce: NCCL's is enqueued on the card and
+    captured with the chunk; gloo's runs on the host, so its step stays
+    eager."""
+    from zang_tpu_torch.parallel import mesh
+
+    post_fn, post_init = _echo_post(True)
+    perf = trender.Performance([(ti.NiceInstrument(0.3), [])], 48000.0, programs=[{}],
+                               post_fn=post_fn, post_init_state=post_init,
+                               reduce=mesh.REDUCE[backend])
+    assert trender.capturable(perf) is want
+
+
 @pytest.mark.parametrize("name", ["song", "poly_echo_16"])
 def test_on_the_cpu_a_declared_step_stays_eager(name):
     perf, total, chunk = _perf(name)

@@ -4,15 +4,17 @@ the JAX package's sharded ones, one for one with tests/test_parallel.py and
 tests/test_serve_live.py's TestFleetSharded.
 
 The sharded render runs one process a device: here 4 CPU processes joined
-by gloo, spawned once for all of this file's W = 4 renders (a module
-fixture), once more at W = 1. Bounds:
+by gloo, spawned once for all of this file's W = 4 launches of render_rank
+(a module fixture), once more at W = 1, and once as a ShardedRenderer whose
+ranks take every job twice, back to back. Bounds:
 
 - W = 4 against the one-device render: below -120 dBFS RMS, the JAX test's
   bound for the reordered voice sum (tests/test_parallel.py:45-47);
 - against the JAX package's sharded render: the song below -120 dBFS, the
   poly_echo render below -110 dBFS (the port's bound for it,
   tests/test_torch_echo.py:105);
-- W = 1, and the ranks against each other: bit for bit;
+- W = 1, the ranks against each other, and the persistent ranks' jobs
+  against render_rank's launch: bit for bit;
 - the lane-sharded fleet against the one-device fleet within 1e-6
   (tests/test_serve_live.py:120), against the JAX fleet on its 8-device
   mesh below -110 dBFS (tests/test_torch_serve.py's TOL_DB); a lane's
@@ -23,6 +25,9 @@ tests/test_torch_cuda_paths.py (marker `cuda`).
 """
 
 import functools
+import os
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -56,6 +61,10 @@ SONG_CHUNK = 16384
 POLY = dict(num_voices=16, seconds=1.5, sample_rate=44100.0, main_delay=15000)
 POLY_TOTAL = int(POLY["seconds"] * POLY["sample_rate"])
 POLY_CHUNK = 8192
+# the texture of voice streams (host/configs.texture_block_build): 16 voices x
+# 1.5 s, seed 9; a rank builds its block alone
+TEXTURE = (16, 1.5, 44100.0, 15000, 9)
+TEXTURE_TOTAL = int(TEXTURE[1] * TEXTURE[2])
 TOL_SHARD_DB = -120.0
 TOL_JAX_POLY_DB = -110.0
 TOL_LANES = 1e-6
@@ -64,14 +73,17 @@ SR = 48000.0
 BLOCK = 1024
 TIMEOUT = 600.0  # seconds a spawned launch may take
 
-# name -> (build, total frames, chunk); each build padded to a multiple of W
+# name -> (a RenderJob's build, total frames, chunk); the whole pieces padded
+# to a multiple of W and cut by whole(), the texture built a block a rank
 JOBS = {
-    "song_three_parts": (functools.partial(song.song_build, SONG_TOTAL, W, True),
+    "song_three_parts": (pm.whole(functools.partial(song.song_build, SONG_TOTAL, W, True)),
                          SONG_TOTAL, SONG_CHUNK),
-    "song_merged": (functools.partial(song.song_build, SONG_TOTAL, W), SONG_TOTAL,
+    "song_merged": (pm.whole(functools.partial(song.song_build, SONG_TOTAL, W)), SONG_TOTAL,
                     SONG_CHUNK),
-    "poly_echo": (functools.partial(configs.poly_echo_build, multiple=W, **POLY),
+    "poly_echo": (pm.whole(functools.partial(configs.poly_echo_build, multiple=W, **POLY)),
                   POLY_TOTAL, POLY_CHUNK),
+    "texture_streams": (functools.partial(configs.texture_block_build, *TEXTURE),
+                        TEXTURE_TOTAL, POLY_CHUNK),
 }
 
 
@@ -101,11 +113,28 @@ def one_rank(tmp_path_factory):
     return _launch(1, tmp_path_factory.mktemp("w1"))
 
 
+@pytest.fixture(scope="module")
+def persistent():
+    """{name: [(out, each rank's dict)] x 2}: every job, then every job
+    again, through one ShardedRenderer of W CPU ranks."""
+    got = {name: [] for name in JOBS}
+    with pm.ShardedRenderer(pm.make_mesh(W, device="cpu"), num_threads=1,
+                            timeout=TIMEOUT) as r:
+        for _ in range(2):
+            for name, (build, total, chunk) in JOBS.items():
+                got[name].append(r.render(pm.RenderJob(build, total, chunk)))
+    return got
+
+
 def _unsharded(name):
     """The port's one-device render of a job, unpadded."""
     if name == "poly_echo":
         parts, sr, kw = configs.poly_echo_build(**POLY)
         return render_performance(Performance(parts, sr, **kw), POLY_TOTAL, POLY_CHUNK,
+                                  device="cpu").numpy()
+    if name == "texture_streams":
+        parts, sr, kw = configs.texture_block_build(*TEXTURE, 0, 1)
+        return render_performance(Performance(parts, sr, **kw), TEXTURE_TOTAL, POLY_CHUNK,
                                   device="cpu").numpy()
     parts = song.song_parts(SONG_TOTAL, three_part=name == "song_three_parts")
     return render_performance(Performance(parts, song.SAMPLE_RATE), SONG_TOTAL, SONG_CHUNK,
@@ -181,6 +210,176 @@ def test_ranks_agree_bit_for_bit(sharded, name):
     assert [s["rank"] for s in stats] == list(range(W))
     assert len({s["digest"] for s in stats}) == 1
     assert all(s["launches"] == dict.fromkeys(s["launches"], 0) for s in stats)  # the CPU
+
+
+@pytest.mark.parametrize("name", list(JOBS))
+def test_persistent_jobs_are_the_one_shot_render(persistent, sharded, unsharded, name):
+    """Jobs back to back through one ShardedRenderer: each the bits of
+    render_rank's launch, within -120 dBFS of one device, by the same
+    processes every time."""
+    (first, ranks), (again, ranks_again) = persistent[name]
+    np.testing.assert_array_equal(first, sharded[0][name])
+    np.testing.assert_array_equal(again, first)
+    assert first.dtype == np.float32 and np.abs(first).max() > 0.01
+    for ch in range(first.shape[0]):
+        assert _db(first[ch], unsharded[name][ch]) < TOL_SHARD_DB
+    assert [s["rank"] for s in ranks] == list(range(W)) and "out" not in ranks[0]
+    assert len({s["digest"] for s in ranks + ranks_again}) == 1
+    assert [s["pid"] for s in ranks] == [s["pid"] for s in ranks_again]
+    chunks = -(-JOBS[name][1] // JOBS[name][2])
+    for s in ranks:  # one all-reduce of [1 + C, chunk] f32 a chunk, no graph on the CPU
+        c = s["counts"]
+        assert c["chunks"] == c["allreduce.calls"] == chunks and "graph.replays" not in c
+        assert c["allreduce.bytes"] == chunks * (1 + first.shape[0]) * JOBS[name][2] * 4
+
+
+def test_render_performance_sharded_is_one_job(sharded):
+    got = pm.render_performance_sharded(functools.partial(configs.poly_echo_build, multiple=W,
+                                                          **POLY),
+                                        POLY_TOTAL, pm.make_mesh(W, device="cpu"), POLY_CHUNK,
+                                        timeout=TIMEOUT)
+    np.testing.assert_array_equal(got, sharded[0]["poly_echo"])
+
+
+def test_a_job_can_ask_for_s16_and_observe_its_ranks():
+    """volume: rank 0 mixes down on its device; observe wraps every rank's
+    job."""
+    from zang_tpu_torch.core.mixdown import mixdown_s16_np
+
+    build, total, chunk = JOBS["texture_streams"]
+    with pm.ShardedRenderer(pm.make_mesh(2, device="cpu"), num_threads=1,
+                            timeout=TIMEOUT) as r:
+        out, ranks = r.render(pm.RenderJob(build, total, chunk, volume=0.25,
+                                           observe=functools.partial(_tagged, "seen")))
+        mix, _ = r.render(pm.RenderJob(build, total, chunk))
+    assert out.dtype == np.int16 and np.array_equal(out, mixdown_s16_np(mix, 0.25))
+    assert [s["tag"] for s in ranks] == ["seen 0", "seen 1"]
+
+
+def _tagged(tag, rank, run):
+    out = run()
+    out["tag"] = f"{tag} {rank.rank}"
+    return out
+
+
+@pytest.mark.parametrize("world", [1, 3, 4])
+def test_a_block_build_is_the_whole_build_cut(world):
+    """A rank's block (its voices drawn and compiled alone) against the
+    same voices cut from the whole texture padded to the rank count: the
+    same timelines, and the post chain of every voice."""
+    V, args = 10, (1.0, 44100.0, 15000, 5)
+    (inst, tls), = configs.texture_block_build(V, *args, 0, 1)[0]
+    assert len(tls) == V
+    padded = pm.pad_timelines(tls, world)
+    for r in range(world):
+        parts, sr, kw = configs.texture_block_build(V, *args, r, world)
+        (b_inst, block), = parts
+        (_, cut), = pm.shard_parts([(inst, padded)], r, world)
+        assert len(block) == len(cut) == len(padded) // world and sr == 44100.0
+        for a, b in zip(block, cut):
+            np.testing.assert_array_equal(a.starts, b.starts)
+            np.testing.assert_array_equal(a.resets, b.resets)
+            assert a.params == b.params and a.total == b.total
+        assert b_inst.color == 0.3 and kw["num_channels"] == 2
+    # a voice's notes are its own stream's, whatever the texture around it
+    assert configs.texture_voice_song(1.0, 5, 7) == configs.texture_voice_song(1.0, 5, 7)
+    with pytest.raises(ValueError, match="holds none"):
+        configs.texture_block_build(2, *args, 3, 4)
+
+
+def _identity(buf):
+    pass
+
+
+@pytest.mark.parametrize("name, chunk", [("song", 16384), ("song_flat", 7000),
+                                         ("poly_echo", POLY_CHUNK)])
+def test_a_reduction_between_parts_and_post_keeps_the_bits(name, chunk):
+    """The step of render_chunk between render_parts and finish_chunk: an
+    identity reduction renders every existing piece bit for bit, and counts
+    an all-reduce of [1 + C, chunk] f32 a chunk."""
+    from zang_tpu_torch import trace
+
+    if name == "poly_echo":
+        parts, sr, kw = configs.poly_echo_build(**POLY)
+        total = POLY_TOTAL
+    else:
+        parts, sr, kw = song.song_parts(SONG_TOTAL), song.SAMPLE_RATE, {}
+        total = SONG_TOTAL
+    want = render_performance(Performance(parts, sr, **kw), total, chunk, device="cpu")
+    before = trace.counters()
+    got = render_performance(Performance(parts, sr, reduce=_identity, **kw), total, chunk,
+                             device="cpu")
+    after = trace.counters()
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    n = -(-total // chunk)
+    assert after["allreduce.calls"] - before.get("allreduce.calls", 0) == n
+    assert after["allreduce.bytes"] - before.get("allreduce.bytes", 0) == \
+        n * (1 + want.shape[0]) * chunk * 4
+
+
+def _alive(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def test_a_rank_that_raises_mid_stream_ends_every_rank():
+    """The second job's build raises on ranks 2 and 3 (they hold none of
+    its 2 voices): the call fails with their traceback, every rank is
+    ended, and the renderer takes no more jobs."""
+    total = int(0.3 * 44100.0)
+    r = pm.ShardedRenderer(pm.make_mesh(W, device="cpu"), num_threads=1, timeout=TIMEOUT)
+    try:
+        _, ranks = r.render(pm.RenderJob(
+            functools.partial(configs.texture_block_build, 8, 0.3, 44100.0, 15000, 1),
+            total, 4096))
+        pids = [s["pid"] for s in ranks]
+        assert all(_alive(p) for p in pids)
+        t = time.monotonic()
+        with pytest.raises(RuntimeError, match="rank 2 of 4 holds none of 2 voices"):
+            r.render(pm.RenderJob(
+                functools.partial(configs.texture_block_build, 2, 0.3, 44100.0, 15000, 1),
+                total, 4096))
+        assert time.monotonic() - t < 120.0
+        assert not any(_alive(p) for p in pids)
+        with pytest.raises(RuntimeError, match="closed"):
+            r.render(pm.RenderJob(JOBS["poly_echo"][0], POLY_TOTAL, POLY_CHUNK))
+    finally:
+        r.close()
+
+
+CALLER = """
+import functools, os, sys
+from zang_tpu_torch.host import configs
+from zang_tpu_torch.parallel import mesh as pm
+
+if __name__ == "__main__":
+    r = pm.ShardedRenderer(pm.make_mesh(2, device="cpu"), num_threads=1)
+    _, ranks = r.render(pm.RenderJob(
+        functools.partial(configs.texture_block_build, 4, 0.2, 44100.0, 15000, 1),
+        int(0.2 * 44100.0), 4096))
+    print(" ".join(str(s["pid"]) for s in ranks), flush=True)
+    os.kill(os.getpid(), 9)
+"""
+
+
+def test_the_ranks_end_with_their_caller(tmp_path):
+    """A caller killed while its renderer is open: its ranks end."""
+    script = tmp_path / "caller.py"
+    script.write_text(CALLER)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, str(script)], cwd=root, capture_output=True,
+                       text=True, timeout=TIMEOUT,
+                       env=dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1"))
+    assert p.returncode == -9, p.stderr[-3000:]
+    pids = [int(x) for x in p.stdout.split()]
+    assert len(pids) == 2
+    deadline = time.monotonic() + 30.0
+    while any(_alive(q) for q in pids) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    assert not any(_alive(q) for q in pids)
 
 
 def test_pad_timelines_matches_jax():

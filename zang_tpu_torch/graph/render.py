@@ -23,11 +23,19 @@ An Instrument provides:
       alone (no copy from the host, no wait on the device) and takes ctx.t0
       as an int32 [1] tensor on the device as well as an int. A post_fn
       declares it as an attribute of the function. On the card, the step of
-      a Performance whose parts and post chain all capture runs each chunk
-      after its first two as one replay of a CUDA graph (make_stream_step).
+      a Performance whose parts, post chain and reduction all capture runs
+      each chunk after its first two as one replay of a CUDA graph
+      (make_stream_step).
+
+A Performance may carry a reduction: reduce(buf) sums, in place, the
+chunk's [1 + C, n] mix and channels over the processes that each render a
+share of the voices (parallel/mesh.py: torch.distributed.all_reduce), between
+render_parts and finish_chunk. Without one (one device) the chunk goes from
+the parts to the post chain as it is.
 """
 
 import threading
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
@@ -63,7 +71,9 @@ class Performance:
     audio [C, n]) and owns the effect state (delays, filters);
     post_init_state(device) makes its initial state. programs, if given,
     replaces planning: the per-part program dicts
-    (convert.from_jax_performance passes the JAX package's plans)."""
+    (convert.from_jax_performance passes the JAX package's plans). reduce,
+    if given, is the chunk's sum over ranks (see the module's docstring);
+    a `capturable` attribute on it says it may run inside a CUDA graph."""
 
     def __init__(
         self,
@@ -73,12 +83,14 @@ class Performance:
         num_channels: int = 1,
         post_fn: Optional[Callable] = None,
         post_init_state: Optional[Callable] = None,
+        reduce: Optional[Callable] = None,
     ) -> None:
         self.parts = list(parts)
         self.sample_rate = float(sample_rate)
         self.num_channels = num_channels
         self.post_fn = post_fn
         self.post_init_state = post_init_state
+        self.reduce = reduce
         if programs is None:
             with span("plan.programs"):
                 programs = [inst.plan(tls, self.sample_rate) for inst, tls in self.parts]
@@ -152,6 +164,19 @@ class Performance:
                 new_states.append(st2)
             return new_states, mix, multi
 
+    def reduce_chunk(self, mix, multi):
+        """The chunk's mix [n] and channels [C, n] summed over the ranks:
+        one reduce() of a fresh [1 + C, n] buffer (the post state may keep
+        views of the mix). The identity without a reduction."""
+        if self.reduce is None:
+            return mix, multi
+        with span("chunk.allreduce"):
+            buf = torch.cat([mix[None], multi])
+            count("allreduce.calls")
+            count("allreduce.bytes", buf.numel() * buf.element_size())
+            self.reduce(buf)
+            return buf[0], buf[1:]
+
     def finish_chunk(self, post_state, mix, multi, ctx: RenderCtx):
         """The rest of the chunk: post_fn on the mix (not linear in it: the
         echoes feed back through a filter), or the mix on every channel.
@@ -164,9 +189,10 @@ class Performance:
 
     def render_chunk(self, state, chunk_progs, ctx: RenderCtx, programs=None):
         """One chunk (zang_tpu/graph/render.py render_chunk): render_parts,
-        then finish_chunk. Returns (state', [C, n])."""
+        reduce_chunk, then finish_chunk. Returns (state', [C, n])."""
         states, post_state = state
         new_states, mix, multi = self.render_parts(states, chunk_progs, ctx, programs)
+        mix, multi = self.reduce_chunk(mix, multi)
         post_state, out = self.finish_chunk(post_state, mix, multi, ctx)
         return (new_states, post_state), out
 
@@ -204,10 +230,11 @@ def _copy_tree(dst, src) -> None:
 
 
 def capturable(perf: Performance) -> bool:
-    """Whether every part's instrument and the post chain of perf declare
-    `capturable` (see the module's docstring)."""
+    """Whether every part's instrument, the post chain and the reduction of
+    perf declare `capturable` (see the module's docstring)."""
     return (all(getattr(inst, "capturable", False) for inst, _ in perf.parts)
-            and (perf.post_fn is None or getattr(perf.post_fn, "capturable", False)))
+            and all(f is None or getattr(f, "capturable", False)
+                    for f in (perf.post_fn, perf.reduce)))
 
 
 ALIGN = 16  # bytes: every array of a packed chunk starts on a multiple
@@ -300,10 +327,11 @@ def make_stream_step(perf: Performance, chunk_size: int = 65536, *, device="cuda
     instruments, voice counts and post chain (serve/batch.py shares one step
     among such songs).
 
-    On the card, when every part and the post chain are `capturable`, the
-    step is a GraphStep: the same bits, each chunk after its first two one
-    replay of a CUDA graph fed by one packed upload. Otherwise, and for a
-    call with programs, every op is enqueued from here (eager)."""
+    On the card, when every part, the post chain and the reduction are
+    `capturable`, the step is a GraphStep: the same bits, each chunk after
+    its first two one replay of a CUDA graph fed by one packed upload.
+    Otherwise, and for a call with programs, every op is enqueued from here
+    (eager)."""
     dev = require_device(device)
     static = [_map_arrays(p, lambda a: _to_device(a, dev)) for p in perf.programs]
     base = torch.arange(chunk_size, dtype=torch.int32, device=dev)
@@ -345,6 +373,8 @@ class GraphStep:
     def __init__(self, perf, chunk_size, dev, static, base, eager) -> None:
         self.perf, self.n, self.dev = perf, chunk_size, dev
         self.static, self.base, self.eager = static, base, eager
+        # the replay holds the chunk's all-reduce when perf has one
+        self.reduces = getattr(perf, "reduce", None) is not None
         self.layout = None
         self.lock = threading.Lock()
         self.stream = None  # the stream of the last call
@@ -423,7 +453,8 @@ class GraphStep:
     def _replay(self, state):
         if state is not self.returned:
             _copy_tree(self.state, state)
-        with span("chunk.replay"):
+        with span("chunk.replay"), (span("chunk.allreduce") if self.reduces
+                                    else nullcontext()):
             self.graph.replay()
         count("graph.replays")
         for name, n in self.launches.items():
@@ -432,9 +463,11 @@ class GraphStep:
         return self.returned, self.out.clone()
 
 
-def _chunks(perf: Performance, total_frames: int, chunk_size: int, step, state):
-    """(c0, audio [C, chunk_size]) of each chunk in order, the state carried."""
-    xs, n_chunks = perf.chunk_xs(total_frames, chunk_size)
+def _chunks(perf: Performance, total_frames: int, chunk_size: int, step, state,
+            sliced=None):
+    """(c0, audio [C, chunk_size]) of each chunk in order, the state carried.
+    sliced: perf.chunk_xs(total_frames, chunk_size) when the caller has it."""
+    xs, n_chunks = sliced or perf.chunk_xs(total_frames, chunk_size)
     for i in range(n_chunks):
         c0 = i * chunk_size
         state, audio = step(state, c0, _map_arrays(xs, lambda a, i=i: a[i]))
@@ -466,16 +499,18 @@ def render_performance(
     *,
     device="cuda",
     state=None,
+    sliced=None,
 ) -> torch.Tensor:
     """Render the piece on `device` (the card unless the caller asks for the
     CPU); returns f32 [num_channels, total_frames] on that device. state:
     the initial ((per-part states), post state) (default
-    perf.init_state(device))."""
+    perf.init_state(device)). sliced: perf.chunk_xs(total_frames,
+    chunk_size), when the caller has already cut the programs."""
     dev = require_device(device)
     step = make_stream_step(perf, chunk_size, device=dev)
     n_chunks = -(-total_frames // chunk_size)
     out = torch.empty((perf.num_channels, n_chunks * chunk_size),
                       dtype=torch.float32, device=dev)
-    for c0, audio in _chunks(perf, total_frames, chunk_size, step, state):
+    for c0, audio in _chunks(perf, total_frames, chunk_size, step, state, sliced):
         out[:, c0:c0 + chunk_size] = audio
     return out[:, :total_frames]

@@ -7,6 +7,10 @@
 - poly_echo: N NiceInstrument voices -> mono mix / N -> StereoEchoes
   (example_polyphony2.zig and example_delay.zig's StereoEchoes(15000)).
   The voices' lowpass is the table-cut SVF kernel (ops/svf_cuda.py).
+- the texture of voice streams: poly_echo's voices and post chain with
+  each voice's notes drawn from a stream of its own (texture_voice_song),
+  so the rank of a sharded render builds its block of voices alone
+  (texture_block_build).
 
 render_config is the entry point; it renders on the card unless the
 caller asks for the CPU.
@@ -163,6 +167,45 @@ def make_texture_song(num_voices: int, seconds: float, seed: int = 0):
             t += gap
         songs.append(song)
     return songs
+
+
+def texture_voice_song(seconds: float, seed: int, voice: int):
+    """One voice's events in the texture of voice streams: make_texture_song's
+    voice (a start in [0, 0.1) s, then a note of 0.22 s every 0.25 s at one
+    of 37 semitones from 110 Hz, up to 0.3 s before the end), its draws
+    from a stream of its own, keyed by (seed, voice)."""
+    rng = np.random.default_rng([seed, voice])
+    song = []
+    t = rng.uniform(0.0, 0.1)
+    nid = 1
+    while t < seconds - 0.3:
+        f = float(F32(110.0 * 2 ** (rng.integers(0, 37) / 12.0)))
+        song.append(SongEvent({"freq": f, "note_on": True}, t=t, note_id=nid))
+        song.append(SongEvent({"freq": f, "note_on": False}, t=t + 0.22, note_id=nid))
+        nid += 1
+        t += 0.25
+    return song
+
+
+def texture_block_build(num_voices: int, seconds: float, sample_rate: float,
+                        main_delay: int, seed: int, rank: int, world: int):
+    """Host: (parts, sample_rate, perf_kwargs) of rank `rank`'s block of the
+    texture of voice streams, as a RenderJob's build returns them (wrap the
+    first five arguments in functools.partial): the voices [rank P,
+    (rank + 1) P) of num_voices, P = num_voices / world rounded up, drawn
+    and compiled alone, padded with silent voices to P; the post chain made
+    for num_voices (its 1/num_voices scale is the whole texture's). At
+    world 1 it is the whole texture."""
+    per = -(-num_voices // world)
+    lo, hi = rank * per, min(num_voices, (rank + 1) * per)
+    if not 0 <= lo < hi:
+        raise ValueError(f"rank {rank} of {world} holds none of {num_voices} voices")
+    total = int(seconds * sample_rate)
+    tls = [compile_timelines(texture_voice_song(seconds, seed, v), 1, sample_rate, total)[0]
+           for v in range(lo, hi)]
+    post_fn, post_init = poly_echo_post(num_voices, main_delay)
+    return ([(ti.NiceInstrument(0.3), pad_timelines(tls, per))], sample_rate,
+            dict(num_channels=2, post_fn=post_fn, post_init_state=post_init))
 
 
 def render_poly_echo_oracle(num_voices: int = 1024, seconds: float = 30.0,

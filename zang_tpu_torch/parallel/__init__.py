@@ -5,10 +5,12 @@ from .mesh import (  # noqa: F401
     Mesh,
     Rank,
     RenderJob,
+    ShardedRenderer,
     make_mesh,
     pad_timelines,
     render_performance_sharded,
     render_rank,
     run_ranks,
     shard_parts,
+    whole,
 )

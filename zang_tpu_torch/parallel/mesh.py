@@ -3,14 +3,21 @@
 The JAX package shards every per-voice array over a one-axis device mesh in
 one process and leaves the mix's cross-device sum to GSPMD (a psum). Here a
 render runs ONE PROCESS A DEVICE (torch.multiprocessing, spawn): threads on
-one card queue behind one GIL (PERF.md §7), processes do not. Each rank
+one card queue behind one GIL (PERF.md §7), processes do not. The ranks and
+their process group start once and take jobs until they are closed
+(ShardedRenderer; render_performance_sharded is one job through one). Each
+rank, a job,
 
-- builds the piece from the same picklable `build` callable, keeps the
-  contiguous block [r V/W, (r+1) V/W) of every part's voices (shard_parts),
-  and so plans and slices only those;
-- renders its voices a chunk at a time (Performance.render_parts), then
+- builds its block from the job's picklable `build(rank, world)`: the
+  contiguous block [r V/W, (r+1) V/W) of every part's voices, so it plans
+  and slices only those (host/configs.texture_block_build draws and
+  compiles only its own voices; whole() builds the piece and cuts it,
+  shard_parts);
+- renders its voices a chunk at a time through make_stream_step's step
+  (GraphStep on the card): Performance.render_chunk renders the parts,
   sums the chunk's [1 + C, n] mix and channels over the ranks with one
-  torch.distributed.all_reduce(SUM);
+  torch.distributed.all_reduce(SUM) (the Performance's reduction: NCCL's is
+  captured in the chunk's graph, gloo's runs eagerly), then
 - runs the post chain (Performance.finish_chunk) on the summed mix. The
   post state is replicated: every rank holds the same one and computes the
   same bits, as the JAX package replicates it (zang_tpu/parallel/mesh.py
@@ -33,10 +40,12 @@ a Mesh and renders a group of lanes a device in one process
 """
 
 import copy
+import functools
 import hashlib
 import os
 import queue
 import tempfile
+import threading
 import time
 import traceback
 from dataclasses import dataclass
@@ -48,9 +57,10 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from .. import trace
+from ..core import mixdown
 from ..core.timeline import SubvoiceTimeline
 from ..device import require_device
-from ..graph.render import Performance, RenderCtx, _map_arrays, _to_device
+from ..graph.render import Performance, render_performance
 from ..host.instruments import NiceInstrument
 
 AXES = ("voices", "lanes")
@@ -288,18 +298,38 @@ def run_ranks(fn: Callable, mesh: Mesh, *args, timeout: Optional[float] = None,
 
 @dataclass(frozen=True)
 class RenderJob:
-    """One piece for render_rank. build: a picklable zero-argument callable
-    (a module-level function or a functools.partial of one) returning
-    (parts, sample_rate, perf_kwargs): the parts' timelines padded to a
-    multiple of the rank count, perf_kwargs the Performance's
-    num_channels, post_fn and post_init_state, made for the FULL voice
-    count. out_path: where rank 0 saves the f32 [C, total_frames] mix
-    (np.save)."""
+    """One piece for the ranks. build: a picklable callable (a module-level
+    function or a functools.partial of one) that a rank calls as
+    build(rank, world) and that returns (parts, sample_rate, perf_kwargs):
+    the rank's share of every part's voices (host/configs.py
+    texture_block_build builds one block; whole() wraps a build of the
+    whole piece), perf_kwargs the Performance's num_channels, post_fn and
+    post_init_state, made for the FULL voice count. out_path: where
+    render_rank's rank 0 saves the f32 [C, total_frames] mix (np.save).
+    volume: rank 0 returns the mix as s16 at this volume, mixed down on its
+    device (else f32). observe: a picklable observe(rank, run) -> dict that
+    calls run() (the rank's job, returning its dict) and may wrap it and add
+    to what it returns (a profiler, the port's recorder)."""
 
     build: Callable
     total_frames: int
     chunk_size: int
-    out_path: str
+    out_path: Optional[str] = None
+    volume: Optional[float] = None
+    observe: Optional[Callable] = None
+
+
+def _whole(build: Callable, rank: int, world: int):
+    parts, sample_rate, perf_kwargs = build()
+    return shard_parts(parts, rank, world), sample_rate, perf_kwargs
+
+
+def whole(build: Callable) -> Callable:
+    """A RenderJob build from a zero-argument build of the whole piece
+    (host/song.song_build, host/configs.poly_echo_build): every rank builds
+    it whole and keeps its block of every part (shard_parts), so its
+    timelines pad to a multiple of the rank count."""
+    return functools.partial(_whole, build)
 
 
 _KERNELS = ("svf_table", "svf_dense", "svf_onepass", "table_lookup", "sampler_play",
@@ -319,86 +349,213 @@ def reset_launch_counts() -> None:
     trace.reset_counters("launch.")
 
 
-def _render_local(perf: Performance, xs, n_chunks: int, chunk_size: int,
-                  dev: torch.device) -> torch.Tensor:
-    """The chunk loop of render_performance with the ranks' mixes summed
-    between render_parts and finish_chunk. Returns [C, n_chunks * chunk]."""
-    static = [_map_arrays(p, lambda a: _to_device(a, dev)) for p in perf.programs]
-    base = torch.arange(chunk_size, dtype=torch.int32, device=dev)
-    states, post = perf.init_state(dev)
-    out = torch.empty((perf.num_channels, n_chunks * chunk_size), dtype=torch.float32,
-                      device=dev)
-    for i in range(n_chunks):
-        c0 = i * chunk_size
-        ctx = RenderCtx(perf.sample_rate, base + c0, c0, chunk_size)
-        chunk_progs = _map_arrays(xs, lambda a: _to_device(a[i], dev))
-        states, mix, multi = perf.render_parts(states, chunk_progs, ctx, static)
-        # a fresh buffer a chunk: the post state may keep views of the mix
-        buf = torch.cat([mix[None], multi])
-        dist.all_reduce(buf)
-        post, audio = perf.finish_chunk(post, buf[0], buf[1:], ctx)
-        out[:, c0:c0 + chunk_size] = audio
+def _all_reduce(buf: torch.Tensor) -> None:
+    dist.all_reduce(buf)
+
+
+def _all_reduce_nccl(buf: torch.Tensor) -> None:
+    dist.all_reduce(buf)
+
+
+# NCCL's collective is enqueued on the card like a kernel, so a graph
+# captures it (graph/render.GraphStep); gloo's runs on the host
+_all_reduce_nccl.capturable = True
+REDUCE = {"nccl": _all_reduce_nccl, "gloo": _all_reduce}
+
+
+def _run_job(rank: Rank, job: RenderJob) -> dict:
+    """The rank's share of one job: its block built (span "shard.build"),
+    planned and sliced, then rendered through make_stream_step's step (a
+    GraphStep on the card) with the chunk's mix summed over the ranks
+    between the parts and the post chain. Returns the rank, its device,
+    its voices a part, the seconds of the build, of planning its voices, of
+    slicing their programs into chunks and of the render (synchronised),
+    the kernels' launches in the render, the change of every counter of
+    trace.counters() over the render (chunks, uploads, graph replays,
+    all-reduces), the peak device memory over the
+    render (bytes and GiB, None on the CPU), the SHA-256 of its mix and its
+    process id; rank 0's also holds the mix under "out"."""
+    dev = rank.device
+    cuda = dev.type == "cuda"
+    t = time.perf_counter()
+    with trace.span("shard.build"):
+        parts, sample_rate, perf_kwargs = job.build(rank.rank, rank.world)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    perf = Performance(parts, sample_rate, reduce=REDUCE[rank.backend], **perf_kwargs)
+    plan_s = time.perf_counter() - t
+    t = time.perf_counter()
+    sliced = perf.chunk_xs(job.total_frames, job.chunk_size)
+    slice_s = time.perf_counter() - t
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    before = trace.counters()
+    t = time.perf_counter()
+    audio = render_performance(perf, job.total_frames, job.chunk_size, device=dev,
+                               sliced=sliced)
+    if cuda:
+        torch.cuda.synchronize(dev)
+    render_s = time.perf_counter() - t
+    del sliced
+    mix = audio.cpu().numpy()
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    out = {
+        "rank": rank.rank, "world": rank.world, "device": str(dev),
+        "backend": rank.backend, "voices": [len(tls) for _, tls in perf.parts],
+        "build_s": build_s, "plan_s": plan_s, "slice_s": slice_s,
+        "render_s": render_s, "launches": launch_counts(),
+        "counts": {k: v - before.get(k, 0) for k, v in trace.counters().items()
+                   if v != before.get(k, 0)},
+        "peak_bytes": peak, "peak_gib": None if peak is None else peak / 2 ** 30,
+        "digest": hashlib.sha256(mix.tobytes()).hexdigest(), "pid": os.getpid(),
+    }
+    if rank.rank == 0:
+        out["out"] = (mix if job.volume is None
+                      else mixdown.mixdown_s16(audio, job.volume).cpu().numpy())
     return out
 
 
+def _job(rank: Rank, job: RenderJob) -> dict:
+    run = functools.partial(_run_job, rank, job)
+    return run() if job.observe is None else job.observe(rank, run)
+
+
 def render_rank(rank: Rank, jobs: Sequence[RenderJob]) -> List[dict]:
-    """One rank's share of each job, in order (run_ranks' fn for
-    render_performance_sharded). Returns a dict a job: the rank, its
-    device, its voices a part, the seconds of building the timelines, of
-    planning its voices, of slicing their programs into chunks and of the
-    render (synchronised), the kernels' launches in the render, the peak
-    device memory (GiB, None on the CPU) and the SHA-256 of its mix."""
-    dev = rank.device
-    cuda = dev.type == "cuda"
+    """One rank's share of each job, in order (run_ranks' fn: a launch of
+    ranks that renders a fixed list of jobs and ends). Returns _run_job's
+    dict a job; rank 0 saves each mix at the job's out_path."""
     stats = []
     for job in jobs:
-        t = time.perf_counter()
-        parts, sample_rate, perf_kwargs = job.build()
-        build_s = time.perf_counter() - t
-        t = time.perf_counter()
-        perf = Performance(shard_parts(parts, rank.rank, rank.world), sample_rate,
-                           **perf_kwargs)
-        plan_s = time.perf_counter() - t
-        t = time.perf_counter()
-        xs, n_chunks = perf.chunk_xs(job.total_frames, job.chunk_size)
-        slice_s = time.perf_counter() - t
-        if cuda:
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-        reset_launch_counts()
-        t = time.perf_counter()
-        audio = _render_local(perf, xs, n_chunks, job.chunk_size, dev)
-        if cuda:
-            torch.cuda.synchronize(dev)
-        render_s = time.perf_counter() - t
-        launches = launch_counts()
-        mix = audio[:, :job.total_frames].cpu().numpy()
-        del audio, xs
-        if rank.rank == 0:
-            np.save(job.out_path, mix)
-        stats.append({
-            "rank": rank.rank, "world": rank.world, "device": str(dev),
-            "backend": rank.backend, "voices": [len(tls) for _, tls in perf.parts],
-            "build_s": build_s, "plan_s": plan_s, "slice_s": slice_s,
-            "render_s": render_s, "launches": launches,
-            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else None,
-            "digest": hashlib.sha256(mix.tobytes()).hexdigest(),
-        })
+        st = _job(rank, job)
+        out = st.pop("out", None)
+        if out is not None and job.out_path is not None:
+            np.save(job.out_path, out)
+        stats.append(st)
     return stats
+
+
+READY = 0  # the key of the item each of a ShardedRenderer's ranks puts first
+
+
+def _end_with(caller) -> None:
+    """End this process as soon as `caller` (the process that started it)
+    has ended, whatever its main thread is doing."""
+    caller.join()
+    os._exit(1)
+
+
+def serve_rank(rank: Rank, jobs, results) -> None:
+    """A ShardedRenderer's rank (run_ranks' fn): puts (READY, rank, None)
+    on results once its process group is open, then takes (key, RenderJob)
+    items from jobs[rank] and puts (key, rank, its dict) on results, one
+    job after another, until it takes None. A thread ends the process when
+    its caller's has ended."""
+    threading.Thread(target=_end_with, args=(mp.parent_process(),), daemon=True).start()
+    results.put((READY, rank.rank, None))
+    inbox = jobs[rank.rank]
+    while True:
+        item = inbox.get()
+        if item is None:
+            return
+        key, job = item
+        results.put((key, rank.rank, _job(rank, job)))
+
+
+class ShardedRenderer:
+    """Ranks that persist across jobs: run_ranks(serve_rank) over the mesh
+    (one process a device, their process group opened once) in a thread of
+    the caller, fed one RenderJob at a time.
+
+        with ShardedRenderer(make_mesh(4)) as r:
+            out, ranks = r.render(RenderJob(build, total, chunk, volume=0.25))
+
+    render(job) returns (rank 0's mix on the host: s16 when the job gives a
+    volume, else f32 [C, total]; each rank's dict of _run_job, by rank).
+    The constructor returns once every rank has opened the process group.
+    Every rank ends when close() is called (or the with block ends), when
+    any rank raises (render raises with that rank's traceback and the
+    renderer is closed), and when the caller's process dies (a thread of
+    each rank waits for it). timeout: the seconds the ranks may live, as
+    run_ranks takes it (None: until closed). Build the CUDA kernels before
+    the first job: each rank would otherwise build them again
+    (ops/_build.py)."""
+
+    def __init__(self, mesh: Mesh, num_threads: Optional[int] = None,
+                 timeout: Optional[float] = None) -> None:
+        if mesh.axis != "voices":
+            raise ValueError(f"a sharded render splits voices, not {mesh.axis!r}")
+        ctx = mp.get_context("spawn")
+        self.mesh = mesh
+        self._jobs = [ctx.Queue() for _ in range(mesh.size)]
+        self._results = ctx.Queue()
+        self._key = 0
+        self._error = None
+        self._closed = False
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        args=(num_threads, timeout))
+        self._thread.start()
+        self._collect(READY)
+
+    def _run(self, num_threads, timeout) -> None:
+        try:
+            run_ranks(serve_rank, self.mesh, self._jobs, self._results, timeout=timeout,
+                      num_threads=num_threads)
+        except Exception as e:  # render() raises it
+            self._error = e
+
+    def _collect(self, key: int) -> list:
+        """Every rank's value for `key`, by rank; raises once the ranks have
+        ended without them."""
+        ranks = {}
+        while len(ranks) < self.mesh.size:
+            try:
+                k, r, value = self._results.get(timeout=0.2)
+            except queue.Empty:
+                if not self._thread.is_alive():
+                    self._closed = True
+                    what = f"job {key} was done" if key != READY else "they were ready"
+                    raise RuntimeError(f"the ranks ended before {what}: "
+                                       f"{self._error}") from self._error
+                continue
+            if k == key:
+                ranks[r] = value
+        return [ranks[r] for r in range(self.mesh.size)]
+
+    def render(self, job: RenderJob):
+        if self._closed:
+            raise RuntimeError("the renderer is closed") from self._error
+        self._key += 1
+        for q in self._jobs:
+            q.put((self._key, job))
+        stats = self._collect(self._key)
+        return stats[0].pop("out"), stats
+
+    def close(self) -> None:
+        """End every rank (after the job it is rendering) and wait for them."""
+        if not self._closed and self._thread.is_alive():
+            for q in self._jobs:
+                q.put(None)
+        self._closed = True
+        self._thread.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def render_performance_sharded(build: Callable, total_frames: int, mesh: Mesh,
                                chunk_size: int = 65536,
                                timeout: Optional[float] = None) -> np.ndarray:
-    """Render the piece that `build` makes with its voices sharded over the
-    mesh's devices, one process a device (zang_tpu/parallel/mesh.py
-    render_performance_sharded; RenderJob says what `build` returns).
-    Returns f32 numpy [C, total_frames]. A rank that raises makes this
-    raise; nothing falls back."""
-    if mesh.axis != "voices":
-        raise ValueError(f"a sharded render splits voices, not {mesh.axis!r}")
-    with tempfile.TemporaryDirectory(prefix="zang_sharded_") as tmp:
-        path = os.path.join(tmp, "mix.npy")
-        run_ranks(render_rank, mesh, [RenderJob(build, total_frames, chunk_size, path)],
-                  timeout=timeout)
-        return np.load(path)
+    """Render the piece that `build` (a zero-argument build of the whole
+    piece, as RenderJob says; wrapped in whole()) makes with its voices
+    sharded over the mesh's devices, one process a device, as one job of a
+    ShardedRenderer (zang_tpu/parallel/mesh.py
+    render_performance_sharded). Returns f32 numpy [C, total_frames]. A
+    rank that raises makes this raise, and so does a render past `timeout`
+    seconds; nothing falls back."""
+    with ShardedRenderer(mesh, timeout=timeout) as r:
+        return r.render(RenderJob(whole(build), total_frames, chunk_size))[0]
