@@ -7,7 +7,7 @@ From the repo root, on a machine with CUDA, nvcc, g++ and torch. Phases,
 each of which raises on failure:
 
   1. the card: nvidia-smi name and power limit, torch's device name
-  2. build, all at once: the five CUDA kernels from zang_tpu_torch/csrc/
+  2. build, all at once: the six CUDA kernels from zang_tpu_torch/csrc/
      (nvcc, one process per source), the C++ host compiler and the
      reference oracle's inner loops (g++, csrc/zang_host.cpp and
      csrc/zang_oracle.cpp), into zang_tpu_torch/build/
@@ -99,20 +99,29 @@ each of which raises on failure:
      states within 1e-5); timed beside K1 called by name at 1024, 4096 and
      16384 voices x 65536 frames, each K3 time beside its chain floor
      (onepass_chain_floor_ms, printed only) and its bytes-bound share
+  6c. W, the tile-window cut (csrc/tile_windows.cu), against its plain
+     version tile_windows_ref on the same tables on the card, bit for bit
+     and dtype for dtype, on every chunk of the song's four programs and of
+     poly_echo's two at 4096 voices x 8 s (plan_windows at chunk 65536),
+     the chunk's first frame by value and read from the card; each
+     program's cut of its middle chunk timed a call beside the plain
+     version, with its device time beside its bound (the bytes it writes)
   7. the main paths, each with every kernel's launch count set to 0 just
-     before it and read just after:
+     before it and read just after (W's apart from the other five: one
+     launch a SegProgram and chunk on every path that takes window plans,
+     checked on the song and the configs below):
        song       the full 385 s Bach Toccata, render_song_s16(device="cuda"):
-                  282 K1 launches
+                  282 K1 launches, 1,128 W
        sampler    10 s, render_config_s16("sampler", device="cuda"):
                   7 K4 launches (the fused entry, one a chunk; its own
-                  count 7 too), the render bit for bit with the same
+                  count 7 too), 7 W, the render bit for bit with the same
                   render through the chain the fused entry replaced
                   (eval_chunk, then eval_sampler with the two-tap entry)
        poly_echo  1024 voices x 30 s stereo, render_config_s16("poly_echo",
-                  device="cuda"): 21 K1 launches
+                  device="cuda"): 21 K1 launches, 42 W
        poly_echo at 4096 and at 16384 voices x 8 s (the JAX package's
                   capacity sizes), render_config_s16("poly_echo", 8.0,
-                  voices=N, device="cuda"): 6 K3 launches and no K1 each,
+                  voices=N, device="cuda"): 6 K3 launches, no K1 and 12 W each,
                   peak device memory under 64 GiB
      then each again in its two timed steps (plan, device render); then
        song_flat  the full song at a 65,000-frame chunk (the flat chunk
@@ -241,7 +250,8 @@ each of which raises on failure:
                   at half the voices (282 K1 a rank; 6 K3 a rank), within
                   -120 dBFS of phase 7's renders, the song also within the
                   parity budget of the JAX golden windows, both ranks' mixes
-                  the same bits; a rank's voices, kernel, timelines, plan,
+                  the same bits; every rank launches W once a SegProgram and
+                  chunk; a rank's voices, kernel, timelines, plan,
                   slice and render seconds and peak device memory
        (c)        with two cards or more, (b) through NCCL over every card
        (d)        the live fleet at 256 lanes (block 4096, the Toccata's
@@ -255,7 +265,9 @@ each of which raises on failure:
      -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
      tests/test_torch_cuda_paths.py` in a subprocess (those files import
      neither jax nor zang_tpu; the suite's conftest does), beside the soak
-     of phase 14: rc 0 and every collected case passed, more than none
+     of phase 14: rc 0 and every collected case passed, more than none,
+     but the NCCL rank cases that ask for more cards than the machine has
+     (they skip: "needs W cards")
   14. the port's bench and soak, each in a subprocess as a user runs them:
      `python -m zang_tpu_torch.bench` at a cut size (the song 60 s,
      poly_echo 4096 voices x 8 s, the sampler 10 s, serve 2 jobs x 30 s in
@@ -306,7 +318,7 @@ each of which raises on failure:
   10. no module of jax or of zang_tpu was imported (checked last)
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches, errors, times and bounds; before the
+the kernels (W among them) with their launches, errors, times and bounds; before the
 card's line, {"live": ...} holds phase 9b's block times and fidelity,
 {"serve": ...} phase 11's numbers, {"multi_gpu": ...} phase 12's,
 {"bench": ...} phases 13 and 14's and {"oracle": ...} phase 15's
@@ -327,6 +339,8 @@ TOL_DB = -120.0  # kernel vs plain (tests/test_ops_effects.py:270, :297)
 TOL_STATE = 1e-5  # end states (tests/test_ops_effects.py:271-272)
 PARITY_DB = -90.0  # the parity budget (FIDELITY.md)
 CHUNK = 65536
+# the SegPrograms of a render (W launches once each a chunk), by config
+SEGPROGRAMS = {"song": 4, "poly_echo": 2, "sampler": 1}
 # published H100 SXM peaks at 700 W (NVIDIA H100 datasheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
@@ -1076,16 +1090,69 @@ def fm_bytes_ops(V, n):
 
 
 # ---------------------------------------------------------------------------
+# W, the tile-window cut (phase 6c)
+
+
+def run_windows(card, dev):
+    """W against tile_windows_ref on the same tables on the card, bit for
+    bit, on every chunk of the song's programs and of poly_echo's at 4096
+    voices x 8 s, the first frame by value and from the card; each
+    program's middle chunk timed. Returns (errs, times) by shape."""
+    import torch
+    from zang_tpu_torch.graph import render as trender
+    from zang_tpu_torch.host import configs, song
+    from zang_tpu_torch.ops import tile_windows as tw
+    from zang_tpu_torch.ops.segprog import SegProgram, plan_windows
+
+    total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
+    pieces = {"song": (song.build_performance(total), total),
+              "poly_echo_4096": configs.build_poly_echo_performance(num_voices=4096,
+                                                                    seconds=8.0)}
+    errs, times = {}, {}
+    for piece, (perf, total) in pieces.items():
+        n_chunks = -(-total // CHUNK)
+        sps = trender._leaves(perf.programs, SegProgram)
+        tables = trender._leaves(trender._upload_tables(sps, dev), tw.SegTable)
+        for p, (sp, table) in enumerate(zip(sps, tables)):
+            label = f"{piece}.{p}"
+            plan = plan_windows(sp, CHUNK, n_chunks, total)
+            for i in range(n_chunks):
+                c0 = torch.tensor([i * CHUNK], dtype=torch.int32, device=dev)
+                want = tw.tile_windows_ref(table, plan, i * CHUNK)
+                for got in (tw.tile_windows_cuda(table, plan, i * CHUNK),
+                            tw.tile_windows_cuda(table, plan, c0)):
+                    if got.keys() != want.keys() or not all(
+                            got[k].dtype == w.dtype and torch.equal(got[k], w)
+                            for k, w in want.items()):
+                        raise AssertionError(f"W {label} chunk {i}: not the plain cut")
+            errs[label] = 0.0
+            V, K = sp.starts.shape
+            written = V * plan.nt * plan.S * (4 + sum(v.element_size()
+                                                      for v in table.values.values()))
+            print(f"  W {label}: V={V}, K={K}, S={plan.S}, {n_chunks} chunks, bit for bit "
+                  f"with tile_windows_ref on the card, c0 by value and from the card")
+            c0 = torch.tensor([(n_chunks // 2) * CHUNK], dtype=torch.int32, device=dev)
+            times[label] = timing(card, f"W {label}",
+                                  lambda: tw.tile_windows_cuda(table, plan, c0),
+                                  lambda: tw.tile_windows_ref(table, plan, c0),
+                                  "windows_kernel", written, 0, 200, 50)
+    return errs, times
+
+
+# ---------------------------------------------------------------------------
 # main paths
 
 
 def counts(svf_cuda, lookup, fm):
-    """The five kernels' launch counts in this process (the port's
+    """The five render kernels' launch counts in this process (the port's
     "launch.<kernel>" counters, read through zang_tpu_torch/parallel/mesh.py,
-    which a rank reads too)."""
+    which a rank reads too), W's left out: launched("tile_windows") reads
+    it where a path checks it."""
     from zang_tpu_torch.parallel.mesh import launch_counts
 
-    return launch_counts()
+    c = launch_counts()
+    c.pop("tile_windows")
+    return c
 
 
 def launched(*kernels) -> tuple:
@@ -1217,12 +1284,12 @@ def check_old_chain(audio_np, render, label, chunks):
     same bits, with `chunks` two-tap launches and no fused one."""
     import numpy as np
 
-    from zang_tpu_torch.parallel.mesh import launch_counts, reset_launch_counts
+    from zang_tpu_torch.parallel.mesh import reset_launch_counts
 
     reset_launch_counts()
     with old_sampler_chain():
         chain = render().cpu().numpy()
-    got = launch_counts()
+    got = counts(None, None, None)
     same = chain.shape == audio_np.shape and np.array_equal(chain.view(np.int32),
                                                            audio_np.view(np.int32))
     print(f"  {label} through the chain the fused entry replaced (eval_chunk, then "
@@ -2485,9 +2552,13 @@ def run_sharded(card, tag, mesh, launches, want, gold):
             kname = ("svf_onepass" if name.startswith("poly_echo")
                      and V >= filters.ONEPASS_V_MIN else "svf_table")
             n_chunks = -(-job.total_frames // job.chunk_size)
-            if r["launches"] != expect_counts(**{kname: n_chunks}):
+            got = dict(r["launches"])
+            w = got.pop("tile_windows")
+            n_w = SEGPROGRAMS["song" if name == "song" else "poly_echo"]
+            if got != expect_counts(**{kname: n_chunks}) or w != n_w * n_chunks:
                 raise AssertionError(f"{tag} {name} rank {r['rank']}: launches "
-                                     f"{r['launches']}, expected {n_chunks} {kname}")
+                                     f"{r['launches']}, expected {n_chunks} {kname} and "
+                                     f"{n_w * n_chunks} tile_windows")
             # NCCL's all-reduce is captured with the chunk (GraphStep: the first
             # chunk eager, every later one a replay); gloo's keeps the eager step
             replays = r["counts"].get("graph.replays", 0)
@@ -2502,7 +2573,7 @@ def run_sharded(card, tag, mesh, launches, want, gold):
                   f"render {r['render_s']:.3f}s, peak device memory {peak:.2f} GiB [{card}]")
             if not peak < 64.0:
                 raise AssertionError(f"{tag} {name}: peak device memory {peak:.2f} GiB")
-            for k, v in r["launches"].items():
+            for k, v in got.items():
                 total_launches[k] += v
         launches[f"{name}_{tag}"] = total_launches
         if len({r["digest"] for r in ranks}) != 1:
@@ -2646,16 +2717,39 @@ def bench_launches():
     its renders (a warm one and 3 timed; serve's warm job of 8 s and one
     pass; the fleet's warm block and 8 timed)."""
     chunks = lambda seconds, sr: -(-int(seconds * sr) // CHUNK)
+    sampler = 4 * chunks(BENCH_SAMPLER_SECONDS, 44100.0)
+    poly = 4 * chunks(BENCH_POLY_SECONDS, 44100.0)
+    fidelity = chunks(BENCH_SONG_SECONDS, 48000.0)
+    song4 = 4 * fidelity
+    # W a SegProgram and chunk where the render takes window plans; serve's
+    # shared step takes host slices (serve/batch.py), the fleet no programs
     return {
-        "bench_sampler": {"table_lookup": 4 * chunks(BENCH_SAMPLER_SECONDS, 44100.0),
-                          "sampler_play": 4 * chunks(BENCH_SAMPLER_SECONDS, 44100.0)},
-        "bench_poly": {"svf_onepass": 4 * chunks(BENCH_POLY_SECONDS, 44100.0)},
+        "bench_sampler": {"table_lookup": sampler, "sampler_play": sampler,
+                          "tile_windows": SEGPROGRAMS["sampler"] * sampler},
+        "bench_poly": {"svf_onepass": poly, "tile_windows": SEGPROGRAMS["poly_echo"] * poly},
         "bench_serve": {"svf_table": chunks(8.0, 48000.0)
                         + BENCH_SERVE_SONGS * chunks(BENCH_SERVE_SECONDS, 48000.0)},
         "bench_fleet": {"svf_dense": 1 + 8},
-        "bench_fidelity": {"svf_table": chunks(BENCH_SONG_SECONDS, 48000.0)},
-        "bench_song": {"svf_table": 4 * chunks(BENCH_SONG_SECONDS, 48000.0)},
+        "bench_fidelity": {"svf_table": fidelity,
+                           "tile_windows": SEGPROGRAMS["song"] * fidelity},
+        "bench_song": {"svf_table": song4, "tile_windows": SEGPROGRAMS["song"] * song4},
     }
+
+
+def cards_short(suite, cards) -> list:
+    """The skipped cases of a junit suite that are NCCL rank cases asking
+    for more cards than `cards` (tests/test_torch_cuda_paths.py
+    test_nccl_ranks_*: "needs W cards"); every other skip counts against
+    phase 13."""
+    import re
+
+    out = []
+    for case in suite.iter("testcase"):
+        for skip in case.findall("skipped"):
+            m = re.search(r"needs (\d+) cards", skip.get("message", ""))
+            if case.get("name", "").startswith("test_nccl_ranks") and m and int(m[1]) > cards:
+                out.append(case.get("name"))
+    return out
 
 
 def run_bench_soak_tests(card):
@@ -2665,6 +2759,8 @@ def run_bench_soak_tests(card):
     import math
     import tempfile
     import xml.etree.ElementTree as ET
+
+    import torch
 
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = {}
@@ -2691,10 +2787,11 @@ def run_bench_soak_tests(card):
         suite = suite if suite.tag == "testsuite" else suite.find("testsuite")
         n = {k: int(suite.get(k)) for k in ("tests", "errors", "failures", "skipped")}
         passed = n["tests"] - n["errors"] - n["failures"] - n["skipped"]
+        fewer = cards_short(suite, torch.cuda.device_count())
         print(f"phase 13: {' '.join(CUDA_TESTS)} -m cuda --noconftest: {passed} of "
-              f"{n['tests']} collected passed (rc {tests.returncode}, {tests_s:.1f}s beside "
-              f"the soak) [{card}]")
-        if tests.returncode != 0 or not passed == n["tests"] > 0:
+              f"{n['tests']} collected passed, {len(fewer)} skipped for want of cards "
+              f"(rc {tests.returncode}, {tests_s:.1f}s beside the soak) [{card}]")
+        if tests.returncode != 0 or not passed + len(fewer) == n["tests"] > 0:
             print(test_log[-6000:])
             raise AssertionError(f"phase 13: the card's kernel tests: {n}, rc {tests.returncode}")
         out["tests"] = dict(collected=n["tests"], passed=passed, seconds=round(tests_s, 1))
@@ -2942,10 +3039,10 @@ def main() -> int:
 
     # 2. build: one compiler process per source, all started together
     t = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         jobs = {f"{stem}.cu": pool.submit(_build.build, stem)
                 for stem in ("svf_table", "svf_dense", "svf_onepass", "table_lookup",
-                             "fm_feedback")}
+                             "fm_feedback", "tile_windows")}
         jobs["zang_host.cpp"] = pool.submit(native.build)
         jobs["zang_oracle.cpp"] = pool.submit(oracle_native.build)
         secs = {name: job.result() for name, job in jobs.items()}
@@ -3277,7 +3374,11 @@ def main() -> int:
     svf_err["router S=5"] = onepass_err.pop("router S=5")  # a K1 launch
     svf_t.update({k: v for k, v in k1_by_name.items() if k != "v1024"})
 
+    # 6c. W vs its plain version on the card
+    windows_err, windows_t = run_windows(card, dev)
+
     launches = {}
+    windows = {}  # W's launches by main path
 
     # 7-8. the song
     total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
@@ -3287,13 +3388,17 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches["song"] = counts(svf_cuda, lookup, fm)
+    windows["song"], = launched("tile_windows")
     print(f"song: render_song_s16(device='cuda'): {pcm.shape[0]} frames in "
           f"{wall:.3f}s end to end (RTF {song.NUM_SECONDS / wall:.1f}), "
-          f"launches {launches['song']} [{card}]")
+          f"launches {launches['song']}, W {windows['song']} [{card}]")
     if pcm.shape != (total,) or pcm.dtype != np.int16:
         raise AssertionError(f"pcm {pcm.shape} {pcm.dtype}, expected ({total},) int16")
     if launches["song"] != expect_counts(svf_table=-(-total // CHUNK)):
         raise AssertionError(f"song launches {launches['song']}")
+    if windows["song"] != SEGPROGRAMS["song"] * -(-total // CHUNK):
+        raise AssertionError(f"song: {windows['song']} W launches, expected one a "
+                             f"program and chunk")
     if np.count_nonzero(pcm) < total // 2:
         raise AssertionError("the song render is mostly silent")
     t = time.perf_counter()
@@ -3364,14 +3469,18 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches[name] = counts(svf_cuda, lookup, fm)
+        windows[name], = launched("tile_windows")
         print(f"{name}: render_config_s16({config!r}, {seconds}, device='cuda'"
               f"{''.join(f', {k}={v}' for k, v in kw.items())}): {pcm.shape} in "
               f"{wall:.3f}s end to end (RTF {seconds / wall:.1f}), "
-              f"launches {launches[name]} [{card}]")
+              f"launches {launches[name]}, W {windows[name]} [{card}]")
         if pcm.shape != (channels, total) or pcm.dtype != np.int16:
             raise AssertionError(f"{name}: pcm {pcm.shape} {pcm.dtype}")
         if launches[name] != expect:
             raise AssertionError(f"{name}: launches {launches[name]}, expected {expect}")
+        if windows[name] != SEGPROGRAMS[config] * -(-total // CHUNK):
+            raise AssertionError(f"{name}: {windows[name]} W launches, expected one a "
+                                 f"program and chunk")
         if np.count_nonzero(pcm) < pcm.size // 2:
             raise AssertionError(f"the {name} render is mostly silent")
         if name != "poly_echo_16384":
@@ -3452,10 +3561,12 @@ def main() -> int:
     if bad:
         raise AssertionError(f"modules of jax or zang_tpu were imported: {bad}")
 
-    def kernel_row(name, source, replaces, errs, times, main_shape):
+    def kernel_row(name, source, replaces, errs, times, main_shape, counted=None):
         """One kernel's entry: the main shape's numbers at the top level,
-        every shape's under "shapes", the launches of each main path."""
-        by_path = {path: c[name] for path, c in launches.items() if c[name]}
+        every shape's under "shapes", the launches of each main path
+        (`counted`, by path, for W)."""
+        by_path = ({path: n for path, n in counted.items() if n} if counted is not None
+                   else {path: c[name] for path, c in launches.items() if c[name]})
         return {"name": name, "route": "cuda", "source": f"zang_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "max_abs_err": max(errs.values()), **times[main_shape],
@@ -3474,6 +3585,8 @@ def main() -> int:
                    lk_err, lk_t, "sampler"),
         kernel_row("fm_feedback", "fm_feedback.cu", "zang_tpu/ops/pallas_fm.py:64",
                    fm_err, fm_t, "fmsynth"),
+        kernel_row("tile_windows", "tile_windows.cu", "zang_tpu/ops/segprog.py:92",
+                   windows_err, windows_t, "poly_echo_4096.1", counted=windows),
     ]
     for r in rows:
         if not r["launches"]:

@@ -123,7 +123,7 @@ def test_pad_slot_axes_is_the_jax_packages():
     buckets, bit for bit."""
     perf, total = _song(SONG_C, 1.3)
     for chunk in (CHUNK, 1000):
-        xs, _ = perf.chunk_xs(total, chunk)
+        xs, _ = trender.host_slices(perf, total, chunk)
         for minimum in (1, 4, 8):
             got = tbatch._pad_slot_axes(xs, minimum)
             want = jbatch._pad_slot_axes(xs, minimum)

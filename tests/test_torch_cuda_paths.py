@@ -24,8 +24,18 @@ song, the first 3 chunks of poly_echo at 4096 voices, the song at a flat
 chunk); a stream resumed from a held mid-piece state is the straight
 render; what a call returned is never overwritten by later calls; the
 kernels' launch counts are the eager render's (282 K1 for the song, 6 K3
-for poly_echo at 4096 voices x 8 s); and K1 and K3 given the chunk's first
-frame in device memory are their by-value launch bit for bit.
+for poly_echo at 4096 voices x 8 s, and the tile windows' one a program
+and chunk: 1,128 and 12); and K1 and K3 given the chunk's first
+frame in device memory are their by-value launch bit for bit. The graphed
+render sends the programs' tables up once and cuts each chunk's tiles on
+the card, one cut a program a chunk ("slice.windows").
+
+The tile windows (ops/tile_windows.py): the kernel's cut of every chunk,
+its first frame by value and read from the card, is the plain version's
+bit for bit (the song's programs, poly_echo's at 4096 voices, and drawn
+edge cases with 40 values of 1 to 8 bytes), one launch a cut of up to 32
+values ("launch.tile_windows"); it refuses what it cannot cut, and counts
+nothing then.
 """
 
 import functools
@@ -42,6 +52,8 @@ from zang_tpu_torch.host import examples as tex
 from zang_tpu_torch.host import instruments as tti
 from zang_tpu_torch.host import song
 from zang_tpu_torch.ops import filters as tfilt
+from zang_tpu_torch.ops import tile_windows as twin
+from zang_tpu_torch.ops.segprog import SegProgram, plan_windows
 from zang_tpu_torch.parallel import mesh as pm
 from zang_tpu_torch.serve.batch import BatchRenderer, RenderJob
 
@@ -295,8 +307,9 @@ def _graph_perf(name):
 
 def _eager_loop(perf, total, chunk, dev):
     """Performance.render_chunk called in a loop: every op enqueued from
-    here, the chunk's first frame an int. Returns [C, total] on dev."""
-    xs, n_chunks = perf.chunk_xs(total, chunk)
+    here, the chunk's first frame an int, the programs sliced on the host.
+    Returns [C, total] on dev."""
+    xs, n_chunks = trender.host_slices(perf, total, chunk)
     static = [trender._map_arrays(p, lambda a: trender._to_device(a, dev))
               for p in perf.programs]
     base = torch.arange(chunk, dtype=torch.int32, device=dev)
@@ -327,10 +340,15 @@ def test_graphed_render_is_the_eager_loop(cuda_device, name):
     np.testing.assert_array_equal(got, want)
     assert np.abs(want).max() > 1e-3
     diff = {k: after.get(k, 0) - before.get(k, 0)
-            for k in ("graph.captures", "graph.replays", "h2d.copies", "chunks")}
+            for k in ("graph.captures", "graph.replays", "h2d.copies", "chunks",
+                      "slice.windows")}
     static = sum(len(trender._leaves(p)) for p in perf.programs)
+    # tiled: the tables in one copy, each chunk's tiles cut on the card
+    tiled = trender.tiled(chunk)
+    progs = len(trender._leaves(perf.programs, SegProgram)) if tiled else 0
     assert diff == {"graph.captures": 1, "graph.replays": n_chunks - 1,
-                    "h2d.copies": n_chunks + static, "chunks": n_chunks}
+                    "h2d.copies": n_chunks + static + tiled, "chunks": n_chunks,
+                    "slice.windows": n_chunks * progs}
 
 
 @pytest.mark.cuda
@@ -374,16 +392,18 @@ def test_what_a_graphed_step_returned_is_never_overwritten(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,kernel,launches", [("song", "svf_table", 282),
-                                                   ("poly_echo_4096", "svf_onepass", 6)])
-def test_graphed_render_counts_every_launch(cuda_device, name, kernel, launches):
+@pytest.mark.parametrize("name,kernel,launches,windows", [("song", "svf_table", 282, 1128),
+                                                           ("poly_echo_4096", "svf_onepass", 6,
+                                                            12)])
+def test_graphed_render_counts_every_launch(cuda_device, name, kernel, launches, windows):
+    # the tile windows: one launch a SegProgram (the song's 4, poly_echo's 2) and chunk
     perf, total, chunk = _graph_perf(name)
     before = pm.launch_counts()
     render_performance(perf, total, chunk, device=cuda_device)
     torch.cuda.synchronize()
     after = pm.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == {
-        k: launches if k == kernel else 0 for k in after}
+    want = {kernel: launches, "tile_windows": windows}
+    assert {k: after[k] - before[k] for k in after} == {k: want.get(k, 0) for k in after}
 
 
 def _table_case(V, n, nt, S, t0, seed=3):
@@ -417,3 +437,76 @@ def test_table_kernels_read_t0_from_the_card(cuda_device, kernel, shape):
     for a, b in zip(by_value, by_pointer):
         assert torch.equal(a, b)
     assert float(by_value[2].abs().max()) > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the tile windows cut on the card (ops/tile_windows.py, csrc/tile_windows.cu)
+
+
+def _windows_cases(name):
+    """[(SegProgram, chunk, total)] of a render's programs, or of programs
+    drawn to hit the edges (starts at and past total, on tile boundaries,
+    before 0, repeated) with 40 values of 1 to 8 bytes an element (two
+    launches a cut)."""
+    if name != "edges":
+        perf, total, chunk = _graph_perf(name)
+        return [(sp, chunk, total) for sp in trender._leaves(perf.programs, SegProgram)]
+    rng = np.random.default_rng(5)
+    V, K, total = 33, 40, 20000
+    starts = np.sort(np.concatenate([rng.integers(-600, total + 1500, (V, K // 2)),
+                                     rng.integers(0, total // 512 + 2, (V, K // 2)) * 512],
+                                    axis=1), axis=1)
+    starts[0] = [0] + [total] * (K - 1)
+    starts[1, 3:9] = starts[1, 3]
+    dtypes = [np.float32, np.int32, np.uint32, np.float64, np.int16, np.uint8, np.int64]
+    values = {f"v{j}": rng.integers(0, 200, (V, K)).astype(dtypes[j % len(dtypes)])
+              for j in range(40)}
+    return [(SegProgram(starts, values), c, total) for c in (2048, 5120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["song", "poly_echo_4096", "edges"])
+def test_tile_windows_kernel_is_the_plain_cut(cuda_device, name):
+    """Every chunk's cut by the kernel (c0 by value, and read from the card)
+    against the plain version's on the CPU, bit for bit and dtype for dtype."""
+    for sp, chunk, total in _windows_cases(name):
+        n_chunks = -(-total // chunk)
+        plan = plan_windows(sp, chunk, n_chunks, total)
+        host = trender._upload_tables([sp], "cpu")[0]
+        card = trender._upload_tables([sp], cuda_device)[0]
+        launches = -(-max(len(sp.values), 1) // 32)
+        for i in range(n_chunks):
+            want = twin.tile_windows_ref(host, plan, i * chunk)
+            c0 = torch.tensor([i * chunk], dtype=torch.int32, device=cuda_device)
+            before = pm.launch_counts()["tile_windows"]
+            cuts = (twin.tile_windows_cuda(card, plan, i * chunk),
+                    twin.tile_windows_cuda(card, plan, c0))
+            assert pm.launch_counts()["tile_windows"] - before == 2 * launches
+            for got in cuts:
+                assert got.keys() == want.keys()
+                for k, w in want.items():
+                    g = got[k].cpu()
+                    assert g.dtype == w.dtype and g.shape == w.shape, (k, i)
+                    assert torch.equal(g, w), (k, i)
+
+
+@pytest.mark.cuda
+def test_tile_windows_kernel_refuses_what_it_cannot_cut(cuda_device):
+    from zang_tpu_torch import trace
+
+    sp = _windows_cases("song")[0][0]
+    plan = plan_windows(sp, 65536, 2, 65536 * 2)
+    card = trender._upload_tables([sp], cuda_device)[0]
+    before = (pm.launch_counts()["tile_windows"], trace.counters().get("slice.windows", 0))
+    with pytest.raises(ValueError, match="int32"):
+        twin.tile_windows_cuda(twin.SegTable(card.starts.long(), card.values), plan, 0)
+    bad = {k: v[:, :1].contiguous() for k, v in card.values.items()}
+    with pytest.raises(ValueError, match="shape"):
+        twin.tile_windows_cuda(twin.SegTable(card.starts, bad), plan, 0)
+    with pytest.raises(ValueError, match="c0"):
+        twin.tile_windows_cuda(card, plan, torch.zeros(2, dtype=torch.int32,
+                                                        device=cuda_device))
+    with pytest.raises(ValueError, match="c0"):  # through the router
+        twin.tile_windows(card, plan, torch.zeros(2, dtype=torch.int32, device=cuda_device))
+    assert (pm.launch_counts()["tile_windows"],
+            trace.counters().get("slice.windows", 0)) == before

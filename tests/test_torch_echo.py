@@ -138,7 +138,7 @@ def test_poly_echo_state_across_calls(poly_pair):
     perf = convert.from_jax_performance(
         jperf, "cpu", post=tconfigs.poly_echo_post(POLY["num_voices"], POLY["main_delay"]))
     jxs, _ = jperf.chunk_xs(total, CHUNK)
-    txs, _ = perf.chunk_xs(total, CHUNK)
+    txs, _ = trender.host_slices(perf, total, CHUNK)
     jstep = jrender.make_stream_step(jperf, CHUNK)
     jstate = jperf.init_state()
     tstate = perf.init_state("cpu")

@@ -308,7 +308,7 @@ def _step_both(jperf, tperf, n_chunks, chunk, resume_at=0):
     state, port state, JAX out, port out)."""
     total = n_chunks * chunk
     jxs, _ = jperf.chunk_xs(total, chunk)
-    txs, _ = tperf.chunk_xs(total, chunk)
+    txs, _ = trender.host_slices(tperf, total, chunk)
     jstep = jrender.make_stream_step(jperf, chunk)
     jstate, tstate = jperf.init_state(), tperf.init_state("cpu")
     static = [trender._map_arrays(p, lambda a: trender._to_device(a, "cpu"))

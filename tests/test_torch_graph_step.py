@@ -3,8 +3,9 @@ GraphStep, ChunkLayout, capturable), on the CPU; the card's cases are in
 tests/test_torch_cuda_paths.py.
 
 - The packed layout round-trips: the views unpacked from one buffer are
-  the chunk's slices as the device holds them, in the tiled and the flat
-  chunk formats, with the chunk's first frame at byte 0.
+  the chunk's slices as the device holds them, host slices in the tiled
+  and the flat chunk formats, with the chunk's first frame at byte 0; a
+  tiled chunk of window plans packs its first frame alone.
 - Only Performances whose every part and post chain declare `capturable`
   qualify; on the CPU even those keep the eager step and count no graph.
 - A GraphStep called with programs takes the eager step.
@@ -23,6 +24,7 @@ from zang_tpu_torch.graph import render as trender
 from zang_tpu_torch.host import configs as tconfigs
 from zang_tpu_torch.host import instruments as ti
 from zang_tpu_torch.host import song as tsong
+from zang_tpu_torch.ops.segprog import SegProgram, WindowPlan
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
@@ -44,7 +46,7 @@ def _perf(name):
 @pytest.mark.parametrize("name", ["song", "poly_echo_16", "song_flat"])
 def test_packed_layout_round_trips(name):
     perf, total, chunk = _perf(name)
-    xs, n_chunks = perf.chunk_xs(total, chunk)
+    xs, n_chunks = trender.host_slices(perf, total, chunk)  # arrays in both formats
     layout = None
     for i in (0, n_chunks - 1):
         xs_i = trender._map_arrays(xs, lambda a, i=i: a[i])
@@ -71,11 +73,33 @@ def test_packed_layout_round_trips(name):
 
 def test_a_chunk_of_another_shape_takes_another_layout():
     perf, total, chunk = _perf("song")
+    host = lambda *a: trender.host_slices(perf, *a)  # noqa: E731
+    for cut in (perf.chunk_xs, host):  # window plans and host slices
+        xs, _ = cut(total, chunk)
+        other, _ = cut(total, chunk // 2)  # half the tiles a chunk
+        key = trender.ChunkLayout(trender._map_arrays(xs, lambda a: a[0])).key
+        assert key == trender.ChunkLayout.key_of(trender._leaves(
+            trender._map_arrays(xs, lambda a: a[1]), trender.CHUNK_LEAVES))
+        assert trender.ChunkLayout.key_of(trender._leaves(
+            trender._map_arrays(other, lambda a: a[0]), trender.CHUNK_LEAVES)) != key
+
+
+def test_a_tiled_chunk_packs_its_first_frame_alone():
+    """In the tiled format the chunk's slice is its window plans: the
+    packed buffer holds the first frame and no array, and the plans stay in
+    the layout's template."""
+    perf, total, chunk = _perf("song")
     xs, _ = perf.chunk_xs(total, chunk)
-    other, _ = perf.chunk_xs(total, chunk // 2)  # half the tiles a chunk
-    key = trender.ChunkLayout(trender._map_arrays(xs, lambda a: a[0])).key
-    assert trender.ChunkLayout.key_of(
-        trender._leaves(trender._map_arrays(other, lambda a: a[0]))) != key
+    layout = trender.ChunkLayout(xs)
+    assert layout.places == [] and layout.nbytes == trender.ALIGN
+    plans = trender._leaves(layout.template, WindowPlan)
+    assert len(plans) == len(trender._leaves(perf.programs, SegProgram)) > 0
+    buf = torch.zeros((layout.nbytes,), dtype=torch.uint8)
+    assert layout.pack(layout.host_views(buf), 3 * chunk,
+                       trender._leaves(xs, trender.CHUNK_LEAVES)) == []
+    c0, views = layout.views(buf)
+    assert c0.tolist() == [3 * chunk] and views == []
+    assert trender._leaves(layout.tree(views), WindowPlan) == plans
 
 
 def _script_part():

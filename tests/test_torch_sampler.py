@@ -36,6 +36,7 @@ from zang_tpu.ops.segprog import eval_chunk
 from zang_tpu_torch import convert
 from zang_tpu_torch.core.wav import read_wav
 from zang_tpu_torch.graph.fidelity import deviation_dbfs
+from zang_tpu_torch.graph.render import host_slices
 from zang_tpu_torch.graph.render import render_performance as trender
 from zang_tpu_torch.host import configs as tconfigs
 from zang_tpu_torch.host import render_wav
@@ -404,7 +405,7 @@ def test_fused_entry_replaces_the_chain_s_device_ops():
     for name, chunk in (("config", 65536), ("config", 16384), ("dense_retriggers", 8192)):
         if name == "config":
             perf, total = tconfigs.build_sampler_performance()
-            xs, _ = perf.chunk_xs(total, chunk)
+            xs, _ = host_slices(perf, total, chunk)
             prog = {k: torch.from_numpy(v[1]) for k, v in xs[0]["sampler"].items()}
             inst = perf.parts[0][0]
             data, N, ratio, loop = inst.table.data_f32, inst.table.num_samples, \

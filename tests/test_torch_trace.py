@@ -12,17 +12,18 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from zang_tpu_torch import trace
-from zang_tpu_torch.graph.render import _map_arrays, render_performance
+from zang_tpu_torch.graph.render import _leaves, _map_arrays, render_performance
 from zang_tpu_torch.host import instruments as ti
 from zang_tpu_torch.host.live import LiveSession
 from zang_tpu_torch.host.song import build_performance
+from zang_tpu_torch.ops.segprog import SegProgram
 from zang_tpu_torch.parallel.mesh import launch_counts, reset_launch_counts
 from zang_tpu_torch.serve.live import LiveFleet
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
 KERNELS = {"svf_table", "svf_dense", "svf_onepass", "table_lookup", "sampler_play",
-           "fm_feedback"}
+           "fm_feedback", "tile_windows"}
 
 
 @pytest.fixture
@@ -210,10 +211,13 @@ def test_a_render_spans_planning_and_every_chunk(recorder):
         if r.name.startswith("chunk."):
             assert by_id[r.parent].name == "chunk"
     assert after.get("chunks", 0) - before.get("chunks", 0) == n_chunks
-    # the static programs' arrays once, then each chunk's slices
-    static, per_chunk = _arrays(perf.programs), _arrays(perf.chunk_xs(total, chunk)[0])
-    assert per_chunk > 0
-    assert after["h2d.copies"] - before.get("h2d.copies", 0) == static + n_chunks * per_chunk
+    # the static programs' arrays and the SegPrograms' tables (one packed
+    # copy) once; each chunk's tiles are cut on the device, one cut a program
+    static = _arrays(perf.programs)
+    n_progs = len(_leaves(perf.programs, SegProgram))
+    assert n_progs > 0 and _arrays(perf.chunk_xs(total, chunk)[0]) == 0
+    assert after["h2d.copies"] - before.get("h2d.copies", 0) == static + 1
+    assert after["slice.windows"] - before.get("slice.windows", 0) == n_chunks * n_progs
 
 
 def test_a_live_block_spans_windows_pack_and_launch(recorder):

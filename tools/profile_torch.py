@@ -110,7 +110,7 @@ def _runner(name):
     """(render, seconds, chunks, plan seconds, slice seconds): render()
     renders `name` on the card. An example's render plans too, so its plan
     seconds are 0. Slice seconds: the host's share of a config's render
-    that cuts the programs into per-chunk tiles (Performance.chunk_xs,
+    that prepares the programs' per-chunk tiles (Performance.chunk_xs,
     which render_performance runs before its first chunk), timed alone."""
     from zang_tpu_torch.graph.render import render_performance
     from zang_tpu_torch.host import configs, examples, midi, song

@@ -40,10 +40,10 @@ headline (the full Bach Toccata's render RTF) LAST. In print order:
 
 RTF (sampler, poly, song) = seconds of audio / seconds of the best of 3
 timed renders after one warm render, as bench.py's _steady_rtf: the piece
-is planned, every chunk's programs sliced (Performance.chunk_xs) and put on
-the device before the clock starts; a timed render is the chunk loop
-through one make_stream_step from a fresh init_state, ending in a scalar
-fetch (.sum().item()). The warm render also closes the end-to-end time
+is planned, every chunk's programs cut (Performance.chunk_xs) and what the
+step needs put on the device before the clock starts; a timed render is
+the chunk loop through one make_stream_step from a fresh init_state,
+ending in a scalar fetch (.sum().item()). The warm render also closes the end-to-end time
 (planning, slicing, upload, render and the s16 fetch), printed for the song
 and poly_echo.
 
@@ -84,17 +84,19 @@ from .core import native
 from .core.mixdown import mixdown_s16
 from .device import require_device
 from .graph.fidelity import deviation_dbfs
-from .graph.render import _leaves, _map_arrays, _to_device, make_stream_step
+from .graph.render import _device_dtype, _leaves, _map_arrays, _to_device, make_stream_step
 from .host import configs
 from .host import instruments as ti
 from .host import song as sm
 from .ops import _build
+from .ops.segprog import SegProgram, WindowPlan
 from .oracle import native as oracle_native
 from .parallel.mesh import launch_counts, reset_launch_counts
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "song_golden_jax.npz")
-KERNELS = ("svf_table", "svf_dense", "svf_onepass", "table_lookup", "fm_feedback")
+KERNELS = ("svf_table", "svf_dense", "svf_onepass", "table_lookup", "fm_feedback",
+           "tile_windows")
 FLEET_SR = 48000.0
 FLEET_TIMED_BLOCKS = 8
 
@@ -114,7 +116,7 @@ def _spread_note(label, walls):
 
 
 class _Meter:
-    """A metric's launches (the five wrappers' counters, from 0) and peak
+    """A metric's launches (the six kernels' counters, from 0) and peak
     device memory, noted on stderr when it ends."""
 
     def __init__(self, label: str, dev) -> None:
@@ -132,22 +134,29 @@ class _Meter:
 
 
 def prepare(perf, total: int, chunk: int, dev):
-    """Host, before any clock: slice every chunk's programs and put them on
-    `dev`, and make one step (its static programs uploaded once). Returns
-    (run, seconds): run() renders the piece from a fresh init_state and
-    returns f32 [C, total] on `dev`, render_performance's bits; no numpy
-    array reaches the step, so a run uploads nothing. seconds: the slice
-    and upload times and the bytes of the chunk programs on `dev`."""
+    """Host, before any clock: cut every chunk's programs (window plans, or
+    the flat format's slices, put on `dev`) and make one step (its static
+    programs and the programs' tables uploaded once). Returns (run,
+    seconds): run() renders the piece from a fresh init_state and returns
+    f32 [C, total] on `dev`, render_performance's bits; no numpy array
+    reaches the step, so a run uploads nothing. seconds: the slice and
+    upload times and the bytes of the chunk programs on `dev` (the slices,
+    or the tables the tiles are cut from)."""
     t = time.perf_counter()
     xs, n_chunks = perf.chunk_xs(total, chunk)
     slice_s = time.perf_counter() - t
     t = time.perf_counter()
     xs_dev = [_map_arrays(xs, lambda a, i=i: _to_device(a[i], dev)) for i in range(n_chunks)]
     step = make_stream_step(perf, chunk, device=dev)
+    step.tables()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     upload_s = time.perf_counter() - t
     nbytes = sum(a.numel() * a.element_size() for x in xs_dev for a in _leaves(x))
+    if _leaves(xs, WindowPlan):
+        nbytes += sum(sp.starts.size * 4 + sum(v.size * _device_dtype(v).itemsize
+                                               for v in sp.values.values())
+                      for sp in _leaves(perf.programs, SegProgram))
 
     def run() -> torch.Tensor:
         out = torch.empty((perf.num_channels, n_chunks * chunk), dtype=torch.float32,
@@ -375,7 +384,7 @@ def _card_line(dev) -> str:
 
 def _build_kernels(dev) -> None:
     """Set-up, before any clock: the host compiler and the oracle's loops
-    (g++) and, on the card, the five kernels (nvcc), one process a source,
+    (g++) and, on the card, the six kernels (nvcc), one process a source,
     all started together."""
     t = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS) + 2) as pool:

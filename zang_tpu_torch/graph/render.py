@@ -3,8 +3,10 @@
 The JAX package renders the piece as one lax.scan over chunks; here it is a
 host loop over chunks that carries the state ((per-part states, post
 state): filter l/b, decimator counters, delay lines). One chunk is one call
-of the step that make_stream_step returns: the chunk's program slices go
-to the device and every part renders. render_performance writes the chunks
+of the step that make_stream_step returns: the chunk's program slices are
+cut on the device (the tiled format, from each SegProgram's tables, which
+the step sends up once) or go to it (the flat format), and every part
+renders. render_performance writes the chunks
 into one preallocated device tensor [C, n_chunks * chunk]; stream_blocks
 yields them one at a time as f32 numpy blocks, the same bits.
 
@@ -34,6 +36,7 @@ render_parts and finish_chunk. Without one (one device) the chunk goes from
 the parts to the post chain as it is.
 """
 
+import functools
 import threading
 from contextlib import nullcontext
 from dataclasses import dataclass
@@ -43,10 +46,16 @@ import numpy as np
 import torch
 
 from ..device import require_device
-from ..ops.segprog import SegProgram, chunkify, chunkify_tiled
+from ..ops.segprog import SegProgram, WindowPlan, chunkify, chunkify_tiled, plan_windows
+from ..ops.tile_windows import SegTable, tile_windows
 from ..trace import capture_counts, count, span
 
 TILE = 512
+
+
+def tiled(chunk_size: int, tile: int = TILE) -> bool:
+    """Whether a chunk of chunk_size frames takes the tiled format."""
+    return chunk_size % tile == 0 and chunk_size >= tile
 
 
 @dataclass(frozen=True)
@@ -103,16 +112,26 @@ class Performance:
         return states, post
 
     def chunk_xs(self, total_frames: int, chunk_size: int, tile: int = TILE):
-        """Host: per-chunk slices of every SegProgram ([n_chunks, ...]
-        arrays), tiled when the chunk is a whole number of tiles, flat
-        otherwise; other leaves become () and are merged back per chunk."""
+        """Host: what the chunk step needs of every SegProgram. When the chunk
+        is a whole number of tiles, a WindowPlan (ops/segprog.plan_windows):
+        the step cuts each chunk's tiles on the device from the program's
+        tables (ops/tile_windows.py). Otherwise the flat format's per-chunk
+        slices ([n_chunks, ...] arrays, chunkify). Other leaves become () and
+        are merged back per chunk. Returns (tree, n_chunks)."""
         n_chunks = -(-total_frames // chunk_size)
 
         def conv(sp: SegProgram):
-            if chunk_size % tile == 0 and chunk_size >= tile:
-                return chunkify_tiled(sp, chunk_size, n_chunks, total_frames, tile)
+            if tiled(chunk_size, tile):
+                return plan_windows(sp, chunk_size, n_chunks, total_frames, tile)
             ch = chunkify(sp, chunk_size, n_chunks, total_frames)
             return {"starts": ch.starts, **ch.values}
+
+        with span("slice"):
+            return self.each_program(conv), n_chunks
+
+    def each_program(self, conv: Callable):
+        """The programs with each SegProgram replaced by conv(it) and every
+        other leaf by ()."""
 
         def walk(prog):
             if isinstance(prog, SegProgram):
@@ -123,8 +142,7 @@ class Performance:
                 return type(prog)(walk(v) for v in prog)
             return ()
 
-        with span("slice"):
-            return [walk(p) for p in self.programs], n_chunks
+        return [walk(p) for p in self.programs]
 
     def merge_chunk(self, prog, xs_chunk):
         """Merge chunk-local seg slices into the static program structure."""
@@ -197,6 +215,18 @@ class Performance:
         return (new_states, post_state), out
 
 
+def host_slices(perf: Performance, total_frames: int, chunk_size: int, tile: int = TILE):
+    """perf.chunk_xs with the tiled format's slices built on the host
+    ([n_chunks, V, nt, S] arrays, chunkify_tiled) in place of window plans,
+    for a caller that needs the arrays themselves: serve/batch.py pads their
+    slot axes to buckets shared across songs."""
+    if not tiled(chunk_size, tile):
+        return perf.chunk_xs(total_frames, chunk_size, tile)
+    n_chunks = -(-total_frames // chunk_size)
+    return perf.each_program(
+        lambda sp: chunkify_tiled(sp, chunk_size, n_chunks, total_frames, tile)), n_chunks
+
+
 def _map_arrays(tree, fn, leaf=np.ndarray):
     """tree with fn applied to each leaf (an instance of `leaf`)."""
     if isinstance(tree, leaf):
@@ -238,6 +268,7 @@ def capturable(perf: Performance) -> bool:
 
 
 ALIGN = 16  # bytes: every array of a packed chunk starts on a multiple
+CHUNK_LEAVES = (np.ndarray, torch.Tensor, WindowPlan)  # the leaves of a chunk
 _DTYPES = {np.dtype(np.uint32): torch.int64}  # numpy -> the device's (u32 rides int64)
 
 
@@ -254,10 +285,11 @@ def _device_dtype(a) -> torch.dtype:
 class ChunkLayout:
     """One packed buffer for a chunk's inputs: the chunk's first frame
     (int32) at byte 0, then each array of its slice of perf.chunk_xs, as
-    the device holds it, at the next multiple of ALIGN bytes. pack() writes
-    a chunk into host views of such a buffer; views() reads a buffer (on
-    any device) back as arrays, tree() puts them in the slice's places. A
-    chunk takes the layout when key_of(its leaves) equals .key."""
+    the device holds it, at the next multiple of ALIGN bytes (a WindowPlan
+    takes no room: it stays in the template). pack() writes a chunk into
+    host views of such a buffer; views() reads a buffer (on any device) back
+    as arrays, tree() puts them in the slice's places. A chunk takes the
+    layout when key_of(its leaves, CHUNK_LEAVES) equals .key."""
 
     def __init__(self, xs_chunk) -> None:
         self.places = []  # (byte offset, shape, device dtype) a leaf
@@ -273,11 +305,12 @@ class ChunkLayout:
 
         self.template = _map_arrays(xs_chunk, place, (np.ndarray, torch.Tensor))
         self.nbytes = off
-        self.key = tuple((shape, dtype) for _, shape, dtype in self.places)
+        self.key = self.key_of(_leaves(xs_chunk, CHUNK_LEAVES))
 
     @staticmethod
     def key_of(leaves) -> tuple:
-        return tuple((tuple(a.shape), _device_dtype(a)) for a in leaves)
+        return tuple(a.key if isinstance(a, WindowPlan) else (tuple(a.shape), _device_dtype(a))
+                     for a in leaves)
 
     def views(self, buf: torch.Tensor):
         """(the first frame int32 [1], [each leaf]) as views of the byte
@@ -298,6 +331,7 @@ class ChunkLayout:
         hc0, hv = host_views
         hc0[0] = c0
         on_device = []
+        leaves = [a for a in leaves if not isinstance(a, WindowPlan)]
         for i, (a, v) in enumerate(zip(leaves, hv)):
             if isinstance(a, torch.Tensor):
                 if a.device.type != "cpu":
@@ -320,21 +354,33 @@ def make_stream_step(perf: Performance, chunk_size: int = 65536, *, device="cuda
 
     state: ((per-part states), post state), or None for perf.init_state;
     c0: the chunk's first frame; xs_chunk: that chunk's slice of
-    perf.chunk_xs (numpy), uploaded here. The static programs go to the
-    device once, when the step is made, so one step serves any number of
-    streams of the same perf. programs, if given, replaces them: the static
-    programs, already on the device, of another Performance with the same
-    instruments, voice counts and post chain (serve/batch.py shares one step
-    among such songs).
+    perf.chunk_xs: its arrays (numpy) are uploaded here, and each
+    WindowPlan becomes the chunk's tiles, cut on the device from the
+    program's tables (ops/tile_windows.py; the counter "slice.windows"
+    counts each cut). The static programs go to the device once, when the
+    step is made, and every SegProgram's tables once, at the first chunk
+    that carries a WindowPlan, so one step serves any number of streams of
+    the same perf. programs, if given, replaces the static programs: those,
+    already on the device, of another Performance with the same
+    instruments, voice counts and post chain (serve/batch.py shares one
+    step among such songs); such a call takes host slices (host_slices),
+    not plans.
 
     On the card, when every part, the post chain and the reduction are
     `capturable`, the step is a GraphStep: the same bits, each chunk after
     its first two one replay of a CUDA graph fed by one packed upload.
     Otherwise, and for a call with programs, every op is enqueued from here
-    (eager)."""
+    (eager). Either step's .tables() sends the tables up at once (the next
+    call finds them there) and returns them."""
     dev = require_device(device)
     static = [_map_arrays(p, lambda a: _to_device(a, dev)) for p in perf.programs]
     base = torch.arange(chunk_size, dtype=torch.int32, device=dev)
+
+    @functools.cache
+    def tables():
+        """Every SegProgram's SegTable on dev, sent up when a chunk first
+        needs them (None when the chunk is not a whole number of tiles)."""
+        return _upload_tables(perf.programs, dev) if tiled(chunk_size) else None
 
     def step(state, c0: int, xs_chunk, programs=None):
         count("chunks")
@@ -344,12 +390,54 @@ def make_stream_step(perf: Performance, chunk_size: int = 65536, *, device="cuda
             ctx = RenderCtx(perf.sample_rate, base + c0, c0, chunk_size)
             with span("chunk.upload"):
                 chunk_progs = _map_arrays(xs_chunk, lambda a: _to_device(a, dev))
+                if programs is not None and _leaves(chunk_progs, WindowPlan):
+                    raise ValueError("a step given programs takes host slices "
+                                     "(host_slices), not window plans")
+                chunk_progs = _windows(chunk_progs, tables, c0)
             return perf.render_chunk(state, chunk_progs, ctx,
                                      static if programs is None else programs)
 
     if dev.type == "cuda" and capturable(perf):
-        return GraphStep(perf, chunk_size, dev, static, base, step)
+        return GraphStep(perf, chunk_size, dev, static, base, step, tables)
+    step.tables = tables
     return step
+
+
+def _upload_tables(programs, dev):
+    """programs with every SegProgram replaced by its SegTable on dev, all
+    of them sent in one packed copy (a ChunkLayout's buffer); None when
+    there is no SegProgram."""
+    sps = _leaves(programs, SegProgram)
+    if not sps:
+        return None
+    host = [{"starts": np.clip(sp.starts, -2 ** 31, 2 ** 31 - 1).astype(np.int32),
+             "values": sp.values} for sp in sps]
+    lay = ChunkLayout(host)
+    buf = torch.empty((lay.nbytes,), dtype=torch.uint8)
+    lay.pack(lay.host_views(buf), 0, _leaves(host))
+    count("h2d.copies")
+    got = iter(lay.tree(lay.views(buf.to(dev))[1]))
+    return _map_arrays(programs, lambda sp: SegTable(**next(got)), SegProgram)
+
+
+def _windows(xs, tables, c0):
+    """xs (a chunk's slice) with each WindowPlan replaced by the chunk's
+    tiles, cut from the SegTable at its place in tables() (tile_windows),
+    which is called only for a slice that holds a plan."""
+    return _cut(xs, tables(), c0) if _leaves(xs, WindowPlan) else xs
+
+
+def _cut(xs, tables, c0):
+    if isinstance(xs, WindowPlan):
+        if not isinstance(tables, SegTable):
+            raise ValueError("a window plan needs a step whose chunk is a whole "
+                             "number of tiles")
+        return tile_windows(tables, xs, c0)
+    if isinstance(xs, dict) and isinstance(tables, dict):
+        return {k: _cut(v, tables[k], c0) for k, v in xs.items()}
+    if isinstance(xs, (list, tuple)) and isinstance(tables, (list, tuple)):
+        return type(xs)(_cut(v, t, c0) for v, t in zip(xs, tables))
+    return xs
 
 
 class GraphStep:
@@ -357,22 +445,25 @@ class GraphStep:
     post chain capture: the eager step's bits, each chunk's host work one
     packed upload and one CUDA graph replay.
 
-    Every call packs the chunk's first frame and slices into a pinned host
-    buffer (two, taken in turns, each reused only once its last copy is
-    done) and copies it to the device in one copy_. The first call of a
-    chunk shape renders eagerly from views of that device buffer (it warms
-    the kernels up, and a traced job keeps one real SVF call); the second
-    captures render_chunk on views of it, its state in buffers of the step
-    that the graph writes the new state back into, and replays; every later
-    call replays. Each call returns copies of the audio and the state, so a
+    Every call packs the chunk's first frame and its arrays (the flat
+    format's slices; none in the tiled format, whose tiles the graph cuts
+    from the step's tables at the first frame it reads from the buffer)
+    into a pinned host buffer (two, taken in turns, each reused only once
+    its last copy is done) and copies it to the device in one copy_. The
+    first call of a chunk shape renders eagerly from views of that device
+    buffer (it warms the kernels up, and a traced job keeps one real SVF
+    call); the second captures the cut and render_chunk on views of it, its
+    state in buffers of the step that the graph writes the new state back
+    into, and replays; every later call replays. Each call returns copies of the audio and the state, so a
     later call never overwrites what an earlier one returned; a state other
     than the one the last call returned is copied in first. A call with
     programs takes the eager step. The step is locked a call, so threads
     may share it."""
 
-    def __init__(self, perf, chunk_size, dev, static, base, eager) -> None:
+    def __init__(self, perf, chunk_size, dev, static, base, eager,
+                 tables: Callable = lambda: None) -> None:
         self.perf, self.n, self.dev = perf, chunk_size, dev
-        self.static, self.base, self.eager = static, base, eager
+        self.static, self.base, self.eager, self.tables = static, base, eager, tables
         # the replay holds the chunk's all-reduce when perf has one
         self.reduces = getattr(perf, "reduce", None) is not None
         self.layout = None
@@ -391,7 +482,7 @@ class GraphStep:
                 self.stream = cur
                 if state is None:
                     state = self.perf.init_state(self.dev)
-                leaves = _leaves(xs_chunk)
+                leaves = _leaves(xs_chunk, CHUNK_LEAVES)
                 if self.layout is None or ChunkLayout.key_of(leaves) != self.layout.key:
                     self._new_layout(xs_chunk)
                 with span("chunk.upload"):
@@ -403,7 +494,8 @@ class GraphStep:
                     return self._replay(state)
                 self.warm = True
                 ctx = RenderCtx(self.perf.sample_rate, self.base + c0, c0, self.n)
-                return self.perf.render_chunk(state, self.xs, ctx, self.static)
+                return self.perf.render_chunk(state, _windows(self.xs, self.tables, self.c0),
+                                              ctx, self.static)
 
     def _new_layout(self, xs_chunk) -> None:
         lay = self.layout = ChunkLayout(xs_chunk)
@@ -441,8 +533,8 @@ class GraphStep:
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 ctx = RenderCtx(self.perf.sample_rate, self.base + self.c0, self.c0, self.n)
-                new_state, self.out = self.perf.render_chunk(self.state, self.xs, ctx,
-                                                             self.static)
+                new_state, self.out = self.perf.render_chunk(
+                    self.state, _windows(self.xs, self.tables, self.c0), ctx, self.static)
                 _copy_tree(self.state, new_state)
             finally:
                 graph.capture_end()

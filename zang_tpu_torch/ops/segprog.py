@@ -8,7 +8,11 @@ Two chunk formats, as in the JAX package:
   masked delta sums over the chunk's segments (ops/scan.pconst_multi).
 
 chunkify and chunkify_tiled are numpy twins of zang_tpu.ops.segprog's
-(that module imports jax); their arrays are bit-identical.
+(that module imports jax); their arrays are bit-identical. A render does
+not build the tiled arrays on the host: plan_windows gives each program's
+WindowPlan (its slot count S) and the chunk step cuts each chunk's tiles on
+the device from the program's [V, K] tables (ops/tile_windows.py), the
+same bits as chunkify_tiled's slice of that chunk.
 """
 
 from dataclasses import dataclass
@@ -127,6 +131,55 @@ def chunkify_tiled(
             vals.reshape(V, n_chunks, nt, S).swapaxes(0, 1)
         )
     return out
+
+
+@dataclass(eq=False)
+class WindowPlan:
+    """How the chunk step cuts one SegProgram's tiles on the device
+    (ops/tile_windows.py) in place of chunkify_tiled's arrays: S slots a
+    tile, nt tiles of `tile` frames a chunk and the piece's `total` frames
+    (the cut finds each voice's last segment, the last that starts before
+    total, from its row of starts)."""
+
+    S: int
+    nt: int
+    tile: int
+    total: int
+
+    @property
+    def key(self) -> tuple:
+        """What a chunk's cut depends on besides the program and c0."""
+        return ("windows", self.S, self.nt, self.tile, self.total)
+
+
+def plan_windows(
+    sp: SegProgram, chunk_size: int, n_chunks: int, total: int, tile: int = 512
+) -> WindowPlan:
+    """chunkify_tiled's slot count S, in O(V K) from the starts: a tile's
+    window holds the segment covering its start (when one does) and every
+    segment before cap (the voice's segments that start before total, at
+    least 1) that starts strictly inside it, so S is the most such starts
+    in one tile of the n_chunks chunks, plus one where the voice's first
+    segment covers the tile, and at least 1."""
+    if chunk_size % tile:
+        raise ValueError(f"chunk_size {chunk_size} is not a multiple of tile {tile}")
+    s = sp.starts
+    V, K = s.shape
+    nt = chunk_size // tile
+    n_tiles = n_chunks * nt
+    cap = np.maximum((s < total).sum(axis=1), 1)  # searchsorted(s, total, left)
+    inside = ((np.arange(K)[None, :] < cap[:, None]) & (s > 0) & (s % tile != 0)
+              & (s < n_tiles * tile))
+    v, k = np.nonzero(inside)  # row-major: (voice, tile) runs come in order
+    S = 1
+    if v.size:
+        tid = s[v, k] // tile
+        key = v * n_tiles + tid
+        run = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+        counts = np.diff(np.r_[run, key.size])
+        covered = s[v[run], 0] <= tid[run] * tile
+        S = max(S, int((counts + covered).max()))
+    return WindowPlan(S=S, nt=nt, tile=tile, total=int(total))
 
 
 def eval_tiled_chunk(chunk_prog: dict, t_idx: torch.Tensor) -> dict:

@@ -333,11 +333,11 @@ def whole(build: Callable) -> Callable:
 
 
 _KERNELS = ("svf_table", "svf_dense", "svf_onepass", "table_lookup", "sampler_play",
-            "fm_feedback")
+            "fm_feedback", "tile_windows")
 
 
 def launch_counts() -> dict:
-    """The five kernels' launch counts in this process (the counters
+    """The six kernels' launch counts in this process (the counters
     "launch.<kernel>" of trace.counters()), and under "sampler_play" how
     many of table_lookup's came from its fused entry."""
     c = trace.counters()

@@ -44,7 +44,8 @@ import torch
 from ..core.mixdown import mixdown_s16
 from ..core.wav import StreamingWavWriter
 from ..device import require_device
-from ..graph.render import Performance, _map_arrays, _to_device, make_stream_step
+from ..graph.render import (Performance, _map_arrays, _to_device, host_slices,
+                            make_stream_step)
 from ..ops.segprog import SegProgram
 
 # -- program splitting: per-song arrays become the step's arguments ----------
@@ -305,7 +306,7 @@ def render_song_shared(
     (into pinned memory on a card) and waited for only when it is fetched,
     so downloads overlap the next segments' work."""
     dev = _device(device)
-    xs_np, n_chunks = perf.chunk_xs(total_frames, chunk_size)
+    xs_np, n_chunks = host_slices(perf, total_frames, chunk_size)
     xs_np = _pad_slot_axes(xs_np, slot_minimum)
     n_seg = max(1, math.ceil(n_chunks / segment_chunks))
 
