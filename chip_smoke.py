@@ -268,15 +268,9 @@ each of which raises on failure:
      of phase 14: rc 0 and every collected case passed, more than none,
      but the NCCL rank cases that ask for more cards than the machine has
      (they skip: "needs W cards")
-  14. the port's bench and soak, each in a subprocess as a user runs them:
-     `python -m zang_tpu_torch.bench` at a cut size (the song 60 s,
-     poly_echo 4096 voices x 8 s, the sampler 10 s, serve 2 jobs x 30 s in
-     one pass, the fleet at 64 lanes, no idle wait): its six JSON lines in
-     bench.py's order with the headline last, finite values, the fidelity
-     under the parity budget, and each metric's launches (from its `#`
-     lines) those of its chunks and renders; then `python -m
-     zang_tpu_torch.tools.soak --seconds 20 --clients 2 --json` (run beside
-     phase 13), every invariant of its report holding
+  14. the port's soak in a subprocess as a user runs it, beside phase 13:
+     `python -m zang_tpu_torch.tools.soak --seconds 20 --clients 2
+     --json`, every invariant of its report holding
   15. the reference oracle on the card's host (zang_tpu_torch/oracle: numpy
      and C++ on the CPU, held bit for bit to the JAX package's oracle by
      tests/test_torch_oracle*.py), against which the card's renders are
@@ -321,7 +315,7 @@ The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels (W among them) with their launches, errors, times and bounds; before the
 card's line, {"live": ...} holds phase 9b's block times and fidelity,
 {"serve": ...} phase 11's numbers, {"multi_gpu": ...} phase 12's,
-{"bench": ...} phases 13 and 14's and {"oracle": ...} phase 15's
+{"tests_soak": ...} phases 13 and 14's and {"oracle": ...} phase 15's
 readings and the oracle's host seconds. Exits non-zero, printing no result,
 without CUDA or outside a checkout of the repo.
 """
@@ -334,6 +328,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
+# the card's published peaks and the SVF's bytes, as the benchmark counts them
+from benchmark.yardstick import PEAK_BYTES_PER_S, PEAK_F32_PER_S, svf_dense_bytes, svf_table_bytes
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL_DB = -120.0  # kernel vs plain (tests/test_ops_effects.py:270, :297)
 TOL_STATE = 1e-5  # end states (tests/test_ops_effects.py:271-272)
@@ -341,9 +338,6 @@ PARITY_DB = -90.0  # the parity budget (FIDELITY.md)
 CHUNK = 65536
 # the SegPrograms of a render (W launches once each a chunk), by config
 SEGPROGRAMS = {"song": 4, "poly_echo": 2, "sampler": 1}
-# published H100 SXM peaks at 700 W (NVIDIA H100 datasheet)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
 SVF_OPS_PER_SAMPLE = 21  # one SVF step and its output mix (Filter.zig:123-151)
 # K1's and K2's latency floor, an estimate: the dependent f32 operations of
 # one SVF step (svf_scan.cuh step: 11 from the state in to the state out),
@@ -586,12 +580,11 @@ def svf_label(label, args):
 
 
 def svf_table_bytes_ops(args):
-    """x read, out written, the tables (tb, cutv), active_from, l0/b0 in
-    and l/b out, each once; the SVF's operations on every sample."""
+    """K1's bytes (benchmark/yardstick.svf_table_bytes); the SVF's
+    operations on every sample."""
     V, n = args[2].shape
     _, nt, S = args[4].shape
-    af = 0 if args[8] is None else V
-    return 4 * (2 * V * n + 2 * V * nt * S + af + 4 * V), SVF_OPS_PER_SAMPLE * V * n
+    return svf_table_bytes(V, n, nt, S, args[8] is not None), SVF_OPS_PER_SAMPLE * V * n
 
 
 def render_slots(configs, voices, seconds):
@@ -634,17 +627,15 @@ def dense_label(label, args):
 
 
 def dense_bytes_ops(args):
-    """x read, out written, a dense cutoff and the mask read, l0/b0 in and
-    l/b out, each once; the SVF's operations on the active samples only."""
+    """K2's bytes (benchmark/yardstick.svf_dense_bytes); the SVF's
+    operations on the active samples only."""
     import torch
 
     V, n = args[2].shape
     cut, act = args[4], args[6]
     dense_cut = isinstance(cut, torch.Tensor) and cut.shape[-1] == n
-    n_bytes = 4 * 2 * V * n + (4 * V * n if dense_cut else 0) + \
-        (V * n if act is not None else 0) + 4 * 4 * V
     active = V * n if act is None else int(act.sum())
-    return n_bytes, SVF_OPS_PER_SAMPLE * active
+    return svf_dense_bytes(V, n, dense_cut, act is not None), SVF_OPS_PER_SAMPLE * active
 
 
 def onepass_chain_floor_ms(n, mhz):
@@ -1103,6 +1094,7 @@ def run_windows(card, dev):
     from zang_tpu_torch.host import configs, song
     from zang_tpu_torch.ops import tile_windows as tw
     from zang_tpu_torch.ops.segprog import SegProgram, plan_windows
+    from zang_tpu_torch.tree import tree_leaves
 
     total = int(song.NUM_SECONDS * song.SAMPLE_RATE)
     pieces = {"song": (song.build_performance(total), total),
@@ -1111,8 +1103,8 @@ def run_windows(card, dev):
     errs, times = {}, {}
     for piece, (perf, total) in pieces.items():
         n_chunks = -(-total // CHUNK)
-        sps = trender._leaves(perf.programs, SegProgram)
-        tables = trender._leaves(trender._upload_tables(sps, dev), tw.SegTable)
+        sps = tree_leaves(perf.programs, SegProgram)
+        tables = tree_leaves(trender._upload_tables(sps, dev), tw.SegTable)
         for p, (sp, table) in enumerate(zip(sps, tables)):
             label = f"{piece}.{p}"
             plan = plan_windows(sp, CHUNK, n_chunks, total)
@@ -1145,10 +1137,10 @@ def run_windows(card, dev):
 
 def counts(svf_cuda, lookup, fm):
     """The five render kernels' launch counts in this process (the port's
-    "launch.<kernel>" counters, read through zang_tpu_torch/parallel/mesh.py,
-    which a rank reads too), W's left out: launched("tile_windows") reads
-    it where a path checks it."""
-    from zang_tpu_torch.parallel.mesh import launch_counts
+    "launch.<kernel>" counters, read through zang_tpu_torch/trace.py, as a
+    rank reads them), W's left out: launched("tile_windows") reads it where
+    a path checks it."""
+    from zang_tpu_torch.trace import launch_counts
 
     c = launch_counts()
     c.pop("tile_windows")
@@ -1157,14 +1149,14 @@ def counts(svf_cuda, lookup, fm):
 
 def launched(*kernels) -> tuple:
     """counts()' values of `kernels`, in order."""
-    from zang_tpu_torch.parallel.mesh import launch_counts
+    from zang_tpu_torch.trace import launch_counts
 
     c = launch_counts()
     return tuple(c[k] for k in kernels)
 
 
 def reset_counts(svf_cuda, lookup, fm):
-    from zang_tpu_torch.parallel.mesh import reset_launch_counts
+    from zang_tpu_torch.trace import reset_launch_counts
 
     reset_launch_counts()
 
@@ -1284,7 +1276,7 @@ def check_old_chain(audio_np, render, label, chunks):
     same bits, with `chunks` two-tap launches and no fused one."""
     import numpy as np
 
-    from zang_tpu_torch.parallel.mesh import reset_launch_counts
+    from zang_tpu_torch.trace import reset_launch_counts
 
     reset_launch_counts()
     with old_sampler_chain():
@@ -2690,50 +2682,10 @@ def run_multi_gpu(card, launches, song_mix, poly_mix):
 
 
 # ---------------------------------------------------------------------------
-# the port's kernel tests on the card (phase 13), its bench and soak (phase 14)
+# the port's kernel tests on the card (phase 13) and its soak (phase 14)
 
 CUDA_TESTS = ("tests/test_torch_cuda_kernels.py", "tests/test_torch_cuda_paths.py")
-BENCH_SONG_SECONDS = 60.0
-BENCH_POLY_VOICES, BENCH_POLY_SECONDS = 4096, 8.0
-BENCH_SAMPLER_SECONDS = 10.0
-BENCH_SERVE_SONGS, BENCH_SERVE_SECONDS = 2, 30.0
-BENCH_FLEET_LANES = 64
-BENCH_ENV = dict(ZANG_BENCH_SECONDS=str(BENCH_SONG_SECONDS),
-                 ZANG_BENCH_POLY_VOICES=str(BENCH_POLY_VOICES),
-                 ZANG_BENCH_POLY_SECONDS=str(BENCH_POLY_SECONDS),
-                 ZANG_BENCH_SAMPLER_SECONDS=str(BENCH_SAMPLER_SECONDS),
-                 ZANG_BENCH_SERVE_SONGS=str(BENCH_SERVE_SONGS),
-                 ZANG_BENCH_SERVE_SECONDS=str(BENCH_SERVE_SECONDS),
-                 ZANG_BENCH_SERVE_PASSES="1", ZANG_BENCH_FLEET_LANES=str(BENCH_FLEET_LANES),
-                 ZANG_BENCH_IDLE_WAIT="0")
-BENCH_METRICS = ("torch_sampler_chain_rtf_44k", "torch_poly_echo_voices_per_chip",
-                 "torch_batch_serve_rtf_aggregate", "torch_live_fleet_sessions_per_chip",
-                 "torch_bach_render_fidelity_rms_dbfs", "torch_bach_toccata_render_rtf_48k")
 SOAK_SECONDS, SOAK_CLIENTS = 20.0, 2
-
-
-def bench_launches():
-    """Each bench metric's launches at BENCH_ENV's sizes: its chunks times
-    its renders (a warm one and 3 timed; serve's warm job of 8 s and one
-    pass; the fleet's warm block and 8 timed)."""
-    chunks = lambda seconds, sr: -(-int(seconds * sr) // CHUNK)
-    sampler = 4 * chunks(BENCH_SAMPLER_SECONDS, 44100.0)
-    poly = 4 * chunks(BENCH_POLY_SECONDS, 44100.0)
-    fidelity = chunks(BENCH_SONG_SECONDS, 48000.0)
-    song4 = 4 * fidelity
-    # W a SegProgram and chunk where the render takes window plans; serve's
-    # shared step takes host slices (serve/batch.py), the fleet no programs
-    return {
-        "bench_sampler": {"table_lookup": sampler, "sampler_play": sampler,
-                          "tile_windows": SEGPROGRAMS["sampler"] * sampler},
-        "bench_poly": {"svf_onepass": poly, "tile_windows": SEGPROGRAMS["poly_echo"] * poly},
-        "bench_serve": {"svf_table": chunks(8.0, 48000.0)
-                        + BENCH_SERVE_SONGS * chunks(BENCH_SERVE_SECONDS, 48000.0)},
-        "bench_fleet": {"svf_dense": 1 + 8},
-        "bench_fidelity": {"svf_table": fidelity,
-                           "tile_windows": SEGPROGRAMS["song"] * fidelity},
-        "bench_song": {"svf_table": song4, "tile_windows": SEGPROGRAMS["song"] * song4},
-    }
 
 
 def cards_short(suite, cards) -> list:
@@ -2752,11 +2704,9 @@ def cards_short(suite, cards) -> list:
     return out
 
 
-def run_bench_soak_tests(card):
+def run_tests_and_soak(card):
     """Phases 13 and 14, each command in a subprocess from the repo root:
-    the card's kernel tests beside the soak, then the bench alone. Returns
-    their numbers."""
-    import math
+    the card's kernel tests beside the soak. Returns their numbers."""
     import tempfile
     import xml.etree.ElementTree as ET
 
@@ -2808,39 +2758,6 @@ def run_bench_soak_tests(card):
     out["soak"] = {k: report.get(k) for k in (
         "blocks_per_client", "churn_drops", "stats_acks", "num_clients_at_end",
         "rss_growth_mb", "device_mb_end", "device_growth_mb", "wall_seconds")}
-    # 14. the bench, alone on the card
-    t = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "zang_tpu_torch.bench"], cwd=ROOT,
-                          env={**env, **BENCH_ENV}, capture_output=True, text=True,
-                          timeout=900)
-    bench_s = time.perf_counter() - t
-    notes = [ln for ln in proc.stderr.splitlines() if ln.startswith("# ")]
-    print("\n".join(notes))
-    if proc.returncode != 0:
-        print(proc.stderr[-6000:])
-        raise AssertionError(f"phase 14: the bench exited {proc.returncode}")
-    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
-    print("\n".join(json.dumps(ln) for ln in lines))
-    if tuple(ln["metric"] for ln in lines) != BENCH_METRICS or \
-            proc.stdout.strip().splitlines()[-1] != json.dumps(lines[-1]):
-        raise AssertionError(f"phase 14: the bench printed {[ln['metric'] for ln in lines]}")
-    if not all(math.isfinite(ln["value"]) and math.isfinite(ln["vs_baseline"])
-               for ln in lines):
-        raise AssertionError("phase 14: a metric is not finite")
-    values = {ln["metric"]: ln["value"] for ln in lines}
-    if not values["torch_bach_render_fidelity_rms_dbfs"] < PARITY_DB:
-        raise AssertionError(f"phase 14: fidelity {values} over the parity budget")
-    got = {}
-    for ln in notes:  # "# bench_song launches {...} over ..."
-        label, _, rest = ln[2:].partition(" launches ")
-        if rest:
-            got[label] = json.loads(rest.split(" over ")[0])
-    if got != bench_launches():
-        raise AssertionError(f"phase 14: the bench's launches {got}, expected "
-                             f"{bench_launches()}")
-    print(f"phase 14: the bench at a cut size in {bench_s:.1f}s, launches {got} [{card}]")
-    out.update(metrics=values, launches=got, seconds=round(bench_s, 1),
-               sizes={k[len("ZANG_BENCH_"):].lower(): v for k, v in BENCH_ENV.items()})
     return out
 
 
@@ -3553,8 +3470,8 @@ def main() -> int:
     multi = run_multi_gpu(card, launches, song_mix, poly16_mix)
     del song_mix, config_pcm, poly16_mix
 
-    # 13-14. the port's kernel tests on the card, its bench and its soak
-    bench = run_bench_soak_tests(card)
+    # 13-14. the port's kernel tests on the card and its soak
+    tests_soak = run_tests_and_soak(card)
 
     # 10. nothing of JAX
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "zang_tpu"))
@@ -3594,7 +3511,7 @@ def main() -> int:
     print(json.dumps({"live": live}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"multi_gpu": multi}))
-    print(json.dumps({"bench": bench}))
+    print(json.dumps({"tests_soak": tests_soak}))
     print(json.dumps({"oracle": oracle}))
     print(card)
     print(json.dumps({"kernels": rows}))

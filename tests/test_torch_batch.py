@@ -125,7 +125,7 @@ def test_pad_slot_axes_is_the_jax_packages():
     for chunk in (CHUNK, 1000):
         xs, _ = trender.host_slices(perf, total, chunk)
         for minimum in (1, 4, 8):
-            got = tbatch._pad_slot_axes(xs, minimum)
+            got = tbatch._pad_slot_axes(perf.programs, xs, minimum)
             want = jbatch._pad_slot_axes(xs, minimum)
             for g, w in zip(got, want):
                 assert g.keys() == w.keys()

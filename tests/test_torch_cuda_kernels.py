@@ -38,7 +38,7 @@ from zang_tpu_torch.ops import lookup, svf_cuda
 from zang_tpu_torch.ops import sampler as tsam
 from zang_tpu_torch.ops import scan as tscan
 from zang_tpu_torch.ops import segprog as tseg
-from zang_tpu_torch.parallel.mesh import launch_counts
+from zang_tpu_torch.trace import launch_counts
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 

@@ -46,6 +46,7 @@ import torch
 
 from zang_tpu_torch.core import timeline as ttl
 from zang_tpu_torch.core.notes import SongEvent as TSongEvent
+from zang_tpu_torch.device import arrays_to_device
 from zang_tpu_torch.graph import render as trender
 from zang_tpu_torch.graph.render import render_performance
 from zang_tpu_torch.host import examples as tex
@@ -56,6 +57,8 @@ from zang_tpu_torch.ops import tile_windows as twin
 from zang_tpu_torch.ops.segprog import SegProgram, plan_windows
 from zang_tpu_torch.parallel import mesh as pm
 from zang_tpu_torch.serve.batch import BatchRenderer, RenderJob
+from zang_tpu_torch.trace import launch_counts
+from zang_tpu_torch.tree import tree_leaves
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
@@ -105,14 +108,14 @@ def test_batch_launches_k1_once_a_real_chunk(cuda_device, monkeypatch):
         raise AssertionError("the plain SVF on a CUDA tensor")
 
     monkeypatch.setattr(tfilt, "svf_filter_table_ref", refuse)
-    before = pm.launch_counts()["svf_table"]
+    before = launch_counts()["svf_table"]
     br = BatchRenderer(chunk_size=CHUNK, segment_chunks=2, devices=[cuda_device])
     results = br.run([RenderJob("a", lambda: _song(SONG_A, 1.0)),
                       RenderJob("c", lambda: _song(SONG_C, 1.3))])
     torch.cuda.synchronize()
     assert all(r.status == "ok" for r in results) and br.cache.traces == 1
     chunks = sum(-(-int(s * SR) // CHUNK) for s in (1.0, 1.3))
-    assert pm.launch_counts()["svf_table"] - before == chunks
+    assert launch_counts()["svf_table"] - before == chunks
 
 
 # ---------------------------------------------------------------------------
@@ -125,10 +128,10 @@ def test_script_example_counts_k2_launches(cuda_device):
     11,025 halves each chunk to two sub-chunks of 8,192, and the feedback
     Filter (scalar res, low-pass) launches K2 once a sub-chunk: 17 chunks,
     34 launches."""
-    before = pm.launch_counts()["svf_dense"]
+    before = launch_counts()["svf_dense"]
     audio, sr = tex.ex_script(device="cuda")
     torch.cuda.synchronize()
-    assert pm.launch_counts()["svf_dense"] - before == 34
+    assert launch_counts()["svf_dense"] - before == 34
     assert audio.shape == (1, int(6.0 * sr)) and bool(torch.isfinite(audio).all())
 
 
@@ -164,12 +167,12 @@ def test_flat_nice_launches_k2_on_the_card(cuda_device, monkeypatch):
     monkeypatch.setattr(tfilt, "svf_filter_ref", refuse)
     total = FLAT * N_CHUNKS
     tls = ttl.compile_timelines(_flat_song(TSongEvent), 4, SR, total)
-    before = pm.launch_counts()["svf_dense"]
+    before = launch_counts()["svf_dense"]
     got = trender.render_performance(
         trender.Performance([(INSTRUMENTS["nice"](tti), tls)], SR), total, FLAT,
         device=cuda_device)
     torch.cuda.synchronize()
-    assert pm.launch_counts()["svf_dense"] == before + N_CHUNKS
+    assert launch_counts()["svf_dense"] == before + N_CHUNKS
     assert bool(torch.isfinite(got).all())
 
 
@@ -310,13 +313,12 @@ def _eager_loop(perf, total, chunk, dev):
     here, the chunk's first frame an int, the programs sliced on the host.
     Returns [C, total] on dev."""
     xs, n_chunks = trender.host_slices(perf, total, chunk)
-    static = [trender._map_arrays(p, lambda a: trender._to_device(a, dev))
-              for p in perf.programs]
+    static = arrays_to_device(perf.programs, dev)
     base = torch.arange(chunk, dtype=torch.int32, device=dev)
     state, out = perf.init_state(dev), []
     for i in range(n_chunks):
         c0 = i * chunk
-        progs = trender._map_arrays(xs, lambda a, i=i: trender._to_device(a[i], dev))
+        progs = arrays_to_device(trender.chunk_slice(xs, i), dev)
         ctx = trender.RenderCtx(perf.sample_rate, base + c0, c0, chunk)
         state, audio = perf.render_chunk(state, progs, ctx, static)
         out.append(audio)
@@ -342,10 +344,10 @@ def test_graphed_render_is_the_eager_loop(cuda_device, name):
     diff = {k: after.get(k, 0) - before.get(k, 0)
             for k in ("graph.captures", "graph.replays", "h2d.copies", "chunks",
                       "slice.windows")}
-    static = sum(len(trender._leaves(p)) for p in perf.programs)
+    static = sum(len(tree_leaves(p, trender.ARRAYS)) for p in perf.programs)
     # tiled: the tables in one copy, each chunk's tiles cut on the card
     tiled = trender.tiled(chunk)
-    progs = len(trender._leaves(perf.programs, SegProgram)) if tiled else 0
+    progs = len(tree_leaves(perf.programs, SegProgram)) if tiled else 0
     assert diff == {"graph.captures": 1, "graph.replays": n_chunks - 1,
                     "h2d.copies": n_chunks + static + tiled, "chunks": n_chunks,
                     "slice.windows": n_chunks * progs}
@@ -357,7 +359,7 @@ def test_stream_resumed_from_a_held_state_is_the_straight_render(cuda_device):
     want = render_performance(perf, total, chunk, device=cuda_device).cpu().numpy()
     xs, n_chunks = perf.chunk_xs(total, chunk)
     step = trender.make_stream_step(perf, chunk, device=cuda_device)
-    at = lambda i: trender._map_arrays(xs, lambda a: a[i])  # noqa: E731
+    at = lambda i: trender.chunk_slice(xs, i)  # noqa: E731
     state, k = None, 5
     for i in range(k):
         state, _ = step(state, i * chunk, at(i))
@@ -379,10 +381,10 @@ def test_what_a_graphed_step_returned_is_never_overwritten(cuda_device):
     perf, total, chunk = _graph_perf("poly_echo_4096_3")
     xs, n_chunks = perf.chunk_xs(total, chunk)
     step = trender.make_stream_step(perf, chunk, device=cuda_device)
-    at = lambda i: trender._map_arrays(xs, lambda a: a[i])  # noqa: E731
+    at = lambda i: trender.chunk_slice(xs, i)  # noqa: E731
     state, _ = step(None, 0, at(0))
     state, audio = step(state, chunk, at(1))  # the capture's chunk
-    leaves = trender._leaves(state, torch.Tensor)
+    leaves = tree_leaves(state, torch.Tensor)
     kept = [t.clone() for t in leaves] + [audio.clone()]
     step(state, 2 * chunk, at(2))  # from the state it returned
     step(state, 2 * chunk, at(2))  # and again, the held state copied in
@@ -398,10 +400,10 @@ def test_what_a_graphed_step_returned_is_never_overwritten(cuda_device):
 def test_graphed_render_counts_every_launch(cuda_device, name, kernel, launches, windows):
     # the tile windows: one launch a SegProgram (the song's 4, poly_echo's 2) and chunk
     perf, total, chunk = _graph_perf(name)
-    before = pm.launch_counts()
+    before = launch_counts()
     render_performance(perf, total, chunk, device=cuda_device)
     torch.cuda.synchronize()
-    after = pm.launch_counts()
+    after = launch_counts()
     want = {kernel: launches, "tile_windows": windows}
     assert {k: after[k] - before[k] for k in after} == {k: want.get(k, 0) for k in after}
 
@@ -450,7 +452,7 @@ def _windows_cases(name):
     launches a cut)."""
     if name != "edges":
         perf, total, chunk = _graph_perf(name)
-        return [(sp, chunk, total) for sp in trender._leaves(perf.programs, SegProgram)]
+        return [(sp, chunk, total) for sp in tree_leaves(perf.programs, SegProgram)]
     rng = np.random.default_rng(5)
     V, K, total = 33, 40, 20000
     starts = np.sort(np.concatenate([rng.integers(-600, total + 1500, (V, K // 2)),
@@ -478,10 +480,10 @@ def test_tile_windows_kernel_is_the_plain_cut(cuda_device, name):
         for i in range(n_chunks):
             want = twin.tile_windows_ref(host, plan, i * chunk)
             c0 = torch.tensor([i * chunk], dtype=torch.int32, device=cuda_device)
-            before = pm.launch_counts()["tile_windows"]
+            before = launch_counts()["tile_windows"]
             cuts = (twin.tile_windows_cuda(card, plan, i * chunk),
                     twin.tile_windows_cuda(card, plan, c0))
-            assert pm.launch_counts()["tile_windows"] - before == 2 * launches
+            assert launch_counts()["tile_windows"] - before == 2 * launches
             for got in cuts:
                 assert got.keys() == want.keys()
                 for k, w in want.items():
@@ -497,7 +499,7 @@ def test_tile_windows_kernel_refuses_what_it_cannot_cut(cuda_device):
     sp = _windows_cases("song")[0][0]
     plan = plan_windows(sp, 65536, 2, 65536 * 2)
     card = trender._upload_tables([sp], cuda_device)[0]
-    before = (pm.launch_counts()["tile_windows"], trace.counters().get("slice.windows", 0))
+    before = (launch_counts()["tile_windows"], trace.counters().get("slice.windows", 0))
     with pytest.raises(ValueError, match="int32"):
         twin.tile_windows_cuda(twin.SegTable(card.starts.long(), card.values), plan, 0)
     bad = {k: v[:, :1].contiguous() for k, v in card.values.items()}
@@ -508,5 +510,5 @@ def test_tile_windows_kernel_refuses_what_it_cannot_cut(cuda_device):
                                                         device=cuda_device))
     with pytest.raises(ValueError, match="c0"):  # through the router
         twin.tile_windows(card, plan, torch.zeros(2, dtype=torch.int32, device=cuda_device))
-    assert (pm.launch_counts()["tile_windows"],
+    assert (launch_counts()["tile_windows"],
             trace.counters().get("slice.windows", 0)) == before

@@ -20,6 +20,7 @@ from zang_tpu.host import configs as jconfigs
 from zang_tpu.ops import delay as jdelay
 from zang_tpu_torch import convert
 from zang_tpu_torch.core.wav import read_wav
+from zang_tpu_torch.device import arrays_to_device
 from zang_tpu_torch.graph import render as trender
 from zang_tpu_torch.graph.fidelity import deviation_dbfs
 from zang_tpu_torch.host import configs as tconfigs
@@ -142,8 +143,7 @@ def test_poly_echo_state_across_calls(poly_pair):
     jstep = jrender.make_stream_step(jperf, CHUNK)
     jstate = jperf.init_state()
     tstate = perf.init_state("cpu")
-    static = [trender._map_arrays(p, lambda a: trender._to_device(a, "cpu"))
-              for p in perf.programs]
+    static = arrays_to_device(perf.programs, "cpu")
     outs = []
     for i in range(2):
         jstate, jout = jstep(jstate, jnp.int32(i * CHUNK),
@@ -152,7 +152,7 @@ def test_poly_echo_state_across_calls(poly_pair):
                                 torch.arange(CHUNK, dtype=torch.int32) + i * CHUNK,
                                 i * CHUNK, CHUNK)
         tstate, tout = perf.render_chunk(
-            tstate, trender._map_arrays(txs, lambda a, i=i: trender._to_device(a[i], "cpu")),
+            tstate, arrays_to_device(trender.chunk_slice(txs, i), "cpu"),
             ctx, static)
         assert _db(tout.numpy(), jout) < -110.0
         outs.append(np.asarray(jout))

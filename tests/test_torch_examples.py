@@ -48,6 +48,7 @@ from zang_tpu_torch.core import timeline as ttl
 from zang_tpu_torch.core import twelve_tet as ttt
 from zang_tpu_torch.core.notes import SongEvent as TSongEvent
 from zang_tpu_torch.core.wav import read_wav
+from zang_tpu_torch.device import arrays_to_device
 from zang_tpu_torch.graph import render as trender
 from zang_tpu_torch.graph.render import render_performance
 from zang_tpu_torch.host import examples as tex
@@ -311,8 +312,7 @@ def _step_both(jperf, tperf, n_chunks, chunk, resume_at=0):
     txs, _ = trender.host_slices(tperf, total, chunk)
     jstep = jrender.make_stream_step(jperf, chunk)
     jstate, tstate = jperf.init_state(), tperf.init_state("cpu")
-    static = [trender._map_arrays(p, lambda a: trender._to_device(a, "cpu"))
-              for p in tperf.programs]
+    static = arrays_to_device(tperf.programs, "cpu")
     for i in range(n_chunks):
         jstate, jout = jstep(jstate, jnp.int32(i * chunk),
                              jax.tree_util.tree_map(lambda a, i=i: a[i], jxs))
@@ -320,7 +320,7 @@ def _step_both(jperf, tperf, n_chunks, chunk, resume_at=0):
                                 torch.arange(chunk, dtype=torch.int32) + i * chunk,
                                 i * chunk, chunk)
         tstate, tout = tperf.render_chunk(
-            tstate, trender._map_arrays(txs, lambda a, i=i: trender._to_device(a[i], "cpu")),
+            tstate, arrays_to_device(trender.chunk_slice(txs, i), "cpu"),
             ctx, static)
         yield i, jstate, tstate, np.asarray(jout), tout.numpy()
         if i == resume_at:

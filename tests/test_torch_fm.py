@@ -25,7 +25,7 @@ from zang_tpu.ops.scan import exclusive_cumsum_u32 as j_cumsum
 from zang_tpu.ops.scan import freq_to_ifreq as j_ifreq
 from zang_tpu.ops.scan import utof23 as j_utof23
 from zang_tpu_torch.ops import fm as tfm
-from zang_tpu_torch.parallel.mesh import launch_counts
+from zang_tpu_torch.trace import launch_counts
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 

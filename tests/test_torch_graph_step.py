@@ -20,11 +20,13 @@ import torch
 from zang_tpu_torch import trace
 from zang_tpu_torch.core.notes import SongEvent
 from zang_tpu_torch.core.timeline import compile_timelines
+from zang_tpu_torch.device import arrays_to_device
 from zang_tpu_torch.graph import render as trender
 from zang_tpu_torch.host import configs as tconfigs
 from zang_tpu_torch.host import instruments as ti
 from zang_tpu_torch.host import song as tsong
 from zang_tpu_torch.ops.segprog import SegProgram, WindowPlan
+from zang_tpu_torch.tree import tree_copy_, tree_leaves, tree_map
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
@@ -49,8 +51,8 @@ def test_packed_layout_round_trips(name):
     xs, n_chunks = trender.host_slices(perf, total, chunk)  # arrays in both formats
     layout = None
     for i in (0, n_chunks - 1):
-        xs_i = trender._map_arrays(xs, lambda a, i=i: a[i])
-        leaves = trender._leaves(xs_i)
+        xs_i = trender.chunk_slice(xs, i)
+        leaves = tree_leaves(xs_i, trender.ARRAYS)
         if layout is None:
             layout = trender.ChunkLayout(xs_i)
             buf = torch.full((layout.nbytes,), 0xAB, dtype=torch.uint8)
@@ -61,10 +63,10 @@ def test_packed_layout_round_trips(name):
         c0, views = layout.views(buf)
         got = layout.tree(views)
         assert c0.dtype == torch.int32 and c0.tolist() == [i * chunk]
-        want = trender._map_arrays(xs_i, lambda a: trender._to_device(a, "cpu"))
-        assert (trender._map_arrays(got, lambda t: (), torch.Tensor)
-                == trender._map_arrays(want, lambda t: (), torch.Tensor))
-        pairs = list(zip(trender._leaves(got), trender._leaves(want)))
+        want = arrays_to_device(xs_i, "cpu")
+        assert (tree_map(lambda t: (), got, leaf=torch.Tensor)
+                == tree_map(lambda t: (), want, leaf=torch.Tensor))
+        pairs = list(zip(tree_leaves(got, trender.ARRAYS), tree_leaves(want, trender.ARRAYS)))
         assert len(pairs) == len(leaves) > 0
         for g, w in pairs:
             assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
@@ -77,11 +79,11 @@ def test_a_chunk_of_another_shape_takes_another_layout():
     for cut in (perf.chunk_xs, host):  # window plans and host slices
         xs, _ = cut(total, chunk)
         other, _ = cut(total, chunk // 2)  # half the tiles a chunk
-        key = trender.ChunkLayout(trender._map_arrays(xs, lambda a: a[0])).key
-        assert key == trender.ChunkLayout.key_of(trender._leaves(
-            trender._map_arrays(xs, lambda a: a[1]), trender.CHUNK_LEAVES))
-        assert trender.ChunkLayout.key_of(trender._leaves(
-            trender._map_arrays(other, lambda a: a[0]), trender.CHUNK_LEAVES)) != key
+        key = trender.ChunkLayout(trender.chunk_slice(xs, 0)).key
+        assert key == trender.ChunkLayout.key_of(tree_leaves(
+            trender.chunk_slice(xs, 1), trender.CHUNK_LEAVES))
+        assert trender.ChunkLayout.key_of(tree_leaves(
+            trender.chunk_slice(other, 0), trender.CHUNK_LEAVES)) != key
 
 
 def test_a_tiled_chunk_packs_its_first_frame_alone():
@@ -92,14 +94,14 @@ def test_a_tiled_chunk_packs_its_first_frame_alone():
     xs, _ = perf.chunk_xs(total, chunk)
     layout = trender.ChunkLayout(xs)
     assert layout.places == [] and layout.nbytes == trender.ALIGN
-    plans = trender._leaves(layout.template, WindowPlan)
-    assert len(plans) == len(trender._leaves(perf.programs, SegProgram)) > 0
+    plans = tree_leaves(layout.template, WindowPlan)
+    assert len(plans) == len(tree_leaves(perf.programs, SegProgram)) > 0
     buf = torch.zeros((layout.nbytes,), dtype=torch.uint8)
     assert layout.pack(layout.host_views(buf), 3 * chunk,
-                       trender._leaves(xs, trender.CHUNK_LEAVES)) == []
+                       tree_leaves(xs, trender.CHUNK_LEAVES)) == []
     c0, views = layout.views(buf)
     assert c0.tolist() == [3 * chunk] and views == []
-    assert trender._leaves(layout.tree(views), WindowPlan) == plans
+    assert tree_leaves(layout.tree(views), WindowPlan) == plans
 
 
 def _script_part():
@@ -223,7 +225,7 @@ def test_each_replay_counts_the_launches_its_capture_recorded(launches, replays)
 
 def test_a_state_of_another_structure_is_refused():
     with pytest.raises(ValueError, match="structure"):
-        trender._copy_tree(([torch.zeros(1)], ()), ([torch.zeros(1), torch.zeros(1)], ()))
+        tree_copy_(([torch.zeros(1)], ()), ([torch.zeros(1), torch.zeros(1)], ()))
 
 
 def test_events_of_a_song_make_a_capturable_part():

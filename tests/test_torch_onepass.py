@@ -30,7 +30,7 @@ from zang_tpu_torch.host import examples as tex
 from zang_tpu_torch.host import instruments as tti
 from zang_tpu_torch.ops import filters as tfilt
 from zang_tpu_torch.ops import svf_cuda
-from zang_tpu_torch.parallel.mesh import launch_counts
+from zang_tpu_torch.trace import launch_counts
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 

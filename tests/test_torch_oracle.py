@@ -19,8 +19,9 @@ with the same g++ flags, so on one machine every comparison here is exact:
 - `python -m zang_tpu_torch.host.render_wav song --engine oracle` at 2 s,
   byte for byte with the JAX CLI's WAV, and the oracle engines refused for
   another config as in the JAX CLI;
-- bench_fidelity at 2 s on the CPU: the whole render against the oracle,
-  equal to deviation_dbfs against the JAX package's render_song_oracle;
+- the song rendered whole at 2 s on the CPU against the port's oracle,
+  within the parity budget and equal to deviation_dbfs against the JAX
+  package's render_song_oracle;
 - the F2 script (a painter, Gate, inside a zangscript delay body whose
   feedback is low-passed, as chip_smoke.py phase 15 renders it) at chunks
   8,192 and 16,384: the port within -90 dBFS of the oracle, where the JAX
@@ -39,7 +40,6 @@ with the same g++ flags, so on one machine every comparison here is exact:
 import ctypes
 import importlib.util
 import io
-import json
 import os
 import random
 import subprocess
@@ -529,25 +529,19 @@ def test_render_wav_engine_oracle_refused_for_configs(tmp_path, config):
 
 
 # ---------------------------------------------------------------------------
-# bench.py's fidelity metric through the port
+# the whole song against the oracle
 
 
-def test_bench_fidelity_is_the_whole_render_against_the_oracle(capsys):
-    from zang_tpu_torch import bench
-
+def test_bench_fidelity_is_the_whole_render_against_the_oracle():
+    """The song rendered whole (2 s at chunk 16,384, on the CPU) against the
+    port's render_song_oracle over every frame: within the parity budget,
+    and the same reading as against the JAX package's oracle."""
     seconds, chunk = 2.0, 16384
-    bench.bench_fidelity(seconds, chunk, torch.device("cpu"))
-    out, err = capsys.readouterr()
-    (line,) = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
-    assert line["metric"] == "torch_bach_render_fidelity_rms_dbfs"
-    assert line["unit"] == "dbfs_rms_vs_oracle"
     mix = tsong.render_song(seconds, chunk_size=chunk, device="cpu").numpy()
-    rms, _ = deviation_dbfs(mix, jsong.render_song_oracle(seconds))
-    assert line["value"] == round(float(rms), 1)
-    assert line["vs_baseline"] == round(float(rms) / -90.0, 3)
-    assert line["value"] < PARITY_DB
-    assert "# bench_fidelity oracle 2 s of song in" in err
-    assert "# bench_fidelity on the JAX golden's windows: -" in err
+    assert np.isfinite(mix).all() and np.abs(mix).max() > 1e-3
+    rms, peak = deviation_dbfs(mix, tsong.render_song_oracle(seconds))
+    assert (rms, peak) == deviation_dbfs(mix, jsong.render_song_oracle(seconds))
+    assert rms < PARITY_DB
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,7 @@ from zang_tpu_torch.ops import effects as tfx
 from zang_tpu_torch.ops import lookup
 from zang_tpu_torch.ops import sampler as tsam
 from zang_tpu_torch.ops import scan as tscan
-from zang_tpu_torch.parallel.mesh import launch_counts
+from zang_tpu_torch.trace import launch_counts
 from zang_tpu_torch.ops import segprog as tseg
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)

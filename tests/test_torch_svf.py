@@ -22,7 +22,7 @@ from zang_tpu.ops.pallas_svf import GATE_V_MIN, svf_filter_pallas, svf_filter_pa
 from zang_tpu_torch.core import twelve_tet
 from zang_tpu_torch.ops import _build, svf_cuda
 from zang_tpu_torch.ops import filters as tfilt
-from zang_tpu_torch.parallel.mesh import launch_counts
+from zang_tpu_torch.trace import launch_counts
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 

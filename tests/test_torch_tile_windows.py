@@ -19,11 +19,13 @@ import pytest
 import torch
 
 from zang_tpu_torch import trace
+from zang_tpu_torch.device import arrays_to_device, to_device
 from zang_tpu_torch.graph import render as trender
 from zang_tpu_torch.host import configs as tconfigs
 from zang_tpu_torch.host import song as tsong
 from zang_tpu_torch.ops.segprog import SegProgram, WindowPlan, chunkify_tiled, plan_windows
 from zang_tpu_torch.ops.tile_windows import SegTable, tile_windows, tile_windows_ref
+from zang_tpu_torch.tree import tree_leaves
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
@@ -47,14 +49,14 @@ def _assert_cut_is_chunkify_tiled(sp, chunk, total, tile=512):
         got = tile_windows_ref(table, plan, i * chunk)
         assert got.keys() == want.keys()
         for name, arr in want.items():
-            w = trender._to_device(arr[i], "cpu")
+            w = to_device(arr[i], "cpu")
             g = got[name]
             assert g.dtype == w.dtype and g.shape == w.shape, (name, i)
             assert torch.equal(g, w), (name, i)
 
 
 def _programs(perf):
-    return trender._leaves(perf.programs, SegProgram)
+    return tree_leaves(perf.programs, SegProgram)
 
 
 @pytest.fixture(scope="module")
@@ -133,7 +135,7 @@ def _step_with(perf, chunk, slices):
     xs, n_chunks = slices
     state, out = None, []
     for i in range(n_chunks):
-        state, audio = step(state, i * chunk, trender._map_arrays(xs, lambda a: a[i]))
+        state, audio = step(state, i * chunk, trender.chunk_slice(xs, i))
         out.append(audio)
     return torch.cat(out, dim=1)
 
@@ -173,12 +175,11 @@ def test_a_shared_step_refuses_window_plans():
     host slices: window plans would be cut from its own tables."""
     perf = tsong.build_performance(48000)
     step = trender.make_stream_step(perf, 8192, device="cpu")
-    static = [trender._map_arrays(p, lambda a: trender._to_device(a, "cpu"))
-              for p in perf.programs]
+    static = arrays_to_device(perf.programs, "cpu")
     xs, _ = perf.chunk_xs(48000, 8192)
-    assert trender._leaves(xs, WindowPlan)
+    assert tree_leaves(xs, WindowPlan)
     with pytest.raises(ValueError, match="host_slices"):
-        step(None, 0, trender._map_arrays(xs, lambda a: a[0]), static)
+        step(None, 0, trender.chunk_slice(xs, 0), static)
     sl, _ = trender.host_slices(perf, 48000, 8192)
-    _, audio = step(None, 0, trender._map_arrays(sl, lambda a: a[0]), static)
+    _, audio = step(None, 0, trender.chunk_slice(sl, 0), static)
     assert audio.shape == (1, 8192)

@@ -12,13 +12,14 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from zang_tpu_torch import trace
-from zang_tpu_torch.graph.render import _leaves, _map_arrays, render_performance
+from zang_tpu_torch.graph.render import render_performance
 from zang_tpu_torch.host import instruments as ti
 from zang_tpu_torch.host.live import LiveSession
 from zang_tpu_torch.host.song import build_performance
 from zang_tpu_torch.ops.segprog import SegProgram
-from zang_tpu_torch.parallel.mesh import launch_counts, reset_launch_counts
 from zang_tpu_torch.serve.live import LiveFleet
+from zang_tpu_torch.trace import launch_counts, reset_launch_counts
+from zang_tpu_torch.tree import tree_leaves
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
 
@@ -42,9 +43,7 @@ def _names(recs):
 
 def _arrays(tree) -> int:
     """The numpy arrays in a program tree."""
-    found = []
-    _map_arrays(tree, found.append)
-    return len(found)
+    return len(tree_leaves(tree, np.ndarray))
 
 
 def test_off_keeps_nothing_and_opens_no_range(recorder, monkeypatch):
@@ -214,7 +213,7 @@ def test_a_render_spans_planning_and_every_chunk(recorder):
     # the static programs' arrays and the SegPrograms' tables (one packed
     # copy) once; each chunk's tiles are cut on the device, one cut a program
     static = _arrays(perf.programs)
-    n_progs = len(_leaves(perf.programs, SegProgram))
+    n_progs = len(tree_leaves(perf.programs, SegProgram))
     assert n_progs > 0 and _arrays(perf.chunk_xs(total, chunk)[0]) == 0
     assert after["h2d.copies"] - before.get("h2d.copies", 0) == static + 1
     assert after["slice.windows"] - before.get("slice.windows", 0) == n_chunks * n_progs

@@ -14,13 +14,14 @@ import importlib
 import numpy as np
 import torch
 
-from .device import require_device
+from .device import arrays_to_device, device_numpy, require_device
 from .graph.render import Performance
 from .host import configs as tc
 from .host import examples as te
 from .host import instruments as ti
 from .ops.sampler import SampleTable
 from .ops.segprog import SegProgram
+from .tree import tree_map
 
 
 def _sampler(inst):
@@ -83,16 +84,19 @@ def _instrument(inst):
 
 
 def _program(prog):
-    if type(prog).__name__ == "SegProgram":
-        return SegProgram(starts=np.array(prog.starts, copy=True),
-                          values={k: np.array(v, copy=True)
-                                  for k, v in prog.values.items()})
+    """A JAX part's program as numpy copies, its SegPrograms the port's.
+    The key "windowed" of a part's program (the JAX sampler's TPU routing
+    flag) goes: the port has none."""
     if isinstance(prog, dict):
-        # "windowed" is the JAX sampler's TPU routing flag; the port has none
-        return {k: _program(v) for k, v in prog.items() if k != "windowed"}
-    if isinstance(prog, (list, tuple)):
-        return type(prog)(_program(v) for v in prog)
-    return np.array(prog, copy=True)
+        prog = {k: v for k, v in prog.items() if k != "windowed"}
+    return tree_map(_program_leaf, prog)
+
+
+def _program_leaf(v):
+    if type(v).__name__ == "SegProgram":
+        return SegProgram(starts=np.array(v.starts, copy=True),
+                          values={k: np.array(a, copy=True) for k, a in v.values.items()})
+    return np.array(v, copy=True)
 
 
 def from_jax_performance(perf, device, post=None) -> Performance:
@@ -124,14 +128,7 @@ def from_jax_state(state, device):
     states, post = state
 
     def conv(s):
-        if isinstance(s, dict):
-            return {k: conv(v) for k, v in s.items()}
-        if isinstance(s, (list, tuple)):
-            return type(s)(conv(v) for v in s)
-        a = np.array(s)
-        if a.dtype == np.uint32:  # u32 rides int64 (ops/scan.py)
-            a = a.astype(np.int64)
-        return torch.as_tensor(a, device=dev)
+        return tree_map(lambda a: torch.as_tensor(a, device=dev), _device_numpy(s))
 
     return [conv(s) for s in states], conv(post)
 
@@ -155,7 +152,8 @@ def from_jax_checkpoint(path: str, perf: Performance, device="cuda"):
 def _port_data(v):
     """A value of a JAX LiveSession's host state with every dataclass of the
     zang_tpu package (Impulse, SongEvent, dispatcher slots...) rebuilt as
-    the port's class of the same module path and name."""
+    the port's class of the same module path and name. Its own walk, as
+    host/snapshot.py's: it goes into objects, which no tree holds."""
     if dataclasses.is_dataclass(v) and not isinstance(v, type):
         mod = type(v).__module__
         if mod.split(".")[0] == "zang_tpu":
@@ -181,7 +179,8 @@ def _port_data(v):
 def _port_state(node):
     """An extract_state description of a JAX object with its data values
     made the port's (host/snapshot.py: ("v", data), ("seq", [...]),
-    ("map", {...}), ("obj", class name, {attr: ...}), ("skip",))."""
+    ("map", {...}), ("obj", class name, {attr: ...}), ("skip",)). Its own
+    walk: a description is tagged nodes, not a tree of leaves."""
     kind = node[0]
     if kind == "v":
         return ("v", _port_data(node[1]))
@@ -195,13 +194,8 @@ def _port_state(node):
 
 
 def _device_numpy(tree):
-    """JAX device state -> numpy (u32 rides int64 in the port)."""
-    if isinstance(tree, dict):
-        return {k: _device_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_device_numpy(v) for v in tree)
-    a = np.array(tree)
-    return a.astype(np.int64) if a.dtype == np.uint32 else a
+    """JAX device state -> numpy copies, in the port's device dtypes."""
+    return tree_map(lambda a: device_numpy(np.array(a)), tree)
 
 
 def from_jax_live_session(sess, device="cuda", post=None, parts=None):
@@ -217,7 +211,7 @@ def from_jax_live_session(sess, device="cuda", post=None, parts=None):
     compiled again from their source). A JAX post_fn cannot be converted:
     pass the port's as post=(post_fn, post_init_state)."""
     from .host import snapshot as snap
-    from .host.live import LiveSession, to_device
+    from .host.live import LiveSession
 
     if sess.post_fn is not None and post is None:
         raise ValueError("the JAX session has a post_fn: pass the port's post chain "
@@ -251,7 +245,7 @@ def from_jax_live_session(sess, device="cuda", post=None, parts=None):
         pp.controllers = copy.deepcopy(jp.controllers)
         pp.plan_nonce = jp.plan_nonce
         if jp.dev_state is not None:
-            pp.dev_state = to_device(_device_numpy(jp.dev_state), out.device)
+            pp.dev_state = arrays_to_device(_device_numpy(jp.dev_state), out.device)
     if post is not None:
-        out.post_state = to_device(_device_numpy(sess.post_state), out.device)
+        out.post_state = arrays_to_device(_device_numpy(sess.post_state), out.device)
     return out

@@ -18,12 +18,14 @@ import os
 import numpy as np
 import torch
 
-from ..device import require_device
-from .render import Performance, _map_arrays, make_stream_step
+from ..device import device_numpy, require_device
+from .render import Performance, chunk_slice, make_stream_step
 
 
 def state_leaves(state) -> list:
-    """The state's tensors in the JAX package's pytree order."""
+    """The state's tensors in the JAX package's pytree order. Its own walk,
+    not tree.tree_leaves: dict entries go by sorted key, as the file's
+    layout and the JAX package's pytrees have them."""
     if isinstance(state, dict):
         return [x for k in sorted(state) for x in state_leaves(state[k])]
     if isinstance(state, (list, tuple)):
@@ -48,10 +50,8 @@ def _as_leaf(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     if tuple(a.shape) != tuple(like.shape):
         raise ValueError(f"checkpoint leaf of shape {a.shape}, the state's is "
                          f"{tuple(like.shape)}")
-    if a.dtype == np.uint32:  # u32 rides int64 (ops/scan.py)
-        a = a.astype(np.int64)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device=like.device,
-                                                         dtype=like.dtype)
+    return torch.from_numpy(np.ascontiguousarray(device_numpy(a))).to(device=like.device,
+                                                                       dtype=like.dtype)
 
 
 def save_checkpoint(path: str, chunk_index: int, state, audio_so_far: np.ndarray):
@@ -113,8 +113,7 @@ def render_resumable(
         audio_seg = torch.empty((perf.num_channels, (e - c) * chunk_size),
                                 dtype=torch.float32, device=dev)
         for i in range(c, e):
-            state, chunk = step(state, i * chunk_size,
-                                _map_arrays(xs, lambda a, i=i: a[i]))
+            state, chunk = step(state, i * chunk_size, chunk_slice(xs, i))
             audio_seg[:, (i - c) * chunk_size:(i - c + 1) * chunk_size] = chunk
         segments.append(audio_seg.cpu().numpy())
         c = e

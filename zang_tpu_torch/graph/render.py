@@ -45,10 +45,11 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..device import require_device
+from ..device import arrays_to_device, device_dtype, require_device
 from ..ops.segprog import SegProgram, WindowPlan, chunkify, chunkify_tiled, plan_windows
 from ..ops.tile_windows import SegTable, tile_windows
 from ..trace import capture_counts, count, span
+from ..tree import tree_copy_, tree_leaves, tree_map
 
 TILE = 512
 
@@ -64,13 +65,6 @@ class RenderCtx:
     t_idx: torch.Tensor  # int32 [n] absolute frame indices of this chunk
     t0: Union[int, torch.Tensor]  # t_idx[0]; int32 [1] on the card in a graph
     n: int  # chunk length
-
-
-def _to_device(a: np.ndarray, device) -> torch.Tensor:
-    if a.dtype == np.uint32:  # u32 rides int64 (ops/scan.py)
-        a = a.astype(np.int64)
-    count("h2d.copies")
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 class Performance:
@@ -127,32 +121,7 @@ class Performance:
             return {"starts": ch.starts, **ch.values}
 
         with span("slice"):
-            return self.each_program(conv), n_chunks
-
-    def each_program(self, conv: Callable):
-        """The programs with each SegProgram replaced by conv(it) and every
-        other leaf by ()."""
-
-        def walk(prog):
-            if isinstance(prog, SegProgram):
-                return conv(prog)
-            if isinstance(prog, dict):
-                return {k: walk(v) for k, v in prog.items()}
-            if isinstance(prog, (list, tuple)):
-                return type(prog)(walk(v) for v in prog)
-            return ()
-
-        return [walk(p) for p in self.programs]
-
-    def merge_chunk(self, prog, xs_chunk):
-        """Merge chunk-local seg slices into the static program structure."""
-        if isinstance(prog, SegProgram):
-            return xs_chunk
-        if isinstance(prog, dict):
-            return {k: self.merge_chunk(v, xs_chunk[k]) for k, v in prog.items()}
-        if isinstance(prog, (list, tuple)):
-            return type(prog)(self.merge_chunk(v, x) for v, x in zip(prog, xs_chunk))
-        return prog
+            return _per_program(self.programs, conv), n_chunks
 
     def render_parts(self, states, chunk_progs, ctx: RenderCtx, programs=None):
         """Every part's share of one chunk (zang_tpu/graph/render.py
@@ -172,7 +141,9 @@ class Performance:
                 self.parts, programs if programs is not None else self.programs,
                 chunk_progs, states
             ):
-                st2, audio = inst.render(st, self.merge_chunk(static_prog, xs_chunk), ctx)
+                # the chunk's slice of each SegProgram in the program's place
+                prog = tree_map(_second, static_prog, xs_chunk, leaf=SegProgram)
+                st2, audio = inst.render(st, prog, ctx)
                 if getattr(inst, "output_channels", None) is not None:
                     multi = multi + audio
                 elif audio.dim() == 2:  # [V, n] -> sum voices
@@ -215,6 +186,16 @@ class Performance:
         return (new_states, post_state), out
 
 
+def _second(_, x):
+    return x
+
+
+def _per_program(programs, conv: Callable):
+    """programs with each SegProgram replaced by conv(it) and every other
+    leaf by ()."""
+    return tree_map(lambda v: conv(v) if isinstance(v, SegProgram) else (), programs)
+
+
 def host_slices(perf: Performance, total_frames: int, chunk_size: int, tile: int = TILE):
     """perf.chunk_xs with the tiled format's slices built on the host
     ([n_chunks, V, nt, S] arrays, chunkify_tiled) in place of window plans,
@@ -223,40 +204,14 @@ def host_slices(perf: Performance, total_frames: int, chunk_size: int, tile: int
     if not tiled(chunk_size, tile):
         return perf.chunk_xs(total_frames, chunk_size, tile)
     n_chunks = -(-total_frames // chunk_size)
-    return perf.each_program(
-        lambda sp: chunkify_tiled(sp, chunk_size, n_chunks, total_frames, tile)), n_chunks
+    return _per_program(perf.programs, lambda sp: chunkify_tiled(
+        sp, chunk_size, n_chunks, total_frames, tile)), n_chunks
 
 
-def _map_arrays(tree, fn, leaf=np.ndarray):
-    """tree with fn applied to each leaf (an instance of `leaf`)."""
-    if isinstance(tree, leaf):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map_arrays(v, fn, leaf) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_arrays(v, fn, leaf) for v in tree)
-    return tree
-
-
-def _leaves(tree, leaf=(np.ndarray, torch.Tensor)) -> list:
-    """The leaves of tree in _map_arrays' order."""
-    out = []
-    _map_arrays(tree, out.append, leaf)
-    return out
-
-
-def _copy_tree(dst, src) -> None:
-    """Copy every tensor of src into the tensor at the same place in dst."""
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    elif isinstance(dst, dict):
-        for k, v in dst.items():
-            _copy_tree(v, src[k])
-    elif isinstance(dst, (list, tuple)):
-        if len(dst) != len(src):
-            raise ValueError("a state's structure changed from one chunk to the next")
-        for d, x in zip(dst, src):
-            _copy_tree(d, x)
+def chunk_slice(xs, i: int):
+    """Chunk i's slice of a perf.chunk_xs (or host_slices) tree: each
+    [n_chunks, ...] array's row i; a WindowPlan stays as it is."""
+    return tree_map(lambda a: a[i], xs, leaf=np.ndarray)
 
 
 def capturable(perf: Performance) -> bool:
@@ -268,18 +223,8 @@ def capturable(perf: Performance) -> bool:
 
 
 ALIGN = 16  # bytes: every array of a packed chunk starts on a multiple
-CHUNK_LEAVES = (np.ndarray, torch.Tensor, WindowPlan)  # the leaves of a chunk
-_DTYPES = {np.dtype(np.uint32): torch.int64}  # numpy -> the device's (u32 rides int64)
-
-
-def _device_dtype(a) -> torch.dtype:
-    """The dtype an array of a chunk has on the device."""
-    if isinstance(a, torch.Tensor):
-        return a.dtype
-    d = _DTYPES.get(a.dtype)
-    if d is None:
-        d = _DTYPES[a.dtype] = torch.from_numpy(np.empty(0, a.dtype)).dtype
-    return d
+ARRAYS = (np.ndarray, torch.Tensor)
+CHUNK_LEAVES = ARRAYS + (WindowPlan,)  # the leaves of a chunk
 
 
 class ChunkLayout:
@@ -297,19 +242,19 @@ class ChunkLayout:
 
         def place(a):
             nonlocal off
-            dtype = _device_dtype(a)
+            dtype = device_dtype(a)
             self.places.append((off, tuple(a.shape), dtype))
             size = int(np.prod(a.shape, dtype=np.int64)) * dtype.itemsize
             off += -(-size // ALIGN) * ALIGN
             return len(self.places) - 1
 
-        self.template = _map_arrays(xs_chunk, place, (np.ndarray, torch.Tensor))
+        self.template = tree_map(place, xs_chunk, leaf=ARRAYS)
         self.nbytes = off
-        self.key = self.key_of(_leaves(xs_chunk, CHUNK_LEAVES))
+        self.key = self.key_of(tree_leaves(xs_chunk, CHUNK_LEAVES))
 
     @staticmethod
     def key_of(leaves) -> tuple:
-        return tuple(a.key if isinstance(a, WindowPlan) else (tuple(a.shape), _device_dtype(a))
+        return tuple(a.key if isinstance(a, WindowPlan) else (tuple(a.shape), device_dtype(a))
                      for a in leaves)
 
     def views(self, buf: torch.Tensor):
@@ -343,7 +288,7 @@ class ChunkLayout:
 
     def tree(self, leaves):
         """The chunk's slice, `leaves` (of views()) in its arrays' places."""
-        return _map_arrays(self.template, lambda i: leaves[i], int)
+        return tree_map(leaves.__getitem__, self.template, leaf=int)
 
 
 def make_stream_step(perf: Performance, chunk_size: int = 65536, *, device="cuda"):
@@ -373,7 +318,7 @@ def make_stream_step(perf: Performance, chunk_size: int = 65536, *, device="cuda
     (eager). Either step's .tables() sends the tables up at once (the next
     call finds them there) and returns them."""
     dev = require_device(device)
-    static = [_map_arrays(p, lambda a: _to_device(a, dev)) for p in perf.programs]
+    static = arrays_to_device(perf.programs, dev)
     base = torch.arange(chunk_size, dtype=torch.int32, device=dev)
 
     @functools.cache
@@ -389,8 +334,8 @@ def make_stream_step(perf: Performance, chunk_size: int = 65536, *, device="cuda
                 state = perf.init_state(dev)
             ctx = RenderCtx(perf.sample_rate, base + c0, c0, chunk_size)
             with span("chunk.upload"):
-                chunk_progs = _map_arrays(xs_chunk, lambda a: _to_device(a, dev))
-                if programs is not None and _leaves(chunk_progs, WindowPlan):
+                chunk_progs = arrays_to_device(xs_chunk, dev)
+                if programs is not None and tree_leaves(chunk_progs, WindowPlan):
                     raise ValueError("a step given programs takes host slices "
                                      "(host_slices), not window plans")
                 chunk_progs = _windows(chunk_progs, tables, c0)
@@ -407,37 +352,29 @@ def _upload_tables(programs, dev):
     """programs with every SegProgram replaced by its SegTable on dev, all
     of them sent in one packed copy (a ChunkLayout's buffer); None when
     there is no SegProgram."""
-    sps = _leaves(programs, SegProgram)
+    sps = tree_leaves(programs, SegProgram)
     if not sps:
         return None
     host = [{"starts": np.clip(sp.starts, -2 ** 31, 2 ** 31 - 1).astype(np.int32),
              "values": sp.values} for sp in sps]
     lay = ChunkLayout(host)
     buf = torch.empty((lay.nbytes,), dtype=torch.uint8)
-    lay.pack(lay.host_views(buf), 0, _leaves(host))
+    lay.pack(lay.host_views(buf), 0, tree_leaves(host))
     count("h2d.copies")
     got = iter(lay.tree(lay.views(buf.to(dev))[1]))
-    return _map_arrays(programs, lambda sp: SegTable(**next(got)), SegProgram)
+    return tree_map(lambda sp: SegTable(**next(got)), programs, leaf=SegProgram)
 
 
 def _windows(xs, tables, c0):
     """xs (a chunk's slice) with each WindowPlan replaced by the chunk's
     tiles, cut from the SegTable at its place in tables() (tile_windows),
     which is called only for a slice that holds a plan."""
-    return _cut(xs, tables(), c0) if _leaves(xs, WindowPlan) else xs
-
-
-def _cut(xs, tables, c0):
-    if isinstance(xs, WindowPlan):
-        if not isinstance(tables, SegTable):
-            raise ValueError("a window plan needs a step whose chunk is a whole "
-                             "number of tiles")
-        return tile_windows(tables, xs, c0)
-    if isinstance(xs, dict) and isinstance(tables, dict):
-        return {k: _cut(v, tables[k], c0) for k, v in xs.items()}
-    if isinstance(xs, (list, tuple)) and isinstance(tables, (list, tuple)):
-        return type(xs)(_cut(v, t, c0) for v, t in zip(xs, tables))
-    return xs
+    if not tree_leaves(xs, WindowPlan):
+        return xs
+    t = tables()
+    if t is None:
+        raise ValueError("a window plan needs a step whose chunk is a whole number of tiles")
+    return tree_map(lambda plan, table: tile_windows(table, plan, c0), xs, t, leaf=WindowPlan)
 
 
 class GraphStep:
@@ -482,7 +419,7 @@ class GraphStep:
                 self.stream = cur
                 if state is None:
                     state = self.perf.init_state(self.dev)
-                leaves = _leaves(xs_chunk, CHUNK_LEAVES)
+                leaves = tree_leaves(xs_chunk, CHUNK_LEAVES)
                 if self.layout is None or ChunkLayout.key_of(leaves) != self.layout.key:
                     self._new_layout(xs_chunk)
                 with span("chunk.upload"):
@@ -521,7 +458,7 @@ class GraphStep:
             self.buf_views[i].copy_(a)
 
     def _capture(self, state) -> None:
-        self.state = _map_arrays(state, torch.empty_like, torch.Tensor)  # _replay fills it
+        self.state = tree_map(torch.empty_like, state, leaf=torch.Tensor)  # _replay fills it
         # The memory pools of graphs that have died are freed by empty_cache
         # alone (an allocation that fails while a graph is captured frees no
         # cached block): free them before this graph takes room of its own.
@@ -535,7 +472,7 @@ class GraphStep:
                 ctx = RenderCtx(self.perf.sample_rate, self.base + self.c0, self.c0, self.n)
                 new_state, self.out = self.perf.render_chunk(
                     self.state, _windows(self.xs, self.tables, self.c0), ctx, self.static)
-                _copy_tree(self.state, new_state)
+                tree_copy_(self.state, new_state)
             finally:
                 graph.capture_end()
         self.stream.wait_stream(side)
@@ -544,14 +481,14 @@ class GraphStep:
 
     def _replay(self, state):
         if state is not self.returned:
-            _copy_tree(self.state, state)
+            tree_copy_(self.state, state)
         with span("chunk.replay"), (span("chunk.allreduce") if self.reduces
                                     else nullcontext()):
             self.graph.replay()
         count("graph.replays")
         for name, n in self.launches.items():
             count(name, n)
-        self.returned = _map_arrays(self.state, torch.Tensor.clone, torch.Tensor)
+        self.returned = tree_map(torch.Tensor.clone, self.state, leaf=torch.Tensor)
         return self.returned, self.out.clone()
 
 
@@ -562,7 +499,7 @@ def _chunks(perf: Performance, total_frames: int, chunk_size: int, step, state,
     xs, n_chunks = sliced or perf.chunk_xs(total_frames, chunk_size)
     for i in range(n_chunks):
         c0 = i * chunk_size
-        state, audio = step(state, c0, _map_arrays(xs, lambda a, i=i: a[i]))
+        state, audio = step(state, c0, chunk_slice(xs, i))
         yield c0, audio
 
 

@@ -43,11 +43,12 @@ from ..core.notes import IdGenerator, ImpulseQueue, PolyphonyDispatcher
 from ..core.span import Span
 from ..core.timeline import SubvoiceTimeline
 from ..core.trigger import Trigger
-from ..device import require_device
-from ..graph.render import RenderCtx, _map_arrays, _to_device
+from ..device import arrays_to_device, require_device
+from ..graph.render import RenderCtx
 from ..ops.scan import U32
 from ..ops.segprog import SegProgram
 from ..trace import count, span
+from ..tree import tree_map, tree_paths
 from . import keyboard, liveplan
 
 PARAMS = "__params__"  # a part window's live-parameter vector [P]
@@ -62,46 +63,9 @@ def live_device(device) -> torch.device:
     return dev
 
 
-def tree_map(fn, tree, *rest):
-    """fn over the leaves of nested dicts, lists and tuples (and the
-    matching leaves of `rest`, trees of the same structure)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
-    return fn(tree, *rest)
-
-
-def _paths(tree, path=()):
-    """(path, leaf) of every leaf."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _paths(v, path + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _paths(v, path + (i,))
-    else:
-        yield path, tree
-
-
-def _rebuild(tree, fn, path=()):
-    """tree with each leaf replaced by fn(path, leaf)."""
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, fn, path + (k,)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, fn, path + (i,)) for i, v in enumerate(tree))
-    return fn(path, tree)
-
-
 def to_numpy(tree):
     return tree_map(lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
                     else x, tree)
-
-
-def to_device(tree, device):
-    """numpy leaves -> tensors on device (u32 rides int64, ops/scan.py)."""
-    return _map_arrays(tree, lambda a: _to_device(a, device))
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +87,7 @@ class BlockPack:
         self.lanes = lanes
         self.entries = []  # (path, shape, dtype, offset, size)
         off = 1
-        for path, leaf in _paths(window):
+        for path, leaf in tree_paths(window):
             if isinstance(leaf, np.ndarray):
                 if leaf.dtype.itemsize != 4:
                     raise ValueError(f"window leaf {path} has dtype {leaf.dtype}; "
@@ -142,7 +106,7 @@ class BlockPack:
 
     @staticmethod
     def layout_key(window):
-        return tuple((p, leaf.shape, leaf.dtype.str) for p, leaf in _paths(window)
+        return tuple((p, leaf.shape, leaf.dtype.str) for p, leaf in tree_paths(window)
                      if isinstance(leaf, np.ndarray))
 
     def fits(self, windows, device: torch.device, lanes: int) -> bool:
@@ -162,7 +126,7 @@ class BlockPack:
         host = buf.numpy()
         host[:, 0] = np.asarray(f0s, dtype=np.int64).astype(np.int32)
         for lane, window in enumerate(windows):
-            leaves = dict((p, leaf) for p, leaf in _paths(window)
+            leaves = dict((p, leaf) for p, leaf in tree_paths(window)
                           if isinstance(leaf, np.ndarray))
             for path, shape, dtype, off, size in self.entries:
                 a = leaves[path]
@@ -250,10 +214,12 @@ def render_lanes(instruments, polyphonies, states, post_states, dev, f0s, templa
         return RenderCtx(sample_rate, base + int(f0s[lane]), int(f0s[lane]), n)
 
     def part_tree(p, leaf_fn):
-        def leaf(path, v):
-            full = (p,) + path
+        paths = tree_paths(template[p], (p,))
+
+        def leaf(v):
+            full, _ = next(paths)
             return leaf_fn(full, dev[full]) if full in dev else v
-        return _rebuild(template[p], leaf)
+        return tree_map(leaf, template[p])
 
     mix = torch.zeros((L, n), dtype=torch.float32, device=device)
     multi = torch.zeros((L, num_channels, n), dtype=torch.float32, device=device)
@@ -872,7 +838,7 @@ class LiveSession:
             self.slot_capacity = max(self.slot_capacity, state["slot_capacity"])
             self.idgen.next_id = state["next_id"]
             self._held_keys = state["held_keys"]
-            self.post_state = to_device(state["post_state"], self.device)
+            self.post_state = arrays_to_device(state["post_state"], self.device)
             for p, ps in zip(self.parts, state["parts"]):
                 snap.graft_state(p.queue, ps["queue"])
                 snap.graft_state(p.dispatcher, ps["dispatcher"])
@@ -881,7 +847,7 @@ class LiveSession:
                 if ps["planner"] is not None:
                     snap.graft_state(p.planner, ps["planner"])
                 p.dev_state = (None if ps["dev_state"] is None
-                               else to_device(ps["dev_state"], self.device))
+                               else arrays_to_device(ps["dev_state"], self.device))
                 if ps.get("controllers") is not None:
                     p.controllers = ps["controllers"]
                 p.plan_cache = None

@@ -60,7 +60,8 @@ def _is_data(obj) -> bool:
 
 
 def extract_state(obj):
-    """Pure-data description of an object graph's mutable state."""
+    """Pure-data description of an object graph's mutable state. Its own
+    walk, not tree.tree_map: it goes into objects, sets and dataclasses."""
     if callable(obj):
         return _SKIP
     if _is_data(obj):

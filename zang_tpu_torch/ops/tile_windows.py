@@ -18,7 +18,7 @@ which runs on any device and which the router takes for CPU tensors; for
 CUDA tensors it launches the hand-written kernel csrc/tile_windows.cu
 (built at first use by ops/_build.py), with no fallback. Each cut adds one
 to the counter "slice.windows" (trace.counters()), and each launch of the
-kernel one to "launch.tile_windows" (parallel/mesh.launch_counts), inside a
+kernel one to "launch.tile_windows" (trace.launch_counts), inside a
 captured graph once a replay.
 """
 

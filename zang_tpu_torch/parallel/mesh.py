@@ -332,23 +332,6 @@ def whole(build: Callable) -> Callable:
     return functools.partial(_whole, build)
 
 
-_KERNELS = ("svf_table", "svf_dense", "svf_onepass", "table_lookup", "sampler_play",
-            "fm_feedback", "tile_windows")
-
-
-def launch_counts() -> dict:
-    """The six kernels' launch counts in this process (the counters
-    "launch.<kernel>" of trace.counters()), and under "sampler_play" how
-    many of table_lookup's came from its fused entry."""
-    c = trace.counters()
-    return {k: c.get("launch." + k, 0) for k in _KERNELS}
-
-
-def reset_launch_counts() -> None:
-    """Set the launch counts of launch_counts() in this process to 0."""
-    trace.reset_counters("launch.")
-
-
 def _all_reduce(buf: torch.Tensor) -> None:
     dist.all_reduce(buf)
 
@@ -390,7 +373,7 @@ def _run_job(rank: Rank, job: RenderJob) -> dict:
     if cuda:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    reset_launch_counts()
+    trace.reset_launch_counts()
     before = trace.counters()
     t = time.perf_counter()
     audio = render_performance(perf, job.total_frames, job.chunk_size, device=dev,
@@ -405,7 +388,7 @@ def _run_job(rank: Rank, job: RenderJob) -> dict:
         "rank": rank.rank, "world": rank.world, "device": str(dev),
         "backend": rank.backend, "voices": [len(tls) for _, tls in perf.parts],
         "build_s": build_s, "plan_s": plan_s, "slice_s": slice_s,
-        "render_s": render_s, "launches": launch_counts(),
+        "render_s": render_s, "launches": trace.launch_counts(),
         "counts": {k: v - before.get(k, 0) for k, v in trace.counters().items()
                    if v != before.get(k, 0)},
         "peak_bytes": peak, "peak_gib": None if peak is None else peak / 2 ** 30,

@@ -43,10 +43,10 @@ import torch
 
 from ..core.mixdown import mixdown_s16
 from ..core.wav import StreamingWavWriter
-from ..device import require_device
-from ..graph.render import (Performance, _map_arrays, _to_device, host_slices,
-                            make_stream_step)
+from ..device import require_device, to_device
+from ..graph.render import ARRAYS, Performance, chunk_slice, host_slices, make_stream_step
 from ..ops.segprog import SegProgram
+from ..tree import tree_map
 
 # -- program splitting: per-song arrays become the step's arguments ----------
 
@@ -62,39 +62,20 @@ class _ConstSlot:
 
 def _split_programs(programs):
     """-> (skeleton, consts): array leaves pulled into a flat list of numpy
-    arrays and replaced by _ConstSlot markers. SegProgram leaves stay (their
-    chunk slices are merged in by merge_chunk); scalars stay (they are part
-    of the graph key)."""
+    arrays and replaced by _ConstSlot markers. SegProgram leaves stay (the
+    step puts their chunk slices in their places); scalars stay (they are
+    part of the graph key)."""
     consts = []
 
-    def walk(p):
-        if isinstance(p, SegProgram):
-            return p
-        if isinstance(p, dict):
-            return {k: walk(v) for k, v in p.items()}
-        if isinstance(p, (list, tuple)):
-            return type(p)(walk(v) for v in p)
-        if isinstance(p, (np.ndarray, torch.Tensor)):
-            consts.append(_numpy(p))
-            return _ConstSlot(len(consts) - 1)
-        return p
+    def slot(a):
+        consts.append(_numpy(a))
+        return _ConstSlot(len(consts) - 1)
 
-    return [walk(p) for p in programs], consts
+    return tree_map(slot, list(programs), leaf=ARRAYS), consts
 
 
 def _restore_programs(skeleton, consts):
-    def walk(p):
-        if isinstance(p, _ConstSlot):
-            return consts[p.i]
-        if isinstance(p, SegProgram):
-            return p
-        if isinstance(p, dict):
-            return {k: walk(v) for k, v in p.items()}
-        if isinstance(p, (list, tuple)):
-            return type(p)(walk(v) for v in p)
-        return p
-
-    return [walk(p) for p in skeleton]
+    return tree_map(lambda s: consts[s.i], skeleton, leaf=_ConstSlot)
 
 
 def _numpy(v) -> np.ndarray:
@@ -140,6 +121,8 @@ def _instrument_key(inst):
 
 
 def _skeleton_key(p):
+    # folds to a hashable key, dict entries sorted as the JAX package's
+    # keys are (_leaf_key too): no tree_map
     if isinstance(p, _ConstSlot):
         return ("c",)  # the array's content is the song's, not the graph's
     if isinstance(p, SegProgram):
@@ -176,8 +159,9 @@ def _pad_bucket(n: int, minimum: int) -> int:
     return b
 
 
-def _pad_slot_axes(xs, minimum: int = 4):
-    """Edge-pad the slot axis (last) of every chunkified program dict to a
+def _pad_slot_axes(programs, xs, minimum: int = 4):
+    """Edge-pad the slot axis (last) of every chunkified program dict of
+    xs (host_slices(perf, ...), whose SegPrograms are `programs`) to a
     power-of-two bucket, as the JAX package does so that songs share
     compiled shapes. Edge padding is semantics-free in both formats: a
     duplicated boundary re-selects the same value (tiled) / contributes a
@@ -185,27 +169,17 @@ def _pad_slot_axes(xs, minimum: int = 4):
     slots padded to 4 stay on the one-pass SVF (K3) from 4096 voices, and 5
     slots padded to 8 go to K1 (ops/filters.svf_table_route)."""
 
-    def walk(p):
-        if isinstance(p, dict) and ("tb" in p or "starts" in p):
-            kkey = "tb" if "tb" in p else "starts"
-            if isinstance(p[kkey], np.ndarray):
-                S = p[kkey].shape[-1]
-                B = _pad_bucket(S, minimum)
-                if B == S:
-                    return p
-                return {
-                    name: np.pad(
-                        a, [(0, 0)] * (a.ndim - 1) + [(0, B - S)], mode="edge"
-                    )
-                    for name, a in p.items()
-                }
-        if isinstance(p, dict):
-            return {k: walk(v) for k, v in p.items()}
-        if isinstance(p, (list, tuple)):
-            return type(p)(walk(v) for v in p)
-        return p
+    def pad(sp, p):
+        if not isinstance(sp, SegProgram):
+            return p
+        S = p["tb" if "tb" in p else "starts"].shape[-1]
+        B = _pad_bucket(S, minimum)
+        if B == S:
+            return p
+        return {name: np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, B - S)], mode="edge")
+                for name, a in p.items()}
 
-    return walk(xs)
+    return tree_map(pad, programs, xs)
 
 
 # -- the shared-graph cache ---------------------------------------------------
@@ -307,13 +281,13 @@ def render_song_shared(
     so downloads overlap the next segments' work."""
     dev = _device(device)
     xs_np, n_chunks = host_slices(perf, total_frames, chunk_size)
-    xs_np = _pad_slot_axes(xs_np, slot_minimum)
+    xs_np = _pad_slot_axes(perf.programs, xs_np, slot_minimum)
     n_seg = max(1, math.ceil(n_chunks / segment_chunks))
 
     emit = "s16" if s16_volume is not None else "f32"
     skeleton, consts = _split_programs(perf.programs)
     step, _ = cache.get(perf, skeleton, chunk_size, segment_chunks, emit, device=dev)
-    programs = _restore_programs(skeleton, [_to_device(c, dev) for c in consts])
+    programs = _restore_programs(skeleton, [to_device(c, dev) for c in consts])
 
     state = perf.init_state(dev)
     out = [] if on_segment is None else None
@@ -336,8 +310,7 @@ def render_song_shared(
         audio = torch.empty((perf.num_channels, (c_hi - c_lo) * chunk_size),
                             dtype=torch.float32, device=dev)
         for i in range(c_lo, c_hi):
-            state, chunk = step(state, i * chunk_size,
-                                _map_arrays(xs_np, lambda a, i=i: a[i]), programs)
+            state, chunk = step(state, i * chunk_size, chunk_slice(xs_np, i), programs)
             audio[:, (i - c_lo) * chunk_size:(i - c_lo + 1) * chunk_size] = chunk
         audio = audio[:, :total_frames - c_lo * chunk_size]
         if emit == "s16":

@@ -62,9 +62,9 @@ from ..host.live import (
     folds,
     live_device,
     render_lanes,
-    tree_map,
 )
 from ..trace import span
+from ..tree import tree_map
 
 
 def _lane_rows(tree, lane: int, voices: int):

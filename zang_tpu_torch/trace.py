@@ -24,7 +24,7 @@ clears them.
 Counters. count(name, n) adds to a plain dict of ints, always on (a dict
 add a call): "h2d.copies" (each host-to-device copy of a chunk's or a
 block's inputs), "chunks" (each chunk step), "launch.<kernel>" (each
-launch of a hand-written kernel; parallel/mesh.launch_counts reads them),
+launch of a hand-written kernel; launch_counts reads them),
 "graph.captures" and "graph.replays" (each CUDA graph a chunk step
 captures, and each replay of one: graph/render.py). Inside
 capture_counts(), the counts made on that thread go to the dict it yields
@@ -191,3 +191,20 @@ def reset_counters(prefix: str = "") -> None:
         for k in _counters:
             if k.startswith(prefix):
                 _counters[k] = 0
+
+
+KERNELS = ("svf_table", "svf_dense", "svf_onepass", "table_lookup", "sampler_play",
+           "fm_feedback", "tile_windows")  # the hand-written kernels' counters
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches in this process (its counter "launch.<kernel>"),
+    and under "sampler_play" how many of table_lookup's came from its fused
+    entry."""
+    c = counters()
+    return {k: c.get("launch." + k, 0) for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    """Set the launch counts of launch_counts() in this process to 0."""
+    reset_counters("launch.")
