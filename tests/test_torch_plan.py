@@ -3,7 +3,11 @@
 The JAX package's planners live in modules that import jax, so the port
 keeps numpy twins: chunkify, chunkify_tiled, plan_phase_segments, painter_program,
 NiceInstrument's cutoff table, mixdown_s16 and deviation_dbfs. On the
-song's first 10 s every array they make must equal the JAX package's.
+song's first 10 s every array they make must equal the JAX package's; the
+instruments' plans also on the whole song, on the texture of the offline
+cell's build and on a four-card rank's block of the texture of voice
+streams (the port plans a part as [V, K] arrays and one native envelope
+call; the JAX package a voice at a time).
 """
 
 import numpy as np
@@ -13,11 +17,16 @@ import torch
 import jax.numpy as jnp
 
 from zang_tpu.core import mixdown as jmix
+from zang_tpu.core import timeline as jtl
 from zang_tpu.graph import fidelity as jfid
+from zang_tpu.host import configs as jconfigs
+from zang_tpu.host import instruments as jinst
 from zang_tpu.host import song as jsong
+from zang_tpu_torch import trace
 from zang_tpu_torch.core import mixdown as tmix
 from zang_tpu_torch.graph import fidelity as tfid
 from zang_tpu_torch.graph.render import host_slices
+from zang_tpu_torch.host import configs as tconfigs
 from zang_tpu_torch.host import song as tsong
 
 torch.set_num_threads(1)  # xdist workers share the cores (see PERF.md §7)
@@ -55,11 +64,80 @@ def _assert_same_arrays(a, b):
         np.testing.assert_array_equal(la[k], lb[k], err_msg=k)
 
 
+PLAN_KEYS = ["phase", "env", "active_from"]
+TEXTURE_SEED = 2400002101  # a seed of the size the benchmark draws
+
+
 @pytest.mark.parametrize("part", [0, 1], ids=["pedal", "organs"])
-@pytest.mark.parametrize("key", ["phase", "env", "active_from"])
+@pytest.mark.parametrize("key", PLAN_KEYS)
 def test_plans_equal(perfs, part, key):
     jp, tp = perfs
     _assert_same_arrays(jp.programs[part][key], tp.programs[part][key])
+
+
+@pytest.fixture(scope="module")
+def whole_song_perfs():
+    total = int(jsong.NUM_SECONDS * jsong.SAMPLE_RATE)
+    return jsong.build_performance(total), tsong.build_performance(total)
+
+
+@pytest.mark.parametrize("part", [0, 1], ids=["pedal", "organs"])
+@pytest.mark.parametrize("key", PLAN_KEYS)
+def test_whole_song_plans_equal(whole_song_perfs, part, key):
+    """The whole 385 s song: the pedal's pedal_freq and the merged organ's
+    per-voice color through the array planners."""
+    jp, tp = whole_song_perfs
+    _assert_same_arrays(jp.programs[part][key], tp.programs[part][key])
+
+
+@pytest.fixture(scope="module")
+def texture_perfs():
+    """The offline texture cell's build (build_poly_echo_performance) at 256
+    voices, 8 s, 44.1 kHz, on one seed, and the native envelope calls and
+    stage walks the port's plan made."""
+    jp, jtotal = jconfigs.build_poly_echo_performance(256, 8.0, 44100.0, 15000, seed=TEXTURE_SEED)
+    trace.reset_counters("plan.")
+    tp, ttotal = tconfigs.build_poly_echo_performance(256, 8.0, 44100.0, 15000, seed=TEXTURE_SEED)
+    counts = {k: v for k, v in trace.counters().items() if k.startswith("plan.")}
+    assert jtotal == ttotal
+    return jp, tp, counts
+
+
+@pytest.mark.parametrize("key", PLAN_KEYS)
+def test_texture_plans_equal(texture_perfs, key):
+    jp, tp, _ = texture_perfs
+    _assert_same_arrays(jp.programs[0][key], tp.programs[0][key])
+
+
+def test_texture_plan_counters(texture_perfs):
+    """One native envelope call for the part, every stage walk read from a
+    table (no stage of the texture starts mid-flight)."""
+    _, _, counts = texture_perfs
+    assert counts["plan.envelope_calls"] == 1
+    assert counts["plan.stage_table"] > 256 * 50
+    assert counts["plan.stage_stepped"] == 0
+
+
+@pytest.fixture(scope="module", params=[(64, 1), (62, 3)], ids=["rank1_of_4", "rank3_of_4_padded"])
+def block_plans(request):
+    """A four-card rank's block (host/configs.texture_block_build), planned
+    by the port and by the JAX package's NiceInstrument on the same
+    timelines; 62 voices leave the last rank 14 voices and 2 silent pads."""
+    voices, rank = request.param
+    parts, sr, _ = tconfigs.texture_block_build(voices, 8.0, 44100.0, 15000, TEXTURE_SEED,
+                                                rank, 4)
+    inst, tls = parts[0]
+    assert len(tls) == 16
+    assert sum(len(tl.starts) == 0 for tl in tls) == (2 if voices == 62 else 0)
+    jtls = [jtl.SubvoiceTimeline(starts=tl.starts.copy(), resets=tl.resets.copy(),
+                                 params=list(tl.params), total=tl.total) for tl in tls]
+    return jinst.NiceInstrument(0.3).plan(jtls, sr), inst.plan(tls, sr)
+
+
+@pytest.mark.parametrize("key", PLAN_KEYS)
+def test_block_plans_equal(block_plans, key):
+    jp, tp = block_plans
+    _assert_same_arrays(jp[key], tp[key])
 
 
 def test_organ_cutoff_table_covers_notes(perfs):

@@ -228,11 +228,14 @@ int zt_compile_timelines(
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// Envelope compiler: C++ twin of ops/control.py compile_envelope +
-// _PainterWalk (which mirror src/zang/painter.zig:67-120 and
-// src/modules/Envelope.zig:38-108). All t accumulation is plain float with
-// -ffp-contract=off, matching the Python f32 tables (np.cumsum f32) bit for
-// bit. Segment tuples are (start, a, b, t_step, t0, shape).
+// Envelope compiler: C++ twin of ops/control.py _PainterWalk and the JAX
+// package's Python envelope walk (which mirror src/zang/painter.zig:67-120
+// and src/modules/Envelope.zig:38-108). One call walks every voice of a
+// part. All t accumulation is plain float with -ffp-contract=off, matching
+// the Python f32 tables (np.cumsum f32) bit for bit. Segment tuples are
+// (start, a, b, t_step, t0, shape).
+
+#include <unordered_map>
 
 namespace {
 
@@ -243,6 +246,10 @@ constexpr int SHAPE_CUBED = 3;
 // PaintCurve kind codes from the caller: 0 instantaneous, 1 linear,
 // 2 squared, 3 cubed (shape ids align for 1..3).
 
+// A stage with t_step below this (more than 2^22 samples to its crossing)
+// is stepped a sample at a time and builds no table.
+constexpr float MIN_TABLE_STEP = 1.0f / 4194304.0f;
+
 struct SegOut {
   int64_t* start;
   float* a;
@@ -250,8 +257,8 @@ struct SegOut {
   float* t_step;
   float* t0;
   int32_t* shape;
-  int cap;
-  int count = 0;
+  int64_t cap;
+  int64_t count = 0;
 
   bool emit(int64_t s, float av, float bv, float ts, float tz, int sh) {
     if (bv == 0.0f && count > 0 && b[count - 1] == 0.0f && a[count - 1] == av)
@@ -268,21 +275,65 @@ struct SegOut {
   }
 };
 
+// The t a stage reaches from t = 0: t[i] = fl(t[i-1] + t_step), t[-1] = 0,
+// up to and including the crossing, which is clamped to 1
+// (painter.zig:102-105). A stage that starts at t = 0 walks the same
+// sequence whatever its kind, so the tables of one call are keyed by
+// t_step's bits and grown only as far as a walk has asked.
+struct StageTable {
+  float step;
+  std::vector<float> t;
+  bool complete = false;  // t.back() is the crossing
+
+  void grow_to(int64_t len) {
+    float cur = t.empty() ? 0.0f : t.back();
+    while (!complete && (int64_t)t.size() < len) {
+      const float tn = cur + step;
+      if (tn >= 1.0f) {
+        t.push_back(1.0f);
+        complete = true;
+      } else {
+        t.push_back(tn);
+        cur = tn;
+      }
+    }
+  }
+};
+
+struct StageTables {
+  std::unordered_map<uint32_t, StageTable> by_step;  // nodes do not move
+  int64_t table_walks = 0;
+  int64_t stepped_walks = 0;
+
+  StageTable* get(float step) {
+    uint32_t key;
+    std::memcpy(&key, &step, sizeof key);
+    auto it = by_step.find(key);
+    if (it == by_step.end()) {
+      it = by_step.emplace(key, StageTable{}).first;
+      it->second.step = step;
+    }
+    return &it->second;
+  }
+};
+
 struct PainterWalk {
   float t_value = 0.0f;
   bool finished = false;
   float last = 0.0f;
   float start = 0.0f;
-  // current stage "table" context
+  // current stage context
   bool have_stage = false;
   int stage_kind = -1;
   float stage_dur = 0.0f;
   float stage_t_step = 0.0f;
-  float stage_t = 0.0f;       // t after the last consumed sample
-  float stage_t_prev = 0.0f;  // t before the next sample (t_base semantics)
+  float stage_t = 0.0f;  // t after the last consumed sample
   bool stage_crossed = false;
+  StageTable* table = nullptr;  // the stage's t sequence, if it began at t = 0
+  int64_t table_pos = 0;        // samples of it consumed
   float sr;
   SegOut* out;
+  StageTables* tables;
 
   static float tp_of(int kind, float t) {
     const float it = 1.0f - t;
@@ -307,6 +358,37 @@ struct PainterWalk {
     return true;
   }
 
+  // The samples of [s, s + avail) the stage paints, and its t after them:
+  // read from the table in O(1), or stepped a sample at a time where the
+  // stage began mid-flight (t != 0).
+  int64_t advance(int64_t avail, float* t) {
+    if (table != nullptr) {
+      ++tables->table_walks;
+      table->grow_to(table_pos + avail);
+      const int64_t left = (int64_t)table->t.size() - table_pos;
+      const int64_t n = avail < left ? avail : left;
+      table_pos += n;
+      *t = table->t[table_pos - 1];
+      stage_crossed = table->complete && table_pos == (int64_t)table->t.size();
+      return n;
+    }
+    ++tables->stepped_walks;
+    int64_t n = 0;
+    float tc = stage_t;
+    while (n < avail) {
+      const float tn = tc + stage_t_step;
+      ++n;
+      if (tn >= 1.0f) {
+        tc = 1.0f;  // clamp (painter.zig:102-105)
+        stage_crossed = true;
+        break;
+      }
+      tc = tn;
+    }
+    *t = tc;
+    return n;
+  }
+
   // returns new pos; sets *fin; *ok false on capacity overflow
   int64_t paint_toward(int64_t s, int64_t e, int kind, float dur, float goal,
                        bool* fin, bool* ok) {
@@ -329,9 +411,11 @@ struct PainterWalk {
       stage_dur = dur;
       stage_t_step = 1.0f / (dur * sr);
       stage_t = t_value;
-      stage_t_prev = t_value;
       stage_crossed = false;
       have_stage = true;
+      const bool fresh = t_value == 0.0f && stage_t_step >= MIN_TABLE_STEP;
+      table = fresh ? tables->get(stage_t_step) : nullptr;
+      table_pos = 0;
     }
     if (stage_crossed) {
       finished = true;
@@ -345,30 +429,18 @@ struct PainterWalk {
     }
     const float t_base = stage_t;  // t before the first emitted sample
     const float bv = goal - start;
-    int64_t n = 0;
-    float t = stage_t;
-    while (n < avail) {
-      float tn = t + stage_t_step;
-      ++n;
-      if (tn >= 1.0f) {
-        t = 1.0f;  // clamp (painter.zig:102-105)
-        stage_crossed = true;
-        break;
-      }
-      t = tn;
+    float t;
+    const int64_t n = advance(avail, &t);
+    if (!out->emit(s, start, bv, stage_t_step, t_base,
+                   kind == 1 ? SHAPE_LINEAR
+                             : (kind == 2 ? SHAPE_SQUARED : SHAPE_CUBED))) {
+      *ok = false;
+      *fin = false;
+      return s;
     }
-    if (n > 0) {
-      if (!out->emit(s, start, bv, stage_t_step, t_base,
-                     kind == 1 ? SHAPE_LINEAR
-                               : (kind == 2 ? SHAPE_SQUARED : SHAPE_CUBED))) {
-        *ok = false;
-        *fin = false;
-        return s;
-      }
-      last = start + tp_of(kind, t) * bv;
-      t_value = t;
-      stage_t = t;
-    }
+    last = start + tp_of(kind, t) * bv;
+    t_value = t;
+    stage_t = t;
     if (stage_crossed) {
       finished = true;
       *fin = true;
@@ -385,24 +457,28 @@ constexpr int ENV_DECAY = 2;
 constexpr int ENV_SUSTAIN = 3;
 constexpr int ENV_RELEASE = 4;
 
-}  // namespace
+// The per-segment inputs of a part, flat: segment j of every column.
+struct EnvColumns {
+  const int64_t* starts;
+  const uint8_t* resets;
+  const uint8_t* note_on;
+  const int32_t* attack_kind;
+  const float* attack_dur;
+  const int32_t* decay_kind;
+  const float* decay_dur;
+  const int32_t* release_kind;
+  const float* release_dur;
+  const float* sustain;
+};
 
-extern "C" {
-
-// Returns 0 ok, 2 = capacity exceeded, 3 = note_on during release without a
-// new note id (the reference asserts here — Envelope.zig:45).
-int zt_compile_envelope(
-    const int64_t* starts, const uint8_t* resets, int num_segs, int64_t total,
-    const uint8_t* note_on, const int32_t* attack_kind, const float* attack_dur,
-    const int32_t* decay_kind, const float* decay_dur,
-    const int32_t* release_kind, const float* release_dur,
-    const float* sustain, float sample_rate,
-    int64_t* seg_start, float* a, float* b, float* t_step, float* t0,
-    int32_t* shape, int cap, int32_t* out_count) {
-  SegOut out{seg_start, a, b, t_step, t0, shape, cap};
+// One voice's segments [lo, hi) of the columns. Returns 0 ok, 2 = capacity
+// exceeded, 3 = note_on during release without a new note id.
+int walk_voice(const EnvColumns& c, int64_t lo, int64_t hi, int64_t total,
+               float sample_rate, SegOut* out, StageTables* tables) {
   PainterWalk w;
   w.sr = sample_rate;
-  w.out = &out;
+  w.out = out;
+  w.tables = tables;
   int state = ENV_IDLE;
   if (!w.emit_const(0, 0.0f)) return 2;
 
@@ -411,31 +487,31 @@ int zt_compile_envelope(
     w.new_curve();
   };
 
-  for (int k = 0; k < num_segs; ++k) {
-    const int64_t s = starts[k];
-    const int64_t e = (k + 1 < num_segs) ? starts[k + 1] : total;
+  for (int64_t k = lo; k < hi; ++k) {
+    const int64_t s = c.starts[k];
+    const int64_t e = (k + 1 < hi) ? c.starts[k + 1] : total;
     if (e <= s) continue;
-    const bool reset = resets[k] != 0;
+    const bool reset = c.resets[k] != 0;
     int64_t pos = s;
     bool fin, ok;
-    if (note_on[k]) {
+    if (c.note_on[k]) {
       if (reset) change(ENV_ATTACK);
       if (state == ENV_IDLE) change(ENV_ATTACK);
       if (state == ENV_RELEASE) return 3;
       if (state == ENV_ATTACK) {
-        pos = w.paint_toward(pos, e, attack_kind[k], attack_dur[k], 1.0f,
+        pos = w.paint_toward(pos, e, c.attack_kind[k], c.attack_dur[k], 1.0f,
                              &fin, &ok);
         if (!ok) return 2;
-        if (fin) change(sustain[k] < 1.0f ? ENV_DECAY : ENV_SUSTAIN);
+        if (fin) change(c.sustain[k] < 1.0f ? ENV_DECAY : ENV_SUSTAIN);
       }
       if (state == ENV_DECAY) {
-        pos = w.paint_toward(pos, e, decay_kind[k], decay_dur[k], sustain[k],
-                             &fin, &ok);
+        pos = w.paint_toward(pos, e, c.decay_kind[k], c.decay_dur[k],
+                             c.sustain[k], &fin, &ok);
         if (!ok) return 2;
         if (fin) change(ENV_SUSTAIN);
       }
       if (state == ENV_SUSTAIN) {
-        if (!w.paint_flat(pos, e, sustain[k])) return 2;
+        if (!w.paint_flat(pos, e, c.sustain[k])) return 2;
         pos = e;
       }
     } else {
@@ -443,7 +519,7 @@ int zt_compile_envelope(
         if (!w.paint_flat(pos, e, 0.0f)) return 2;
       } else {
         if (state != ENV_RELEASE) change(ENV_RELEASE);
-        pos = w.paint_toward(pos, e, release_kind[k], release_dur[k], 0.0f,
+        pos = w.paint_toward(pos, e, c.release_kind[k], c.release_dur[k], 0.0f,
                              &fin, &ok);
         if (!ok) return 2;
         if (fin) change(ENV_IDLE);
@@ -451,8 +527,48 @@ int zt_compile_envelope(
       }
     }
   }
-  *out_count = out.count;
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The envelopes of a part's voices in one call. Voice v's segments are
+// [seg_offsets[v], seg_offsets[v + 1]) of the per-segment columns; its
+// painter segments go to [out_offsets[v], out_offsets[v + 1]) of the
+// outputs, their number to out_counts[v]. stage_walks[0] counts the stage
+// walks read from a table, stage_walks[1] those stepped a sample at a time.
+// Returns 0 ok, 2 = capacity exceeded, 3 = note_on during release without a
+// new note id (the reference asserts here — Envelope.zig:45); *failed_voice
+// is the voice that failed.
+int zt_compile_envelopes(
+    int num_voices, const int64_t* seg_offsets, const int64_t* starts,
+    const uint8_t* resets, int64_t total, const uint8_t* note_on,
+    const int32_t* attack_kind, const float* attack_dur,
+    const int32_t* decay_kind, const float* decay_dur,
+    const int32_t* release_kind, const float* release_dur,
+    const float* sustain, float sample_rate, const int64_t* out_offsets,
+    int64_t* seg_start, float* a, float* b, float* t_step, float* t0,
+    int32_t* shape, int32_t* out_counts, int64_t* stage_walks,
+    int32_t* failed_voice) {
+  const EnvColumns cols{starts, resets, note_on, attack_kind, attack_dur,
+                        decay_kind, decay_dur, release_kind, release_dur,
+                        sustain};
+  StageTables tables;
+  int rc = 0;
+  for (int v = 0; v < num_voices && rc == 0; ++v) {
+    const int64_t o = out_offsets[v];
+    SegOut out{seg_start + o, a + o, b + o, t_step + o, t0 + o, shape + o,
+               out_offsets[v + 1] - o};
+    rc = walk_voice(cols, seg_offsets[v], seg_offsets[v + 1], total,
+                    sample_rate, &out, &tables);
+    out_counts[v] = (int32_t)out.count;
+    if (rc != 0) *failed_voice = v;
+  }
+  stage_walks[0] = tables.table_walks;
+  stage_walks[1] = tables.stepped_walks;
+  return rc;
 }
 
 }  // extern "C"

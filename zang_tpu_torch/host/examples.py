@@ -42,7 +42,7 @@ from ..core import twelve_tet as tt
 from ..core.curves import PaintCurve
 from ..core.mixdown import mixdown_s16
 from ..core.notes import SongEvent
-from ..core.timeline import SubvoiceTimeline, active_from, compile_timelines
+from ..core.timeline import SubvoiceTimeline, active_from, compile_timelines, part_columns
 from ..core.wav import write_wav_s16
 from ..device import require_device
 from ..graph.render import Performance, render_performance
@@ -496,19 +496,13 @@ class DetunedInstrument:
         self.warble_mul = warble_mul
 
     def plan(self, timelines, sample_rate):
-        freq_fn = ti.default_freq
+        cols = part_columns(timelines)
         prog = {"active_from": active_from(timelines),
-                "phase": oscillators.plan_phase_segments(timelines, freq_fn, sample_rate,
+                "phase": oscillators.plan_phase_segments(cols, ti.default_freq, sample_rate,
                                                          guard_div8=True)}
-        ti._plan_envelope(timelines, sample_rate, ti._cubed_adsr(), prog)
+        ti._plan_envelope(cols, sample_rate, ti._cubed_adsr(), prog)
         # per-note freq as a column for the warble multiply
-        freq = np.zeros_like(prog["phase"].values["valid"])
-        for v, tl in enumerate(timelines):
-            k = len(tl.starts)
-            if k:
-                freq[v, :k] = tl.param_f32(freq_fn)
-                freq[v, k:] = freq[v, k - 1]
-        prog["phase"].values["freq"] = freq
+        prog["phase"].values["freq"] = cols.pad(cols.param_f32(ti.default_freq))
         if self.warble_mul is not None:
             prog["warble_mul"] = np.ascontiguousarray(self.warble_mul, F32)
         return prog

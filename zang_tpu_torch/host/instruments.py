@@ -28,7 +28,7 @@ import torch
 
 from ..core import twelve_tet
 from ..core.curves import PaintCurve
-from ..core.timeline import SubvoiceTimeline, active_from
+from ..core.timeline import SubvoiceTimeline, active_from, part_columns
 from ..ops import control, filters, fm, oscillators
 from ..ops.scan import freq_to_ifreq, t_rows, u32
 from ..ops.segprog import SegProgram, eval_chunk
@@ -49,15 +49,12 @@ def default_freq(p):
     return F32(p["freq"])
 
 
+# the same values over a part's columns (core/timeline.PartColumns.param_f32)
+default_freq.array_form = lambda cols: cols.column("freq", F32)
+
+
 def _plan_envelope(timelines, sample_rate, env_const, prog):
-    segs = [
-        control.compile_envelope(
-            tl, sample_rate,
-            lambda k, p: {**env_const, "note_on": bool(p["note_on"])},
-        )
-        for tl in timelines
-    ]
-    prog["env"] = control.painter_program(segs, timelines[0].total)
+    prog["env"] = control.envelope_program(timelines, sample_rate, env_const)
     return prog
 
 
@@ -87,17 +84,9 @@ def _phase(prog, ctx):
 def _freq_program(timelines) -> SegProgram:
     """Each voice's note frequency as a SegProgram {"freq"} (padding starts
     at total, repeating the last value)."""
-    total = timelines[0].total
-    freq = np.zeros((len(timelines), max(1, max(len(t.starts) for t in timelines))),
-                    dtype=np.float32)
-    starts = np.full_like(freq, total, dtype=np.int64)
-    for v, tl in enumerate(timelines):
-        k = len(tl.starts)
-        if k:
-            freq[v, :k] = tl.param_f32(default_freq)
-            freq[v, k:] = freq[v, k - 1]
-            starts[v, :k] = tl.starts
-    return SegProgram(starts=starts, values={"freq": freq})
+    cols = part_columns(timelines)
+    return SegProgram(starts=cols.padded_starts(),
+                      values={"freq": cols.pad(cols.param_f32(default_freq))})
 
 
 def _zeros(num_voices, dtype, device):
@@ -135,12 +124,12 @@ class PMOscInstrument:
         self.freq_fn = freq_fn or default_freq
 
     def plan(self, timelines: List[SubvoiceTimeline], sample_rate: float):
+        cols = part_columns(timelines)
         prog = {
-            "phase": oscillators.plan_phase_segments(timelines, self.freq_fn, sample_rate),
+            "phase": oscillators.plan_phase_segments(cols, self.freq_fn, sample_rate),
             "active_from": active_from(timelines),
         }
-        return _plan_envelope(timelines, sample_rate,
-                              _cubed_adsr(self.release_duration), prog)
+        return _plan_envelope(cols, sample_rate, _cubed_adsr(self.release_duration), prog)
 
     lane_foldable = True
     capturable = True
@@ -174,24 +163,18 @@ class NiceInstrument:
         self.freq_fn = freq_fn or default_freq
 
     def plan(self, timelines, sample_rate):
-        phase = oscillators.plan_phase_segments(
-            timelines, self.freq_fn, sample_rate, guard_div8=True
-        )
+        cols = part_columns(timelines)
+        phase = oscillators.plan_phase_segments(cols, self.freq_fn, sample_rate,
+                                                guard_div8=True)
         # per-note cutoff = cutoffFromFrequency(freq * 8, sr), f32 on host
         f = F32
-        cut = np.zeros_like(phase.values["valid"])
-        for v, tl in enumerate(timelines):
-            k = len(tl.starts)
-            if k:
-                freqs = tl.param_f32(self.freq_fn)
-                x = f(2.0) * (f(1.0) - np.cos(
-                    f(np.pi) * (freqs * f(8.0)) / f(sample_rate), dtype=F32))
-                cut[v, :k] = np.sqrt(np.clip(x, f(0.0), f(1.0)), dtype=F32)
-                cut[v, k:] = cut[v, k - 1]
-        phase.values["cut"] = cut
+        freqs = cols.param_f32(self.freq_fn)
+        x = f(2.0) * (f(1.0) - np.cos(
+            f(np.pi) * (freqs * f(8.0)) / f(sample_rate), dtype=F32))
+        phase.values["cut"] = cols.pad(np.sqrt(np.clip(x, f(0.0), f(1.0)), dtype=F32))
 
         prog = {"phase": phase, "active_from": active_from(timelines)}
-        return _plan_envelope(timelines, sample_rate, self._env_const(), prog)
+        return _plan_envelope(cols, sample_rate, self._env_const(), prog)
 
     def _env_const(self):
         return {
@@ -702,27 +685,28 @@ class FMSynthInstrument:
         self._apply_cfg()
 
     def _env(self, timelines, sample_rate, op):
-        segs = [control.compile_envelope(tl, sample_rate,
-                                         lambda k, p: self._env_params(op, p))
-                for tl in timelines]
-        return control.painter_program(segs, timelines[0].total)
+        return control.envelope_program(timelines, sample_rate, self._env_const(op))
 
     @staticmethod
-    def _env_params(op, p):
-        # reads `op` (self.mod / self.car) at call time: the incremental
-        # planners re-invoke this when painting the open segment, which is
-        # what makes plan-kind parameter changes land on the next block
+    def _env_const(op):
         return {"attack": PaintCurve.cubed(op["attack"]),
                 "decay": PaintCurve.cubed(op["decay"]),
                 "release": PaintCurve.cubed(op["release"]),
-                "sustain_volume": op["sustain"],
-                "note_on": bool(p["note_on"])}
+                "sustain_volume": op["sustain"]}
+
+    @classmethod
+    def _env_params(cls, op, p):
+        # reads `op` (self.mod / self.car) at call time: the incremental
+        # planners re-invoke this when painting the open segment, which is
+        # what makes plan-kind parameter changes land on the next block
+        return {**cls._env_const(op), "note_on": bool(p["note_on"])}
 
     def plan(self, timelines, sample_rate):
+        cols = part_columns(timelines)
         return {"active_from": active_from(timelines),
-                "mod_env": self._env(timelines, sample_rate, self.mod),
-                "car_env": self._env(timelines, sample_rate, self.car),
-                "freqs": _freq_program(timelines)}
+                "mod_env": self._env(cols, sample_rate, self.mod),
+                "car_env": self._env(cols, sample_rate, self.car),
+                "freqs": _freq_program(cols)}
 
     def live_planner(self, polyphony: int, sample_rate: float):
         from . import liveplan as lp

@@ -73,6 +73,10 @@ def pedal_freq(p) -> F32:
     return F32(F32(p["freq"]) * F32(0.5))
 
 
+# the same values over a part's columns (core/timeline.PartColumns.param_f32)
+pedal_freq.array_form = lambda cols: cols.column("freq", F32) * F32(0.5)
+
+
 def song_parts(total_frames: int, song=None, multiple: int = 1,
                three_part: bool = False) -> list:
     """[(instrument, timelines)] of the song over [0, total_frames): the

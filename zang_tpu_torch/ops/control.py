@@ -16,6 +16,7 @@ import torch
 
 from ..core import native
 from ..core.curves import PaintCurve
+from ..core.timeline import PartColumns, part_columns
 from .scan import t_rows
 from .segprog import SegProgram
 
@@ -29,6 +30,9 @@ MAX_TABLE = 1 << 24
 
 # program segment tuple: (start, a, b, t_step, t0, shape_id)
 Seg = Tuple[int, float, float, float, float, int]
+# the native compiler's segment columns and the program's dtypes
+_SEG_DTYPES = (("start", np.int64), ("a", np.float32), ("b", np.float32),
+               ("t_step", np.float32), ("t0", np.float32), ("shape", np.int32))
 
 
 def compile_envelope(tl, sample_rate: float, env_params_fn) -> dict:
@@ -36,8 +40,31 @@ def compile_envelope(tl, sample_rate: float, env_params_fn) -> dict:
 
     env_params_fn(segment_index, note_params) -> dict with attack, decay,
     release (PaintCurve), sustain_volume, note_on. Raises if the native
-    compiler cannot be built."""
-    return native.compile_envelope_native(tl, sample_rate, env_params_fn)
+    compiler cannot be built. Returns a dict of arrays {"start", "a", "b",
+    "t_step", "t0", "shape"} (accepted by painter_program)."""
+    cols = PartColumns([tl])
+    stages, note_on = native.segment_stages(cols, lambda v, k, p: env_params_fn(k, p))
+    segs = native.compile_envelopes_native(cols, sample_rate, stages, note_on)
+    n = int(segs["counts"][0])
+    return {name: segs[name][:n].copy() for name, _ in _SEG_DTYPES}
+
+
+def envelope_program(timelines, sample_rate: float, env) -> SegProgram:
+    """A part's envelopes as one painter program, every voice walked in one
+    native call (core/native.compile_envelopes_native).
+
+    env: the part's constant parameters {"attack", "decay", "release":
+    PaintCurve, "sustain_volume"}, each segment's note_on read from its
+    params; or env(voice, k, note_params) -> those and "note_on", called a
+    segment, where they vary by segment. timelines may be the part's
+    core.timeline.PartColumns."""
+    cols = part_columns(timelines)
+    if callable(env):
+        stages, note_on = native.segment_stages(cols, env)
+    else:
+        stages, note_on = native.stage_values(env), cols.column("note_on", bool)
+    segs = native.compile_envelopes_native(cols, sample_rate, stages, note_on)
+    return _pack_painter(segs, segs["offsets"], segs["counts"], cols.total)
 
 
 def painter_program(segs_per_voice, total: int) -> SegProgram:
@@ -46,36 +73,28 @@ def painter_program(segs_per_voice, total: int) -> SegProgram:
     dict of arrays {"start", "a", "b", "t_step", "t0", "shape"} (the native
     compiler)."""
     segs_per_voice = [_seg_arrays(sv) for sv in segs_per_voice]
-    S = max(1, max(len(sv["start"]) for sv in segs_per_voice))
-    V = len(segs_per_voice)
-    starts = np.full((V, S), total, dtype=np.int64)
-    a = np.zeros((V, S), dtype=np.float32)
-    b = np.zeros((V, S), dtype=np.float32)
-    t_step = np.zeros((V, S), dtype=np.float32)
-    t0 = np.zeros((V, S), dtype=np.float32)
-    shape = np.zeros((V, S), dtype=np.int32)
-    for v, segs in enumerate(segs_per_voice):
-        k = len(segs["start"])
-        starts[v, :k] = segs["start"]
-        a[v, :k] = segs["a"]
-        b[v, :k] = segs["b"]
-        t_step[v, :k] = segs["t_step"]
-        t0[v, :k] = segs["t0"]
-        shape[v, :k] = segs["shape"]
-        # repeat the last segment's values into padding (zero deltas)
-        if k:
-            a[v, k:] = a[v, k - 1]
-            b[v, k:] = b[v, k - 1]
-            t_step[v, k:] = t_step[v, k - 1]
-            t0[v, k:] = t0[v, k - 1]
-            shape[v, k:] = shape[v, k - 1]
-    return SegProgram(
-        starts=starts,
-        values={
-            "a": a, "b": b, "t_step": t_step, "t0": t0,
-            "shape": shape, "seg_start": starts.astype(np.int32),
-        },
-    )
+    counts = np.array([len(sv["start"]) for sv in segs_per_voice], np.int64)
+    offsets = np.cumsum(counts) - counts
+    flat = {name: np.concatenate([np.asarray(sv[name]) for sv in segs_per_voice]
+                                 + [np.zeros(0, dt)]).astype(dt)
+            for name, dt in _SEG_DTYPES}
+    return _pack_painter(flat, offsets, counts, total)
+
+
+def _pack_painter(flat: dict, offsets, counts, total: int) -> SegProgram:
+    """Voice v's segments flat[name][offsets[v]:offsets[v] + counts[v]] as
+    a [V, S] SegProgram: starts padded with total, the last segment's
+    values repeated into the padding (zero deltas), zeros for a voice with
+    none."""
+    offsets, counts = np.asarray(offsets, np.int64), np.asarray(counts, np.int64)
+    k = np.arange(max(1, int(counts.max(initial=0))))
+    idx = np.where(counts[:, None] > 0,
+                   offsets[:, None] + np.minimum(k, counts[:, None] - 1), -1)
+    vals = {name: np.append(np.asarray(flat[name], dt), np.zeros(1, dt))[idx]  # -1: none
+            for name, dt in _SEG_DTYPES}
+    starts = np.where(k < counts[:, None], vals.pop("start"), total)
+    vals["seg_start"] = starts.astype(np.int32)
+    return SegProgram(starts=starts, values=vals)
 
 
 def _seg_arrays(segs) -> dict:
@@ -262,7 +281,7 @@ class EnvelopeWalkStream:
     segment [s, e) at a time, with the ADSR state and the painter walk
     carried across: the incremental live planner's envelope
     (host/liveplan.py). Its segments are the C++ compiler's
-    (core/native.compile_envelope_native) for the same timeline."""
+    (core/native.compile_envelopes_native) for the same timeline."""
 
     def __init__(self, sample_rate: float, env_params_fn) -> None:
         self.w = _PainterWalk(sample_rate)

@@ -11,6 +11,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..core.timeline import part_columns
 from .scan import F32, as_f32, exclusive_cumsum_u32, freq_to_ifreq, ftou32, t_rows, u32, utof23
 from .segprog import SegProgram
 
@@ -20,53 +21,44 @@ GAIN = 0.7
 
 def plan_phase_segments(timelines, freq_fn, sample_rate: float,
                         guard_div8: bool = False, freqs_override=None) -> SegProgram:
-    """Host: note-constant frequencies -> a phase SegProgram.
+    """Host: note-constant frequencies -> a phase SegProgram, over every
+    segment of the part at once.
 
     Values per segment: ifreq (u32 increment), A = cnt0 - start*ifreq (u32,
     so cnt(t) = A + t*ifreq mod 2^32, bit-identical to per-sample
-    accumulation), valid (f32 0/1). freq_fn(note_params) -> frequency, or
-    freqs_override [V, K] gives each segment's frequency (the script
-    backend's note-rate columns). guard_div8 applies the pulse validity
-    rule (silent, no phase advance outside [0, sr/8] — PulseOsc.zig:82-84).
+    accumulation), valid (f32 0/1). freq_fn(note_params) -> frequency
+    (core.timeline.PartColumns.param_f32), or freqs_override [V, K] gives
+    each segment's frequency (the script backend's note-rate columns).
+    guard_div8 applies the pulse validity rule (silent, no phase advance
+    outside [0, sr/8] — PulseOsc.zig:82-84). timelines may be the part's
+    PartColumns.
     """
-    V = len(timelines)
-    total = timelines[0].total if timelines else 0
-    K = max(1, max(len(tl.starts) for tl in timelines))
-    starts = np.full((V, K), total, dtype=np.int64)
-    ifreq = np.zeros((V, K), dtype=np.uint32)
-    A = np.zeros((V, K), dtype=np.uint32)
-    valid = np.zeros((V, K), dtype=np.float32)
+    cols = part_columns(timelines)
+    if freqs_override is not None:
+        freqs = cols.per_segment(np.asarray(freqs_override, dtype=np.float32))
+    else:
+        freqs = cols.param_f32(freq_fn)
     srbase = np.float32(np.float32(4294967296.0) / np.float32(sample_rate))
     with np.errstate(over="ignore"):
-        for v, tl in enumerate(timelines):
-            k = len(tl.starts)
-            if k == 0:
-                continue
-            starts[v, :k] = tl.starts
-            if freqs_override is not None:
-                freqs = np.asarray(freqs_override[v, :k], dtype=np.float32)
-            else:
-                freqs = tl.param_f32(freq_fn)
-            scaled = srbase * freqs
-            mag = np.abs(scaled).astype(np.uint32)
-            inc = np.where(scaled >= 0, mag, np.uint32(0) - mag)
-            ok = np.ones(k, dtype=bool)
-            if guard_div8:
-                ok = (freqs >= 0) & (freqs <= np.float32(sample_rate) / np.float32(8.0))
-                inc = np.where(ok, inc, np.uint32(0))
-            valid[v, :k] = ok.astype(np.float32)
-            valid[v, k:] = valid[v, k - 1]
-            ifreq[v, :k] = inc
-            ifreq[v, k:] = inc[-1]
-            # exact u32 phase at each segment start
-            ends = np.append(tl.starts[1:], total)
-            lens = (ends - tl.starts).astype(np.uint32)
-            c = np.uint32(0)
-            for i in range(k):
-                A[v, i] = np.uint32(c - np.uint32(tl.starts[i]) * inc[i])
-                c = np.uint32(c + lens[i] * inc[i])
-            A[v, k:] = A[v, k - 1]
-    return SegProgram(starts=starts, values={"ifreq": ifreq, "A": A, "valid": valid})
+        scaled = srbase * freqs
+        mag = np.abs(scaled).astype(np.uint32)
+        inc = np.where(scaled >= 0, mag, np.uint32(0) - mag)
+        ok = np.ones(len(freqs), dtype=bool)
+        if guard_div8:
+            ok = (freqs >= 0) & (freqs <= np.float32(sample_rate) / np.float32(8.0))
+            inc = np.where(ok, inc, np.uint32(0))
+        # exact u32 phase at each segment start: the sum mod 2^32 of the
+        # voice's earlier segments' lens * inc (an exclusive prefix sum over
+        # the part, less its value at the voice's first segment)
+        lens = (cols.ends() - cols.starts).astype(np.uint32)
+        adv = lens * inc
+        before = np.cumsum(adv, dtype=np.uint32) - adv
+        voice_base = np.repeat(before[cols.offsets[:-1][cols.counts > 0]],
+                               cols.counts[cols.counts > 0])
+        A = (before - voice_base) - cols.starts.astype(np.uint32) * inc
+    return SegProgram(starts=cols.padded_starts(),
+                      values={"ifreq": cols.pad(inc), "A": cols.pad(A),
+                              "valid": cols.pad(ok.astype(np.float32))})
 
 
 def phase_from_chunk(vals: dict, t_idx: torch.Tensor

@@ -568,12 +568,9 @@ class _InlineEnv:
                                          env_resolver)
                 self._painter_op(site, dest)
                 return
-            segs = [
-                control.compile_envelope(
-                    tl, sr, lambda k, p, v=v: env_resolver(v, k))
-                for v, tl in enumerate(scale.timelines)
-            ]
-            self._emit_painter(site, segs, dest)
+            self.p.programs[f"prog_{site}"] = control.envelope_program(
+                scale.timelines, sr, lambda v, k, p: env_resolver(v, k))
+            self._painter_op(site, dest)
             return
         if name == "Gate":
             note_on = self.local_arr(named["note_on"])

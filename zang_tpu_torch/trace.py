@@ -26,7 +26,10 @@ add a call): "h2d.copies" (each host-to-device copy of a chunk's or a
 block's inputs), "chunks" (each chunk step), "launch.<kernel>" (each
 launch of a hand-written kernel; launch_counts reads them),
 "graph.captures" and "graph.replays" (each CUDA graph a chunk step
-captures, and each replay of one: graph/render.py). Inside
+captures, and each replay of one: graph/render.py), "plan.envelope_calls"
+(each native envelope call, a part's voices in one), "plan.stage_table" and
+"plan.stage_stepped" (the stage walks of those calls read from a table and
+stepped a sample at a time: core/native.py). Inside
 capture_counts(), the counts made on that thread go to the dict it yields
 instead: a captured graph launches nothing until it is replayed, so its
 step counts those once a replay.
